@@ -1,0 +1,47 @@
+"""State carried across from the JAX package's numpy arrays.
+
+The system has no learned weights: the map arrays and the camera are its
+state. Descriptors are 256-bit strings stored as (N, 8) ``uint32`` words in
+the JAX package; torch has few ``uint32`` ops, so the port keeps the same
+bits as ``int32`` (a ``view``, never a value conversion).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def to_torch(x, device=None) -> torch.Tensor:
+    """One array (numpy, JAX or Python) -> tensor on ``device``.
+
+    uint32 -> bit-identical int32; other integers -> int32; floats -> f32;
+    bool stays bool.
+    """
+    a = np.asarray(x)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    elif a.dtype == np.bool_:
+        pass
+    elif np.issubdtype(a.dtype, np.floating):
+        a = a.astype(np.float32)
+    elif np.issubdtype(a.dtype, np.integer):
+        a = a.astype(np.int32)
+    else:
+        raise TypeError(f"unsupported dtype {a.dtype}")
+    return torch.from_numpy(np.array(a, order="C")).to(device)   # a copy
+
+
+def tree_to_torch(args, device=None) -> tuple:
+    """A tuple of arrays (e.g. the tracking-step arguments) -> tensors."""
+    return tuple(to_torch(a, device) for a in args)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """Tensor -> numpy on the host (no dtype change)."""
+    return t.detach().cpu().numpy()
+
+
+def desc_to_uint32(t: torch.Tensor) -> np.ndarray:
+    """(N, 8) int32 descriptor words -> the JAX package's uint32 words."""
+    return to_numpy(t).astype(np.int32, copy=False).view(np.uint32)

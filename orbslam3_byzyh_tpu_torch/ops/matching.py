@@ -1,0 +1,162 @@
+"""Batched Hamming-distance descriptor matching (the tracking subset).
+
+Port of ``orbslam3_byzyh_tpu/ops/matching.py``. Descriptors are (N, 8)
+int32 words holding the JAX package's uint32 bits. Distances are int32 in
+[0, 256]; ``INVALID_DIST`` (1024) marks masked-out pairs. The fused
+masked top-2 reduction is kernel K2 (:mod:`.cuda_match`).
+"""
+
+from __future__ import annotations
+
+import torch
+
+TH_LOW = 50
+TH_HIGH = 100
+INVALID_DIST = 1024
+
+_M1, _M2, _M4 = 0x55555555, 0x33333333, 0x0F0F0F0F
+
+
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Bit count of int32 words (torch has no popcount op): SWAR on the
+    words widened to int64, so no shift drags in a sign bit."""
+    x = x.to(torch.int64) & 0xFFFFFFFF
+    x = x - ((x >> 1) & _M1)
+    x = (x & _M2) + ((x >> 2) & _M2)
+    x = (x + (x >> 4)) & _M4
+    return ((x * 0x01010101) >> 24 & 0xFF).to(torch.int32)
+
+
+def hamming_matrix(da: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
+    """(N, 8) x (M, 8) int32 words -> (N, M) int32 Hamming distances."""
+    dist = torch.zeros((da.shape[0], db.shape[0]), dtype=torch.int32,
+                       device=da.device)
+    for k in range(da.shape[1]):
+        dist += popcount32(da[:, None, k] ^ db[None, :, k])
+    return dist
+
+
+def masked_hamming(da, db, valid_a, valid_b, pair_mask=None):
+    """Distance matrix with invalid rows/cols/pairs set to INVALID_DIST."""
+    dist = hamming_matrix(da, db)
+    ok = valid_a[:, None] & valid_b[None, :]
+    if pair_mask is not None:
+        ok = ok & pair_mask
+    return torch.where(ok, dist, INVALID_DIST)
+
+
+def best_two(dist: torch.Tensor):
+    """Per-row best and second-best distances + best column. dist: (N, M).
+
+    Ties go to the lowest column; the second excludes only the best column,
+    so it equals the best when a duplicate distance sits elsewhere (the
+    order of ``jax.lax.top_k``). A composite key (dist, column) makes the
+    order explicit: ``torch.topk`` promises none on ties.
+    """
+    n, m = dist.shape
+    if m < 2:
+        dist = torch.cat([dist, torch.full((n, 2 - m), INVALID_DIST,
+                                           dtype=dist.dtype,
+                                           device=dist.device)], 1)
+        m = 2
+    col = torch.arange(m, device=dist.device)
+    key = dist.to(torch.int64) * m + col
+    k1 = key.amin(1)
+    best_j = k1 % m
+    key2 = torch.where(col == best_j[:, None], (INVALID_DIST + 1) * m, key)
+    second = key2.amin(1) // m
+    return ((k1 // m).to(torch.int32), second.to(torch.int32),
+            best_j.to(torch.int32))
+
+
+def ratio_test(best, second, ratio: float):
+    """Nearest / second-nearest gate (mfNNratio)."""
+    return best.to(torch.float32) < ratio * second.to(torch.float32)
+
+
+def mutual_filter_from_best(best, best_j, accept, m: int):
+    """Each target column keeps only its best row (lowest row on ties)."""
+    n = best.shape[0]
+    dev = best.device
+    best_d = torch.where(accept, best, INVALID_DIST).to(torch.int32)
+    bj = best_j.long()
+    col_min = torch.full((m,), INVALID_DIST, dtype=torch.int32, device=dev)
+    col_min = col_min.scatter_reduce(0, bj, best_d, reduce="amin")
+    keep = accept & (best_d == col_min[bj]) & (best_d < INVALID_DIST)
+    rows = torch.arange(n, dtype=torch.int32, device=dev)
+    first_row = torch.full((m,), n, dtype=torch.int32, device=dev)
+    first_row = first_row.scatter_reduce(0, bj, torch.where(keep, rows, n),
+                                         reduce="amin")
+    return keep & (first_row[bj] == rows)
+
+
+def window_mask(xy_a, xy_b, radius):
+    """Candidate pairs within a pixel window. radius: scalar or (N,)."""
+    d = xy_a[:, None, :] - xy_b[None, :, :]
+    d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]
+    r = torch.as_tensor(radius, dtype=torch.float32, device=xy_a.device)
+    r2 = r * r if r.dim() == 0 else (r * r)[:, None]
+    return d2 <= r2
+
+
+def level_mask(level_a, level_b, min_delta: int = 0, max_delta: int = 0):
+    """Pyramid-level compatibility: level_b within [la+min, la+max]."""
+    diff = level_b[None, :] - level_a[:, None]
+    return (diff >= min_delta) & (diff <= max_delta)
+
+
+def predict_scale_level(dist, max_dist, scale: float = 1.2, n_levels: int = 8):
+    """Pyramid level a landmark would appear at (MapPoint::PredictScale)."""
+    ratio = (max_dist / dist.clamp_min(1e-6)).clamp_min(1e-6)
+    # float32 log of the float32 scale, as a Python number: no device copy.
+    log_scale = float(torch.log(torch.tensor(scale, dtype=torch.float32)))
+    lvl = torch.ceil(torch.log(ratio) / log_scale)
+    return lvl.to(torch.int32).clamp(0, n_levels - 1)
+
+
+def frustum_cull(R, t, pos, normal, min_dist, max_dist, cam_params,
+                 img_w: float, img_h: float, view_cos_limit: float = 0.5):
+    """Frame::isInFrustum batched: (visible, projected uv, distance, level)."""
+    pc = pos @ R.T + t
+    z = pc[:, 2]
+    fx, fy, cx, cy = cam_params[0], cam_params[1], cam_params[2], cam_params[3]
+    inv_z = 1.0 / torch.where(z.abs() < 1e-9, torch.full_like(z, 1e-9), z)
+    u = fx * pc[:, 0] * inv_z + cx
+    v = fy * pc[:, 1] * inv_z + cy
+    cam_center = -(R.T @ t)
+    po = pos - cam_center
+    dist = torch.linalg.vector_norm(po, dim=-1)
+    view_cos = (po * normal).sum(-1) / dist.clamp_min(1e-9)
+    ok = ((z > 0.01) & (u >= 0) & (u < img_w) & (v >= 0) & (v < img_h)
+          & (dist >= 0.8 * min_dist) & (dist <= 1.2 * max_dist)
+          & (view_cos > view_cos_limit))
+    level = predict_scale_level(dist, max_dist)
+    return ok, torch.stack([u, v], -1), dist, level
+
+
+def _finish_match(best, second, best_j, m, max_dist, ratio, mutual):
+    """Shared accept/gate chain after a top-2 reduction."""
+    accept = best <= max_dist
+    if ratio is not None:
+        accept = accept & ratio_test(best, second, ratio)
+    if mutual:
+        accept = mutual_filter_from_best(best, best_j, accept, m)
+    return (torch.where(accept, best_j, -1),
+            torch.where(accept, best, INVALID_DIST))
+
+
+def search_by_projection(proj_xy, pred_level, lm_desc, lm_valid,
+                         kp_xy, kp_level, kp_desc, kp_valid,
+                         radius, max_dist: int = TH_HIGH, ratio: float = 0.9,
+                         level_window: tuple = (-1, 1)):
+    """Project-and-match: landmarks (rows) against frame keypoints (cols),
+    with a per-landmark radius and a pyramid-level window (ORBmatcher::
+    SearchByProjection). Returns (match_j, dist) per landmark."""
+    from . import cuda_match
+
+    best, second, best_j = cuda_match.hamming_best2(
+        lm_desc, kp_desc, lm_valid, kp_valid,
+        xy_a=proj_xy, xy_b=kp_xy, radius=radius,
+        level_a=pred_level, level_b=kp_level, level_window=level_window)
+    return _finish_match(best, second, best_j, kp_xy.shape[0],
+                         max_dist, ratio, mutual=True)

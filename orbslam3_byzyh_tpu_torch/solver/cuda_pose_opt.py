@@ -1,0 +1,132 @@
+"""Kernel K3: the fused 4 x 10 motion-only pose optimization.
+
+Replaces ``orbslam3_byzyh_tpu/solver/pallas_pose_opt.py::
+pose_optimization_fused`` (the Pallas kernel from ``_kernel_factory``).
+The CUDA source is ``csrc/pose_opt.cu``: one thread block per problem, so
+a batch of B problems (relocalization hypotheses, the reference-keyframe
+fallback) is one launch. :func:`pose_optimization_plain` is the same
+schedule in plain PyTorch, following the JAX package's XLA path
+(``solver/pose_opt.py``): SVD re-orthonormalisation and ``linalg.solve``
+where the kernel uses Gram-Schmidt and a scalar Cholesky.
+
+Dispatch: a CPU tensor takes the plain version, a CUDA tensor the kernel.
+Both return (R, t, chi2); the caller forms the inlier mask.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..kernels._build import Kernel, check_cuda, ptr, stream_of
+from ..ops import camera as cam
+from ..ops import lie
+from . import lm, pose_opt
+
+CHI2_MONO = lm.CHI2_MONO
+
+_P = ctypes.c_void_p
+KERNEL = Kernel("pose_opt", {
+    # params, pts, obs, inv_s2, valid, inlier scratch, b, n, n_rounds,
+    # n_iters, pose_out, chi2_out, stream
+    "pose_optimization": [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_int, _P, _P, _P],
+})
+
+
+def pose_optimization_plain(R0, t0, pts_w, obs_uv, inv_sigma2, valid,
+                            cam_params, n_rounds: int = 4, n_iters: int = 10):
+    """Plain PyTorch version for one problem: (R, t, chi2)."""
+    delta2 = CHI2_MONO
+
+    def residuals(R, t):
+        return pose_opt._residuals_mono(R, t, pts_w, obs_uv, cam_params,
+                                        cam.PINHOLE)
+
+    def chi2_of(R, t):
+        r, _, depth_ok = residuals(R, t)
+        chi2 = (r * r).sum(-1) * inv_sigma2
+        return torch.where(depth_ok, chi2, 1e9)
+
+    def retract(x, dx):
+        Rr, tr = x
+        dR, dt = lie.se3_exp(dx)
+        return lie.normalize_rotation(dR @ Rr), dR @ tr + dt
+
+    R, t, inlier = R0, t0, valid
+    for rd in range(n_rounds):
+        robust = rd < n_rounds - 1      # the final round drops the kernel
+
+        def build(x, inlier=inlier, robust=robust):
+            r, J, depth_ok = residuals(*x)
+            chi2 = (r * r).sum(-1) * inv_sigma2
+            mask = inlier & valid & depth_ok
+            if robust:
+                w_rob = lm.huber_weight(chi2, delta2)
+                rho = torch.where(chi2 <= delta2, chi2,
+                                  2.0 * torch.sqrt(delta2 * chi2) - delta2)
+            else:
+                w_rob, rho = torch.ones_like(chi2), chi2
+            H, b = lm.assemble_normal(J, r, w_rob * inv_sigma2 * mask)
+            return H, -b, (rho * mask).sum()
+
+        _, _, cost0 = build((R, t))
+        st = ((R, t), torch.tensor(1e-3, dtype=torch.float32,
+                                   device=R.device), cost0)
+        for _ in range(n_iters):
+            st = lm.lm_step(st[0], st[1], st[2], build, retract)
+        R, t = st[0]
+        inlier = (chi2_of(R, t) <= delta2) & valid   # re-classify
+    return R, t, chi2_of(R, t)
+
+
+def pose_optimization_kernel(R0, t0, pts_w, obs_uv, inv_sigma2, valid,
+                             cam_params, n_rounds: int = 4,
+                             n_iters: int = 10):
+    """K3 on the card. Takes one problem (R0 (3, 3), pts (N, 3), ...) or a
+    batch (R0 (B, 3, 3), pts (B, N, 3), ...) sharing ``cam_params``."""
+    single = R0.dim() == 2
+    if single:
+        R0, t0, pts_w, obs_uv, inv_sigma2, valid = (
+            a[None] for a in (R0, t0, pts_w, obs_uv, inv_sigma2, valid))
+    b, n = pts_w.shape[0], pts_w.shape[1]
+    dev = pts_w.device
+    params = torch.cat([R0.reshape(b, 9), t0.reshape(b, 3),
+                        cam_params[:4].reshape(1, 4).expand(b, 4)], 1)
+    params = params.to(torch.float32).contiguous()
+    pts = pts_w.to(torch.float32).contiguous()
+    obs = obs_uv.to(torch.float32).contiguous()
+    iv2 = inv_sigma2.to(torch.float32).contiguous()
+    val = valid.contiguous()
+    check_cuda("params", params, torch.float32, (b, 16))
+    check_cuda("pts_w", pts, torch.float32, (b, n, 3))
+    check_cuda("obs_uv", obs, torch.float32, (b, n, 2))
+    check_cuda("inv_sigma2", iv2, torch.float32, (b, n))
+    check_cuda("valid", val, torch.bool, (b, n))
+    scratch = torch.empty((b, n), dtype=torch.uint8, device=dev)
+    pose = torch.empty((b, 12), dtype=torch.float32, device=dev)
+    chi2 = torch.empty((b, n), dtype=torch.float32, device=dev)
+    KERNEL.launch("pose_optimization", ptr(params), ptr(pts), ptr(obs),
+                  ptr(iv2), ptr(val), ptr(scratch), b, n, n_rounds, n_iters,
+                  ptr(pose), ptr(chi2), stream_of(pts))
+    R, t = pose[:, :9].reshape(b, 3, 3), pose[:, 9:]
+    if single:
+        return R[0], t[0], chi2[0]
+    return R, t, chi2
+
+
+def pose_optimization(R0, t0, pts_w, obs_uv, inv_sigma2, valid, cam_params,
+                      n_rounds: int = 4, n_iters: int = 10):
+    """Pinhole motion-only BA schedule: (R, t, chi2), optionally batched."""
+    args = (R0, t0, pts_w, obs_uv, inv_sigma2, valid, cam_params)
+    if pts_w.device.type != "cpu":
+        return pose_optimization_kernel(*args, n_rounds=n_rounds,
+                                        n_iters=n_iters)
+    if R0.dim() == 2:
+        return pose_optimization_plain(*args, n_rounds=n_rounds,
+                                       n_iters=n_iters)
+    outs = [pose_optimization_plain(*(a[i] for a in args[:6]), cam_params,
+                                    n_rounds=n_rounds, n_iters=n_iters)
+            for i in range(R0.shape[0])]
+    return tuple(torch.stack(o) for o in zip(*outs))

@@ -1,0 +1,80 @@
+"""Port parity: the lie subset and the pinhole camera against the JAX package.
+
+Tolerance 1e-6 relative (with a 1e-7 floor for entries near zero): both
+sides are float32 with the same formulas; sin/cos/sqrt and the SVD may
+differ in the last bit.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch_port_util import n, t
+
+from orbslam3_byzyh_tpu.ops import camera as jcam
+from orbslam3_byzyh_tpu.ops import lie as jlie
+from orbslam3_byzyh_tpu_torch.ops import camera as tcam
+from orbslam3_byzyh_tpu_torch.ops import lie as tlie
+
+RTOL, ATOL = 1e-6, 1e-7
+
+
+def _tangents(rng, k=64):
+    """Rotation vectors spanning the Taylor branch, small and large angles."""
+    w = rng.normal(0, 1, (k, 3))
+    w /= np.linalg.norm(w, axis=1, keepdims=True)
+    mags = np.concatenate([np.full(8, 1e-7), np.full(8, 3e-6),
+                           rng.uniform(1e-3, 0.1, 24), rng.uniform(0.5, 3.0, 24)])
+    return (w * mags[:, None]).astype(np.float32)
+
+
+@pytest.mark.parametrize("fn", ["skew", "so3_exp", "so3_right_jacobian"])
+def test_so3_functions(rng, fn):
+    w = _tangents(rng)
+    ref = n(getattr(jlie, fn)(jnp.asarray(w)))
+    out = n(getattr(tlie, fn)(t(w)))
+    # Between the Taylor branch and ~0.5 rad, (1 - cos th) / th^2 cancels:
+    # one ulp of cos (6e-8) moves the coefficient of W by 6e-8 / th^2, i.e.
+    # an entry by ~6e-8 / th, in both packages alike. The floor says so.
+    th = np.linalg.norm(w.astype(np.float64), axis=1)[:, None, None]
+    atol = ATOL + 2e-7 / th if fn == "so3_right_jacobian" else ATOL
+    assert np.all(np.abs(out - ref) <= atol + RTOL * np.abs(ref))
+
+
+def test_se3_exp(rng):
+    xi = np.concatenate([rng.normal(0, 0.5, (64, 3)).astype(np.float32),
+                         _tangents(rng)], 1)
+    Rj, tj = jlie.se3_exp(jnp.asarray(xi))
+    Rt, tt = tlie.se3_exp(t(xi))
+    np.testing.assert_allclose(n(Rt), n(Rj), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(n(tt), n(tj), rtol=RTOL, atol=ATOL)
+
+
+def test_normalize_rotation(rng):
+    R = n(jlie.so3_exp(jnp.asarray(_tangents(rng))))
+    R = (R + rng.normal(0, 1e-4, R.shape)).astype(np.float32)   # off SO(3)
+    ref = n(jlie.normalize_rotation(jnp.asarray(R)))
+    out = n(tlie.normalize_rotation(t(R)))
+    # The polar factor is unique, but two SVD algorithms reach it through
+    # different rounding: 1e-6 absolute on unit-size entries.
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(np.linalg.det(out), 1.0, atol=1e-5)
+
+
+def _points(rng, k=200):
+    return np.stack([rng.uniform(-4, 4, k), rng.uniform(-3, 3, k),
+                     rng.uniform(0.5, 20, k)], -1).astype(np.float32)
+
+
+@pytest.mark.parametrize("fn", ["project", "project_jac"])
+def test_pinhole(rng, fn):
+    pc = _points(rng)
+    params = np.array([420.0, 415.0, 320.0, 240.0], np.float32)
+    ref = getattr(jcam, fn)(jcam.PINHOLE, jnp.asarray(params), jnp.asarray(pc))
+    out = getattr(tcam, fn)(tcam.PINHOLE, t(params), t(pc))
+    np.testing.assert_allclose(n(out), n(ref), rtol=RTOL, atol=ATOL)
+
+
+def test_kb8_not_ported():
+    with pytest.raises(NotImplementedError):
+        tcam.project(tcam.KB8, torch.zeros(8), torch.ones(3))

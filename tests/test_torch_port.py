@@ -1,0 +1,93 @@
+"""The port's contracts: it never imports JAX, CPU tensors never reach a
+kernel, and a CUDA kernel that cannot run raises. (Kernel-vs-plain tests on
+a card are in test_torch_kernels_cuda.py.)"""
+
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+from torch_port_util import n, t
+
+from orbslam3_byzyh_tpu_torch import convert, graft
+from orbslam3_byzyh_tpu_torch.kernels import _build
+from orbslam3_byzyh_tpu_torch.ops import cuda_brief, cuda_match, fast_orb
+from orbslam3_byzyh_tpu_torch.pipeline import tracking
+from orbslam3_byzyh_tpu_torch.solver import cuda_pose_opt
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT = REPO / "orbslam3_byzyh_tpu_torch"
+KERNELS = {"K1": cuda_brief.KERNEL, "K2": cuda_match.KERNEL,
+           "K3": cuda_pose_opt.KERNEL}
+
+
+def _imports(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_imports(path):
+    """Static check (the environment imports jax at start-up, so a
+    subprocess cannot show it): no module of the port, nor the chip smoke
+    script, imports jax or the JAX package."""
+    for mod in _imports(path):
+        root = mod.split(".")[0]
+        assert root not in ("jax", "jaxlib", "orbslam3_byzyh_tpu"), (path, mod)
+
+
+def test_cpu_slice_launches_no_kernel():
+    for k in KERNELS.values():
+        k.launches = 0
+    img = t(graft.example_arrays(96, 128, 64)[0])
+    f = fast_orb.extract(img, n_features=64)
+    scene = convert.tree_to_torch(graft.lifted_scene(
+        n(f.xy), n(f.level), n(f.desc), n(f.valid), h=96, w=128, n_lm=64))
+    _, R0, t0, *lm, cam = scene
+    bind = torch.full((64,), -1, dtype=torch.int32)
+    res = tracking.track_local_map(R0, t0, bind, *lm, f.xy, f.level, f.desc,
+                                   f.valid, cam, 128, 96)
+    assert int(res.n_inliers) > 0
+    assert {n_: k.launches for n_, k in KERNELS.items()} == \
+        {"K1": 0, "K2": 0, "K3": 0}
+
+
+def test_kernel_wrappers_reject_cpu_tensors():
+    """The kernel entry points take CUDA tensors only: no silent CPU run."""
+    z = torch.zeros
+    with pytest.raises(ValueError):
+        cuda_brief.brief_descriptors_kernel(
+            z(100), [(10, 10)], z(4, 2), z(4, dtype=torch.int32), z(4), z(4))
+    with pytest.raises(ValueError):
+        cuda_match.hamming_best2_kernel(
+            z(4, 8, dtype=torch.int32), z(5, 8, dtype=torch.int32),
+            z(4, dtype=torch.bool), z(5, dtype=torch.bool))
+    with pytest.raises(ValueError):
+        cuda_pose_opt.pose_optimization_kernel(
+            torch.eye(3), z(3), z(8, 3), z(8, 2), z(8),
+            z(8, dtype=torch.bool), z(4))
+
+
+def test_failed_build_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    k = _build.Kernel("brief", {})
+    with pytest.raises(RuntimeError, match="nvcc"):
+        k.build()
+    assert k.launches == 0
+
+
+def test_convert_round_trip(rng):
+    desc = rng.integers(0, 2 ** 32, (16, 8), dtype=np.uint32)
+    td = convert.to_torch(desc)
+    assert td.dtype == torch.int32
+    np.testing.assert_array_equal(convert.desc_to_uint32(td), desc)
+    assert convert.to_torch(np.arange(3, dtype=np.int64)).dtype == torch.int32
+    assert convert.to_torch(np.ones(3)).dtype == torch.float32
+    assert convert.to_torch(np.ones(3, bool)).dtype == torch.bool
