@@ -11,13 +11,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import device as device_mod
+
 
 def to_torch(x, device=None) -> torch.Tensor:
-    """One array (numpy, JAX or Python) -> tensor on ``device``.
+    """One array (numpy, JAX or Python) -> tensor on ``device`` (``None``:
+    the card, see :func:`device.resolve`).
 
     uint32 -> bit-identical int32; other integers -> int32; floats -> f32;
     bool stays bool.
     """
+    dev = device_mod.resolve(device)
     a = np.asarray(x)
     if a.dtype == np.uint32:
         a = a.view(np.int32)
@@ -29,12 +33,14 @@ def to_torch(x, device=None) -> torch.Tensor:
         a = a.astype(np.int32)
     else:
         raise TypeError(f"unsupported dtype {a.dtype}")
-    return torch.from_numpy(np.array(a, order="C")).to(device)   # a copy
+    return torch.from_numpy(np.array(a, order="C")).to(dev)   # a copy
 
 
 def tree_to_torch(args, device=None) -> tuple:
-    """A tuple of arrays (e.g. the tracking-step arguments) -> tensors."""
-    return tuple(to_torch(a, device) for a in args)
+    """A tuple of arrays (e.g. the tracking-step arguments) -> tensors on
+    ``device`` (``None``: the card)."""
+    dev = device_mod.resolve(device)
+    return tuple(to_torch(a, dev) for a in args)
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:

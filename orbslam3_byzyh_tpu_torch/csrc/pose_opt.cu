@@ -5,40 +5,73 @@
 // itself the fused form of Optimizer::PoseOptimization: pinhole residuals
 // and 2x6 Jacobians under a left SE(3) perturbation, Huber weights with
 // delta^2 = 5.991 (dropped in the last round), the 6x6 normal equations,
-// (H + lam diag H) dx = g by scalar Cholesky, retraction exp(dx) * T with
-// Gram-Schmidt re-orthonormalisation, accept if the cost falls (lam * 0.5)
-// else reject (lam * 10), and inliers re-marked between rounds
-// (chi2 <= 5.991 with depth > 0.05).
+// (H + lam diag H) dx = g, retraction exp(dx) * T with Gram-Schmidt
+// re-orthonormalisation, accept if the cost falls (lam * 0.5) else reject
+// (lam * 10), and inliers re-marked between rounds (chi2 <= 5.991 with
+// depth > 0.05).
 //
-// What bounds it on this card: the sequential chain, not bytes or flops.
-// One problem is ~1k points; each of the 40 iterations is two passes over
-// them (normal equations, candidate cost) with a tiny 6x6 solve between,
-// so the cost is ~90 block-wide reductions and barriers in a row. Launched
-// from the host, each step would be a separate small kernel.
+// What bounds it on this card: the chain of dependent steps, not bytes or
+// flops. One problem is ~1k points (~30 KB, ~10 MFLOP for the schedule);
+// every LM iteration needs the previous one's pose, so the time is the
+// number of passes over the points times (pass + block reduction + the
+// serial 6x6 solve and retraction).
 //
 // Design: one thread block per problem (a batch of B problems is one
-// launch). The points stay in global memory (28 bytes each, L1/L2
-// resident); each thread owns the points i = tid (mod blockDim) for the
-// whole schedule, so its inlier flags in the scratch buffer are written and
-// read by the same thread. Each pass ends in a block reduction (warp
-// shuffles, then one value per warp through shared memory) of the 21 upper
-// H entries, 6 g entries and the cost. Thread 0 then runs the Cholesky
-// solve, the retraction and the accept test on scalars and publishes the
-// pose through shared memory. Sums are taken in a fixed order, so a run is
-// deterministic; the order differs from the plain PyTorch version's, which
-// also uses SVD and linalg.solve, so the two agree to a tolerance.
+// launch, each block bit-identical to its single-problem run).
+//  * One pass per LM iteration. The pass at the candidate pose gives its
+//    cost together with H and g there. On accept those are the next
+//    iteration's system; on reject the pose and the inlier set are
+//    unchanged, so the current H and g are still exact and only lam
+//    changes. A round's first pass gives cost0 with H and g; from round 1
+//    on it first re-marks each point's inlier flag at the same pose, and the
+//    last pass writes chi2. 45 passes: 1 + 40 + 3 + 1.
+//  * The points and their flags live in shared memory for the whole
+//    schedule (25 B a point); each point is owned by one thread of warps
+//    1.., which alone reads and writes its flag. The pass is branch-free: a
+//    point outside the mask adds zeros.
+//  * The 27 H/g sums and the cost are reduced by a warp transpose-reduce:
+//    each shuffle step hands half of a lane's partial sums to its partner
+//    (31 shuffles a warp, after which lane k holds the warp's sum k), then
+//    warp 0 adds the warps' partials, lane k for sum k, in a fixed order, so
+//    runs are deterministic.
+//  * Warp 0 keeps the LM state in shared memory and runs the accept test,
+//    the solve (LDL^T: no square roots) and the retraction (sincosf)
+//    redundantly in its 32 lanes. While warps 1.. run a candidate's pass,
+//    warp 0 already solves for the step that follows a rejection (same H,
+//    g and pose, lam * 10), so only an accepted candidate leaves a solve on
+//    the critical path.
+// Division and square root stay IEEE (no fast math): the kernel is held to
+// the plain PyTorch version within 1e-4.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 384;  // warp 0 solves, warps 1-11 sweep the points
 constexpr int kWarps = kThreads / 32;
-constexpr int kSums = 28;            // 21 H (upper) + 6 g + 1 cost
+constexpr int kWorkers = kThreads - 32;  // warps 1.. sweep the points
 constexpr float kDelta2 = 5.991f;
+constexpr float kFar = 1e9f;             // chi2 of a point behind the camera
+constexpr unsigned char kValid = 1, kInlier = 2;
+constexpr unsigned kFull = 0xffffffffu;
 
 struct Cam {
   float fx, fy, cx, cy;
+};
+
+// The point arrays in dynamic shared memory.
+struct Points {
+  float *x, *y, *z, *u, *v, *iv2;
+  unsigned char* flag;
+};
+
+// LM state, written by warp 0 only.
+struct State {
+  float P[12];       // accepted pose: R row-major (9), t (3)
+  float C[12];       // candidate pose, the next pass's
+  float R[12];       // the candidate that follows a rejection
+  float Hg[27];      // H upper (21) and g sums (6) at P
+  float cost, lam;
 };
 
 struct Terms {
@@ -46,273 +79,376 @@ struct Terms {
   bool depth_ok;
 };
 
-__device__ __forceinline__ Terms point_terms(const float* pose, const Cam& c,
-                                             const float* p, const float* o,
-                                             float iv2) {
+__device__ __forceinline__ Terms point_terms(const float (&pose)[12],
+                                             const Cam& c, const Points& s,
+                                             int i) {
+  const float X = s.x[i], Y = s.y[i], Z = s.z[i];
   Terms t;
-  t.pcx = pose[0] * p[0] + pose[1] * p[1] + pose[2] * p[2] + pose[9];
-  t.pcy = pose[3] * p[0] + pose[4] * p[1] + pose[5] * p[2] + pose[10];
-  t.pcz = pose[6] * p[0] + pose[7] * p[1] + pose[8] * p[2] + pose[11];
+  t.pcx = pose[0] * X + pose[1] * Y + pose[2] * Z + pose[9];
+  t.pcy = pose[3] * X + pose[4] * Y + pose[5] * Z + pose[10];
+  t.pcz = pose[6] * X + pose[7] * Y + pose[8] * Z + pose[11];
   t.depth_ok = t.pcz > 0.05f;
   t.iz = 1.0f / (t.depth_ok ? t.pcz : 1.0f);
-  t.ru = o[0] - (c.fx * t.pcx * t.iz + c.cx);
-  t.rv = o[1] - (c.fy * t.pcy * t.iz + c.cy);
-  t.chi2 = (t.ru * t.ru + t.rv * t.rv) * iv2;
+  t.ru = s.u[i] - (c.fx * t.pcx * t.iz + c.cx);
+  t.rv = s.v[i] - (c.fy * t.pcy * t.iz + c.cy);
+  t.chi2 = (t.ru * t.ru + t.rv * t.rv) * s.iv2[i];
   return t;
 }
 
-__device__ __forceinline__ float huber_rho(float chi2, bool robust) {
-  if (!robust || chi2 <= kDelta2) return chi2;
-  return 2.0f * sqrtf(kDelta2 * chi2) - kDelta2;
+// One pass of warps 1.. over the points at `pose_s` (shared): the masked
+// points' 21 H and 6 g terms and Huber cost, summed into v[0..27] per
+// thread (warp 0 adds nothing). REMARK first re-marks each point's inlier
+// flag from its chi2 at this pose.
+template <bool REMARK>
+__device__ __forceinline__ void normal_pass(const float* pose_s, const Cam& cam,
+                                            const Points& s, int n,
+                                            bool robust, float (&v)[32]) {
+  float pose[12];
+#pragma unroll
+  for (int q = 0; q < 12; ++q) pose[q] = pose_s[q];
+#pragma unroll
+  for (int k = 0; k < 32; ++k) v[k] = 0.0f;
+  if (threadIdx.x < 32) return;
+#pragma unroll 2
+  for (int i = threadIdx.x - 32; i < n; i += kWorkers) {
+    const Terms t = point_terms(pose, cam, s, i);
+    unsigned char f = s.flag[i];
+    if (REMARK) {
+      const float chi2 = t.depth_ok ? t.chi2 : kFar;
+      f = (f & kValid) && chi2 <= kDelta2 ? (kValid | kInlier) : (f & kValid);
+      s.flag[i] = f;
+    }
+    const bool use = (f & kInlier) && t.depth_ok;   // inlier implies valid
+    float w = 1.0f, rho = t.chi2;
+    if (robust && t.chi2 > kDelta2) {
+      const float sq = sqrtf(t.chi2);
+      w = sqrtf(kDelta2) / sq;
+      rho = 2.0f * sqrtf(kDelta2) * sq - kDelta2;
+    }
+    // A point outside the mask adds zeros (selected, so that no inf or NaN
+    // of an unused point reaches the sums).
+    w = use ? w * s.iv2[i] : 0.0f;
+    rho = use ? rho : 0.0f;
+    const float iz = use ? t.iz : 0.0f;
+    const float px = use ? t.pcx : 0.0f, py = use ? t.pcy : 0.0f;
+    const float pz = use ? t.pcz : 0.0f;
+    const float ru = use ? t.ru : 0.0f, rv = use ? t.rv : 0.0f;
+    const float a = cam.fx * iz;
+    const float b = -cam.fx * px * iz * iz;
+    const float c = cam.fy * iz;
+    const float d = -cam.fy * py * iz * iz;
+    const float ju[6] = {-a, 0.0f, -b, -(b * py), -(a * pz - b * px), a * py};
+    const float jv[6] = {0.0f, -c, -d, -(-c * pz + d * py), d * px, -c * px};
+    int k = 0;
+#pragma unroll
+    for (int r = 0; r < 6; ++r)
+#pragma unroll
+      for (int q = r; q < 6; ++q)
+        v[k++] += w * (ju[r] * ju[q] + jv[r] * jv[q]);
+#pragma unroll
+    for (int r = 0; r < 6; ++r) v[21 + r] += w * (ju[r] * ru + jv[r] * rv);
+    v[27] += rho;
+  }
 }
 
-// Sums v[0..N) over the block into out[0..N) (shared); all threads call it.
-template <int N>
-__device__ void block_sum(float (&v)[N], float (*s_warp)[kSums], float* out) {
+// One transpose-reduce step: the lane keeps the half of v[0..2*HALF) that
+// its bit HALF selects, adds its partner's copy of that half, and hands
+// the other half to the partner.
+template <int HALF>
+__device__ __forceinline__ void transpose_step(float (&v)[32], int lane) {
+  const bool upper = lane & HALF;
+#pragma unroll
+  for (int j = 0; j < HALF; ++j) {
+    const float send = upper ? v[j] : v[j + HALF];
+    const float keep = upper ? v[j + HALF] : v[j];
+    v[j] = keep + __shfl_xor_sync(kFull, send, HALF);
+  }
+}
+
+// Block sum of v[0..31]: on return (after a barrier) s_warp[w][k] holds
+// warp w's sum k. Within a warp, 5 transpose-reduce steps (31 shuffles)
+// leave lane l with the warp's sum of v[l].
+__device__ __forceinline__ void block_partials(float (&v)[32],
+                                               float (*s_warp)[32]) {
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    float x = v[k];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      x += __shfl_down_sync(0xffffffffu, x, off);
-    if (lane == 0) s_warp[warp][k] = x;
-  }
-  __syncthreads();
-  if (threadIdx.x < N) {
-    float x = 0.0f;
-    for (int w = 0; w < kWarps; ++w) x += s_warp[w][threadIdx.x];
-    out[threadIdx.x] = x;
-  }
+  transpose_step<16>(v, lane);
+  transpose_step<8>(v, lane);
+  transpose_step<4>(v, lane);
+  transpose_step<2>(v, lane);
+  transpose_step<1>(v, lane);
+  s_warp[threadIdx.x >> 5][lane] = v[0];
   __syncthreads();
 }
 
-// Solve (H + lam diag(H)) x = g, H symmetric positive (semi)definite.
-__device__ void chol_solve6(float (&A)[6][6], const float (&g)[6], float lam,
-                            float (&x)[6]) {
+// Warp 0, lane k: the block's sum k (warps added in a fixed order).
+__device__ __forceinline__ float block_total(float (*s_warp)[32]) {
+  const int lane = threadIdx.x & 31;
+  float x = s_warp[0][lane];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) x += s_warp[w][lane];
+  return x;
+}
+
+// Solve (H + lam diag(H)) x = g, H symmetric positive (semi)definite, as
+// L D L^T (unit L): one reciprocal per pivot and no square root on the
+// chain. Pivots are clamped at 1e-12, as the Pallas kernel's Cholesky
+// clamps its squared pivots (pallas_pose_opt.py:54).
+__device__ __forceinline__ void ldl_solve6(float (&A)[6][6],
+                                           const float (&g)[6], float lam,
+                                           float (&x)[6]) {
+#pragma unroll
   for (int i = 0; i < 6; ++i) A[i][i] += lam * fmaxf(A[i][i], 1e-9f);
-  float L[6][6];
+  float L[6][6], E[6][6], inv[6];    // E[j][i] = L[j][i] * D[i]
+#pragma unroll
   for (int i = 0; i < 6; ++i) {
-    float s = A[i][i];
-    for (int k = 0; k < i; ++k) s -= L[i][k] * L[i][k];
-    const float lii = sqrtf(fmaxf(s, 1e-12f));
-    L[i][i] = lii;
-    const float inv = 1.0f / lii;
+    float d = A[i][i];
+#pragma unroll
+    for (int k = 0; k < i; ++k) d -= L[i][k] * E[i][k];
+    inv[i] = 1.0f / fmaxf(d, 1e-12f);
+#pragma unroll
     for (int j = i + 1; j < 6; ++j) {
-      float s2 = A[j][i];
-      for (int k = 0; k < i; ++k) s2 -= L[j][k] * L[i][k];
-      L[j][i] = s2 * inv;
+      float s = A[j][i];
+#pragma unroll
+      for (int k = 0; k < i; ++k) s -= L[j][k] * E[i][k];
+      E[j][i] = s;
+      L[j][i] = s * inv[i];
     }
   }
   float y[6];
+#pragma unroll
   for (int i = 0; i < 6; ++i) {
     float s = g[i];
+#pragma unroll
     for (int k = 0; k < i; ++k) s -= L[i][k] * y[k];
-    y[i] = s / L[i][i];
+    y[i] = s;
   }
+#pragma unroll
   for (int i = 5; i >= 0; --i) {
-    float s = y[i];
+    float s = y[i] * inv[i];
+#pragma unroll
     for (int k = i + 1; k < 6; ++k) s -= L[k][i] * x[k];
-    x[i] = s / L[i][i];
+    x[i] = s;
   }
 }
 
-// pose' = exp([rho, phi]) * pose; pose = [R row-major (9), t (3)].
-__device__ void retract(const float* pose, const float (&dx)[6],
-                        float* out) {
+// out = exp([rho, phi]) * pose; pose = [R row-major (9), t (3)].
+__device__ __forceinline__ void retract(const float (&pose)[12],
+                                        const float (&dx)[6],
+                                        float (&out)[12]) {
   const float wx = dx[3], wy = dx[4], wz = dx[5];
   const float th2 = wx * wx + wy * wy + wz * wz;
   const float th = sqrtf(th2);
   const bool small = th < 1e-6f;
-  const float a = small ? 1.0f - th2 / 6.0f : sinf(th) / th;
-  const float b = small ? 0.5f - th2 / 24.0f : (1.0f - cosf(th)) / th2;
+  float sn, cs;
+  sincosf(th, &sn, &cs);
+  const float ith = 1.0f / th;
+  const float a = small ? 1.0f - th2 / 6.0f : sn * ith;
+  const float b = small ? 0.5f - th2 / 24.0f : (1.0f - cs) * ith * ith;
   const float c = small ? 1.0f / 6.0f - th2 / 120.0f
-                        : (th - sinf(th)) / (th2 * th);
+                        : (th - sn) * ith * ith * ith;
   const float W[3][3] = {{0.0f, -wz, wy}, {wz, 0.0f, -wx}, {-wy, wx, 0.0f}};
   float dR[3][3], V[3][3];
+#pragma unroll
   for (int i = 0; i < 3; ++i)
+#pragma unroll
     for (int j = 0; j < 3; ++j) {
       float w2 = 0.0f;
+#pragma unroll
       for (int k = 0; k < 3; ++k) w2 += W[i][k] * W[k][j];
       const float e = i == j ? 1.0f : 0.0f;
       dR[i][j] = e + a * W[i][j] + b * w2;   // so3_exp(phi)
       V[i][j] = e + b * W[i][j] + c * w2;    // left Jacobian of phi
     }
   float Rn[3][3];
+#pragma unroll
   for (int i = 0; i < 3; ++i)
+#pragma unroll
     for (int j = 0; j < 3; ++j) {
       float s = 0.0f;
+#pragma unroll
       for (int k = 0; k < 3; ++k) s += dR[i][k] * pose[3 * k + j];
       Rn[i][j] = s;
     }
   // Gram-Schmidt on the rows; the third row is the cross product (det +1).
-  float n0 = sqrtf(fmaxf(Rn[0][0] * Rn[0][0] + Rn[0][1] * Rn[0][1] +
-                         Rn[0][2] * Rn[0][2], 1e-18f));
-  float r0[3] = {Rn[0][0] / n0, Rn[0][1] / n0, Rn[0][2] / n0};
+  const float i0 = 1.0f / sqrtf(fmaxf(Rn[0][0] * Rn[0][0] +
+                                      Rn[0][1] * Rn[0][1] +
+                                      Rn[0][2] * Rn[0][2], 1e-18f));
+  const float r0[3] = {Rn[0][0] * i0, Rn[0][1] * i0, Rn[0][2] * i0};
   const float d = Rn[1][0] * r0[0] + Rn[1][1] * r0[1] + Rn[1][2] * r0[2];
   float r1[3] = {Rn[1][0] - d * r0[0], Rn[1][1] - d * r0[1],
                  Rn[1][2] - d * r0[2]};
-  const float n1 = sqrtf(fmaxf(r1[0] * r1[0] + r1[1] * r1[1] + r1[2] * r1[2],
-                               1e-18f));
-  for (int i = 0; i < 3; ++i) r1[i] /= n1;
+  const float i1 = 1.0f / sqrtf(fmaxf(r1[0] * r1[0] + r1[1] * r1[1] +
+                                      r1[2] * r1[2], 1e-18f));
+#pragma unroll
+  for (int i = 0; i < 3; ++i) r1[i] *= i1;
   const float r2[3] = {r0[1] * r1[2] - r0[2] * r1[1],
                        r0[2] * r1[0] - r0[0] * r1[2],
                        r0[0] * r1[1] - r0[1] * r1[0]};
+#pragma unroll
   for (int j = 0; j < 3; ++j) {
     out[j] = r0[j];
     out[3 + j] = r1[j];
     out[6 + j] = r2[j];
   }
+#pragma unroll
   for (int i = 0; i < 3; ++i) {
     float s = V[i][0] * dx[0] + V[i][1] * dx[1] + V[i][2] * dx[2];
+#pragma unroll
     for (int k = 0; k < 3; ++k) s += dR[i][k] * pose[9 + k];
     out[9 + i] = s;
   }
 }
 
+// Warp 0: the step from pose st.P with the system st.Hg damped by `lam`,
+// written to `out` (shared) by lane 0.
+__device__ __forceinline__ void propose(const State& st, float lam,
+                                        float* out) {
+  float A[6][6], g[6], dx[6], P[12], C[12];
+  int k = 0;
+#pragma unroll
+  for (int r = 0; r < 6; ++r)
+#pragma unroll
+    for (int q = r; q < 6; ++q) {
+      A[r][q] = st.Hg[k];
+      A[q][r] = st.Hg[k];
+      ++k;
+    }
+#pragma unroll
+  for (int r = 0; r < 6; ++r) g[r] = -st.Hg[21 + r];
+#pragma unroll
+  for (int q = 0; q < 12; ++q) P[q] = st.P[q];
+  ldl_solve6(A, g, lam, dx);
+  retract(P, dx, C);
+  if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+    for (int q = 0; q < 12; ++q) out[q] = C[q];
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
-pose_opt_kernel(const float* __restrict__ params,
+pose_opt_kernel(const float* __restrict__ R0, const float* __restrict__ t0,
+                const float* __restrict__ cam_params,
                 const float* __restrict__ pts, const float* __restrict__ obs,
                 const float* __restrict__ inv_s2,
-                const bool* __restrict__ valid,
-                unsigned char* __restrict__ inlier, int n, int n_rounds,
-                int n_iters, float* __restrict__ pose_out,
-                float* __restrict__ chi2_out) {
-  __shared__ float s_pose[12];
-  __shared__ float s_cand[12];
-  __shared__ float s_warp[kWarps][kSums];
-  __shared__ float s_sum[kSums];
-  __shared__ float s_lam;
-  __shared__ float s_cost;
+                const bool* __restrict__ valid, int n, int n_rounds,
+                int n_iters, float* __restrict__ R_out,
+                float* __restrict__ t_out, float* __restrict__ chi2_out) {
+  extern __shared__ float s_dyn[];
+  __shared__ float s_warp[kWarps][32];
+  __shared__ State st;
 
   const int tid = threadIdx.x;
-  const size_t base = (size_t)blockIdx.x * n;
-  pts += base * 3;
-  obs += base * 2;
-  inv_s2 += base;
-  valid += base;
-  inlier += base;
-  chi2_out += base;
-  const float* prm = params + (size_t)blockIdx.x * 16;
-  const Cam cam = {prm[12], prm[13], prm[14], prm[15]};
-  if (tid < 12) s_pose[tid] = prm[tid];
-  for (int i = tid; i < n; i += kThreads) inlier[i] = valid[i];
+  const int lane = tid & 31;
+  const bool warp0 = tid < 32;
+  const size_t b = blockIdx.x;
+  const Points s = {s_dyn, s_dyn + n, s_dyn + 2 * n, s_dyn + 3 * n,
+                    s_dyn + 4 * n, s_dyn + 5 * n,
+                    reinterpret_cast<unsigned char*>(s_dyn + 6 * n)};
+  const Cam cam = {cam_params[0], cam_params[1], cam_params[2],
+                   cam_params[3]};
+  pts += b * n * 3;
+  obs += b * n * 2;
+  inv_s2 += b * n;
+  valid += b * n;
+  for (int i = tid; i < n; i += kThreads) {
+    s.x[i] = pts[3 * i];
+    s.y[i] = pts[3 * i + 1];
+    s.z[i] = pts[3 * i + 2];
+    s.u[i] = obs[2 * i];
+    s.v[i] = obs[2 * i + 1];
+    s.iv2[i] = inv_s2[i];
+    s.flag[i] = valid[i] ? (kValid | kInlier) : 0;
+  }
+  if (tid < 9) st.P[tid] = R0[b * 9 + tid];
+  if (tid < 3) st.P[9 + tid] = t0[b * 3 + tid];
   __syncthreads();
 
+  float v[32];
   for (int rnd = 0; rnd < n_rounds; ++rnd) {
     const bool robust = rnd < n_rounds - 1;
-
-    float c0[1] = {0.0f};
-    for (int i = tid; i < n; i += kThreads) {
-      const Terms t = point_terms(s_pose, cam, pts + 3 * i, obs + 2 * i,
-                                  inv_s2[i]);
-      if (inlier[i] && valid[i] && t.depth_ok) c0[0] += huber_rho(t.chi2, robust);
-    }
-    block_sum<1>(c0, s_warp, s_sum);
-    if (tid == 0) {
-      s_cost = s_sum[0];
-      s_lam = 1e-3f;
+    // The round's first pass, at the accepted pose: cost0, H and g. From
+    // round 1 on it first re-marks the inliers at that pose.
+    if (rnd == 0)
+      normal_pass<false>(st.P, cam, s, n, robust, v);
+    else
+      normal_pass<true>(st.P, cam, s, n, robust, v);
+    block_partials(v, s_warp);
+    if (warp0) {
+      const float x = block_total(s_warp);
+      if (lane < 27) st.Hg[lane] = x;
+      if (lane == 27) st.cost = x;
+      if (lane == 0) st.lam = 1e-3f;
+      __syncwarp();
+      if (n_iters > 0) propose(st, 1e-3f, st.C);
     }
 
     for (int it = 0; it < n_iters; ++it) {
-      float acc[kSums];
-#pragma unroll
-      for (int k = 0; k < kSums; ++k) acc[k] = 0.0f;
-      for (int i = tid; i < n; i += kThreads) {
-        const float iv2 = inv_s2[i];
-        const Terms t = point_terms(s_pose, cam, pts + 3 * i, obs + 2 * i,
-                                    iv2);
-        if (!(inlier[i] && valid[i] && t.depth_ok)) continue;
-        const float w_rob = (!robust || t.chi2 <= kDelta2)
-                                ? 1.0f
-                                : sqrtf(kDelta2 / fmaxf(t.chi2, 1e-12f));
-        const float w = w_rob * iv2;
-        const float a = cam.fx * t.iz;
-        const float b = -cam.fx * t.pcx * t.iz * t.iz;
-        const float c = cam.fy * t.iz;
-        const float d = -cam.fy * t.pcy * t.iz * t.iz;
-        const float ju[6] = {-a, 0.0f, -b, -(b * t.pcy),
-                             -(a * t.pcz - b * t.pcx), a * t.pcy};
-        const float jv[6] = {0.0f, -c, -d, -(-c * t.pcz + d * t.pcy),
-                             d * t.pcx, -c * t.pcx};
-        int k = 0;
-#pragma unroll
-        for (int r = 0; r < 6; ++r)
-#pragma unroll
-          for (int q = r; q < 6; ++q)
-            acc[k++] += w * (ju[r] * ju[q] + jv[r] * jv[q]);
-#pragma unroll
-        for (int r = 0; r < 6; ++r)
-          acc[21 + r] += w * (ju[r] * t.ru + jv[r] * t.rv);
-        acc[27] += huber_rho(t.chi2, robust);
-      }
-      block_sum<kSums>(acc, s_warp, s_sum);
-
-      if (tid == 0) {
-        float H[6][6], g[6], dx[6];
-        int k = 0;
-        for (int r = 0; r < 6; ++r)
-          for (int q = r; q < 6; ++q) {
-            H[r][q] = s_sum[k];
-            H[q][r] = s_sum[k];
-            ++k;
-          }
-        for (int r = 0; r < 6; ++r) g[r] = -s_sum[21 + r];
-        chol_solve6(H, g, s_lam, dx);
-        retract(s_pose, dx, s_cand);
-      }
+      const bool more = it + 1 < n_iters;
       __syncthreads();
-
-      float cn[1] = {0.0f};
-      for (int i = tid; i < n; i += kThreads) {
-        const Terms t = point_terms(s_cand, cam, pts + 3 * i, obs + 2 * i,
-                                    inv_s2[i]);
-        if (inlier[i] && valid[i] && t.depth_ok) cn[0] += huber_rho(t.chi2, robust);
-      }
-      block_sum<1>(cn, s_warp, s_sum);
-      if (tid == 0) {
-        if (s_sum[0] < s_cost) {
-          for (int q = 0; q < 12; ++q) s_pose[q] = s_cand[q];
-          s_cost = s_sum[0];
-          s_lam *= 0.5f;
-        } else {
-          s_lam *= 10.0f;
+      // The candidate's pass; meanwhile warp 0 solves for the step that
+      // follows a rejection.
+      if (warp0 && more) propose(st, st.lam * 10.0f, st.R);
+      normal_pass<false>(st.C, cam, s, n, robust, v);
+      block_partials(v, s_warp);
+      if (warp0) {
+        const float x = block_total(s_warp);
+        const float cost = __shfl_sync(kFull, x, 27);
+        const bool accept = cost < st.cost;
+        const float lam = st.lam * (accept ? 0.5f : 10.0f);
+        __syncwarp();
+        if (accept) {
+          if (lane < 27) st.Hg[lane] = x;
+          if (lane < 12) st.P[lane] = st.C[lane];
+          if (lane == 0) st.cost = cost;
+        } else if (lane < 12) {
+          st.C[lane] = st.R[lane];
         }
+        if (lane == 0) st.lam = lam;
+        __syncwarp();
+        if (accept && more) propose(st, lam, st.C);
       }
-      __syncthreads();
-    }
-
-    // Re-classify inliers for the next round.
-    for (int i = tid; i < n; i += kThreads) {
-      const Terms t = point_terms(s_pose, cam, pts + 3 * i, obs + 2 * i,
-                                  inv_s2[i]);
-      const float chi2 = t.depth_ok ? t.chi2 : 1e9f;
-      inlier[i] = chi2 <= kDelta2 && valid[i];
     }
     __syncthreads();
   }
 
+  chi2_out += b * n;
+  float pose[12];
+#pragma unroll
+  for (int q = 0; q < 12; ++q) pose[q] = st.P[q];
   for (int i = tid; i < n; i += kThreads) {
-    const Terms t = point_terms(s_pose, cam, pts + 3 * i, obs + 2 * i,
-                                inv_s2[i]);
-    chi2_out[i] = t.depth_ok ? t.chi2 : 1e9f;
+    const Terms t = point_terms(pose, cam, s, i);
+    chi2_out[i] = t.depth_ok ? t.chi2 : kFar;
   }
-  if (tid < 12) pose_out[(size_t)blockIdx.x * 12 + tid] = s_pose[tid];
+  if (tid < 9) R_out[b * 9 + tid] = st.P[tid];
+  if (tid < 3) t_out[b * 3 + tid] = st.P[9 + tid];
 }
 
 }  // namespace
 
-extern "C" int pose_optimization(const float* params, const float* pts,
+// Points held in shared memory: 25 bytes each, within the 227 KB a block
+// may use beside its static shared memory.
+extern "C" int pose_max_points() {
+  return (232448 - (int)(sizeof(float) * kWarps * 32 + sizeof(State))) / 25;
+}
+
+extern "C" int pose_optimization(const float* R0, const float* t0,
+                                 const float* cam_params, const float* pts,
                                  const float* obs, const float* inv_s2,
-                                 const bool* valid, unsigned char* inlier,
-                                 int b, int n, int n_rounds, int n_iters,
-                                 float* pose_out, float* chi2_out,
-                                 cudaStream_t stream) {
+                                 const bool* valid, int b, int n, int n_rounds,
+                                 int n_iters, float* R_out, float* t_out,
+                                 float* chi2_out, cudaStream_t stream) {
   if (b <= 0) return (int)cudaSuccess;
-  pose_opt_kernel<<<b, kThreads, 0, stream>>>(params, pts, obs, inv_s2, valid,
-                                              inlier, n, n_rounds, n_iters,
-                                              pose_out, chi2_out);
+  if (n < 0 || n > pose_max_points()) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)n * 25;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        pose_opt_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  pose_opt_kernel<<<b, kThreads, smem, stream>>>(
+      R0, t0, cam_params, pts, obs, inv_s2, valid, n, n_rounds, n_iters,
+      R_out, t_out, chi2_out);
   return (int)cudaGetLastError();
 }
 

@@ -54,7 +54,8 @@ def example_arrays(h: int = 480, w: int = 640, n_lm: int = 4096):
 
 def example_tracking_args(h: int = 480, w: int = 640, n_lm: int = 4096,
                           device=None):
-    """The tracking step's example inputs as tensors on ``device``.
+    """The tracking step's example inputs as tensors on ``device`` (``None``:
+    the card; raises without one).
 
     The landmarks are random, so almost nothing matches (the step ends
     with a single inlier); :func:`lifted_scene` gives a scene that tracks.

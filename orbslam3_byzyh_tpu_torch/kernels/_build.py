@@ -5,7 +5,9 @@ pointers, sizes and a stream, launch one kernel and return
 ``cudaGetLastError()``. The source is compiled on first use into
 ``build/torch_kernels/<name>-<hash>.so`` at the repository root; the hash
 covers the source and the flags, so an edited source is rebuilt and a
-stale library is never loaded.
+stale library is never loaded. nvcc's report (``-Xptxas=-v``: registers,
+shared memory and spills of each kernel) is kept beside the library as
+``<name>-<hash>.log``.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 
 def nvcc_path() -> str:
@@ -78,6 +80,7 @@ class Kernel:
                     raise RuntimeError(
                         f"nvcc failed for {self.source.name} "
                         f"(exit {proc.returncode}):\n{proc.stderr}")
+                path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
                 os.replace(tmp, path)
             lib = ctypes.CDLL(str(path))
             for fn, argtypes in self.functions.items():
@@ -112,6 +115,9 @@ def stream_of(t) -> ctypes.c_void_p:
 
 def check_cuda(name: str, t, dtype, shape=None) -> None:
     """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype``/``shape``."""
+    if not isinstance(t, torch.Tensor):
+        raise ValueError(f"{name}: expected a CUDA tensor, got "
+                         f"{type(t).__name__}")
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:

@@ -2,14 +2,16 @@
 
 Replaces ``orbslam3_byzyh_tpu/ops/pallas_match.py::hamming_best2`` (Pallas
 ``_kernel`` / ``hamming_best2_pallas``). The CUDA source is
-``csrc/match.cu``; :func:`hamming_best2_plain` is the same function in plain
-PyTorch (``masked_hamming`` + ``best_two`` with the window / level /
-epipolar gates).
+``csrc/match.cu``: the distances on the tensor cores (1-bit AND-popc
+products), the gate and the top-2 in their epilogue.
+:func:`hamming_best2_plain` is the same function in plain PyTorch
+(``masked_hamming`` + ``best_two`` with the window / level / epipolar
+gates).
 
 Modes, chosen by the keyword arguments given:
-  * window: ``xy_a``, ``xy_b``, ``radius`` (scalar or per row), with
-    ``level_a``/``level_b`` and ``level_window`` = [lo, hi] on
-    level_b - level_a;
+  * window: ``xy_a``, ``xy_b``, ``radius`` (per row or one value; the
+    kernel takes it as a tensor), with ``level_a``/``level_b`` and
+    ``level_window`` = [lo, hi] on level_b - level_a;
   * epipolar: ``lines`` (N, 3) in image b and ``line_th`` (M,): squared
     point-line distance (a u + b v + c)^2 / (a^2 + b^2) below the threshold;
   * none: validity only.
@@ -29,12 +31,22 @@ from . import matching
 MODES = {"none": 0, "window": 1, "epipolar": 2}
 
 _P = ctypes.c_void_p
+
+
+class _Gates(ctypes.Structure):
+    """Passed by value: the gate's input arrays where the caller holds them
+    (null where the mode does not read them)."""
+
+    _fields_ = [("xy_a", _P), ("radius", _P), ("level_a", _P),
+                ("lines", _P), ("xy_b", _P), ("level_b", _P),
+                ("line_th", _P), ("radius_stride", ctypes.c_int),
+                ("lo", ctypes.c_int), ("hi", ctypes.c_int)]
+
+
 KERNEL = Kernel("match", {
-    # da, db, va, vb, geo_a, geo_b, n, m, mode, lo, hi, best, second, bj,
-    # stream
-    "hamming_best2": [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_int, ctypes.c_float, ctypes.c_float,
-                      _P, _P, _P, _P],
+    # da, db, va, vb, n, m, mode, gates, best, second, bj, stream
+    "hamming_best2": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_int, _Gates, _P, _P, _P, _P],
 })
 
 
@@ -68,42 +80,48 @@ def hamming_best2_plain(da, db, valid_a, valid_b, *, xy_a=None, xy_b=None,
 def hamming_best2_kernel(da, db, valid_a, valid_b, *, xy_a=None, xy_b=None,
                          radius=None, level_a=None, level_b=None,
                          level_window=(0, 0), lines=None, line_th=None):
-    """K2 on the card. Packs the per-mode gate data as the Pallas wrapper
-    does: geo_a (N, 4) per row, geo_b (4, M) per column."""
+    """K2 on the card. Every array is a contiguous CUDA tensor that the
+    kernel reads where it lies (descriptors int32, 16-byte aligned;
+    validity bool; levels int32; the rest float32; ``radius`` (N,) or one
+    value as a 0-d tensor), so a call is one launch beside the allocation
+    of its outputs."""
     n, m = da.shape[0], db.shape[0]
-    dev = da.device
     mode = _mode(xy_a, lines)
-    geo_a = torch.zeros((n, 4), dtype=torch.float32, device=dev)
-    geo_b = torch.zeros((4, m), dtype=torch.float32, device=dev)
-    if mode == "window":
-        # geo_a rows: [u, v, r^2, level]; geo_b rows: [u, v, level, 0].
-        geo_a[:, :2] = xy_a
-        r = torch.as_tensor(radius, dtype=torch.float32, device=dev)
-        geo_a[:, 2] = r * r
-        geo_a[:, 3] = level_a.to(torch.float32)
-        geo_b[:2] = xy_b.T
-        geo_b[2] = level_b.to(torch.float32)
-    elif mode == "epipolar":
-        # geo_a rows: [a, b, c, 1/(a^2+b^2)]; geo_b rows: [u, v, th, 0].
-        geo_a[:, :3] = lines
-        geo_a[:, 3] = _inv_norm2(lines)
-        geo_b[:2] = xy_b.T
-        geo_b[2] = line_th
-    da, db = da.contiguous(), db.contiguous()
-    va, vb = valid_a.contiguous(), valid_b.contiguous()
     check_cuda("da", da, torch.int32, (n, 8))
     check_cuda("db", db, torch.int32, (m, 8))
-    check_cuda("valid_a", va, torch.bool, (n,))
-    check_cuda("valid_b", vb, torch.bool, (m,))
-    best = torch.empty(n, dtype=torch.int32, device=dev)
+    for name, x in (("da", da), ("db", db)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}: expected 16-byte aligned rows")
+    check_cuda("valid_a", valid_a, torch.bool, (n,))
+    check_cuda("valid_b", valid_b, torch.bool, (m,))
+    gates = _Gates()
+    if mode == "window":
+        check_cuda("xy_a", xy_a, torch.float32, (n, 2))
+        check_cuda("xy_b", xy_b, torch.float32, (m, 2))
+        check_cuda("radius", radius, torch.float32)
+        if radius.shape not in ((), (n,)):
+            raise ValueError(f"radius: expected shape () or ({n},), got "
+                             f"{tuple(radius.shape)}")
+        check_cuda("level_a", level_a, torch.int32, (n,))
+        check_cuda("level_b", level_b, torch.int32, (m,))
+        gates.xy_a, gates.xy_b = xy_a.data_ptr(), xy_b.data_ptr()
+        gates.radius, gates.radius_stride = radius.data_ptr(), radius.dim()
+        gates.level_a, gates.level_b = level_a.data_ptr(), level_b.data_ptr()
+        gates.lo, gates.hi = int(level_window[0]), int(level_window[1])
+    elif mode == "epipolar":
+        check_cuda("lines", lines, torch.float32, (n, 3))
+        check_cuda("xy_b", xy_b, torch.float32, (m, 2))
+        check_cuda("line_th", line_th, torch.float32, (m,))
+        gates.lines, gates.xy_b = lines.data_ptr(), xy_b.data_ptr()
+        gates.line_th = line_th.data_ptr()
+    best = torch.empty(n, dtype=torch.int32, device=da.device)
     second = torch.empty_like(best)
     bj = torch.empty_like(best)
     if n == 0:
         return best, second, bj
-    KERNEL.launch("hamming_best2", ptr(da), ptr(db), ptr(va), ptr(vb),
-                  ptr(geo_a), ptr(geo_b), n, m, MODES[mode],
-                  float(level_window[0]), float(level_window[1]),
-                  ptr(best), ptr(second), ptr(bj), stream_of(da))
+    KERNEL.launch("hamming_best2", ptr(da), ptr(db), ptr(valid_a),
+                  ptr(valid_b), n, m, MODES[mode], gates, ptr(best),
+                  ptr(second), ptr(bj), stream_of(da))
     return best, second, bj
 
 

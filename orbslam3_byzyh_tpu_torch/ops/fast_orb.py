@@ -32,11 +32,10 @@ INI_TH_FAST = 20.0
 MIN_TH_FAST = 7.0
 TILE = 32
 
-# bit_pattern_31_ (256 point pairs: ax, ay, bx, by), shared with the JAX
-# package and read by file path.
-_PATTERN_PATH = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "orbslam3_byzyh_tpu", "ops", "orb_pattern.npy")
+# bit_pattern_31_ (256 point pairs: ax, ay, bx, by): the port's own copy,
+# byte-identical to the JAX package's.
+_PATTERN_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "orb_pattern.npy")
 PATTERN = np.load(_PATTERN_PATH).astype(np.float32)     # (256, 4)
 
 # Bresenham circle r=3, 16 px, contiguous order (dx, dy).

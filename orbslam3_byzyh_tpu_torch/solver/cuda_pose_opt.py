@@ -4,10 +4,11 @@ Replaces ``orbslam3_byzyh_tpu/solver/pallas_pose_opt.py::
 pose_optimization_fused`` (the Pallas kernel from ``_kernel_factory``).
 The CUDA source is ``csrc/pose_opt.cu``: one thread block per problem, so
 a batch of B problems (relocalization hypotheses, the reference-keyframe
-fallback) is one launch. :func:`pose_optimization_plain` is the same
+fallback) is one launch; the points stay in shared memory and each LM
+iteration is one pass over them. :func:`pose_optimization_plain` is the same
 schedule in plain PyTorch, following the JAX package's XLA path
 (``solver/pose_opt.py``): SVD re-orthonormalisation and ``linalg.solve``
-where the kernel uses Gram-Schmidt and a scalar Cholesky.
+where the kernel uses Gram-Schmidt and an LDL^T solve.
 
 Dispatch: a CPU tensor takes the plain version, a CUDA tensor the kernel.
 Both return (R, t, chi2); the caller forms the inlier mask.
@@ -16,6 +17,7 @@ Both return (R, t, chi2); the caller forms the inlier mask.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -28,10 +30,12 @@ CHI2_MONO = lm.CHI2_MONO
 
 _P = ctypes.c_void_p
 KERNEL = Kernel("pose_opt", {
-    # params, pts, obs, inv_s2, valid, inlier scratch, b, n, n_rounds,
-    # n_iters, pose_out, chi2_out, stream
-    "pose_optimization": [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_int, ctypes.c_int, _P, _P, _P],
+    # R0, t0, cam_params, pts, obs, inv_s2, valid, b, n, n_rounds, n_iters,
+    # R_out, t_out, chi2_out, stream
+    "pose_optimization": [_P, _P, _P, _P, _P, _P, _P, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P,
+                          _P, _P],
+    "pose_max_points": [],
 })
 
 
@@ -85,35 +89,43 @@ def pose_optimization_kernel(R0, t0, pts_w, obs_uv, inv_sigma2, valid,
                              cam_params, n_rounds: int = 4,
                              n_iters: int = 10):
     """K3 on the card. Takes one problem (R0 (3, 3), pts (N, 3), ...) or a
-    batch (R0 (B, 3, 3), pts (B, N, 3), ...) sharing ``cam_params``."""
+    batch (R0 (B, 3, 3), pts (B, N, 3), ...) sharing ``cam_params`` (the
+    pinhole fx, fy, cx, cy first).
+    Every input is a contiguous CUDA tensor, float32 (``valid``: bool); the
+    kernel reads them where they lie, so a call is one launch beside the
+    allocation of its outputs. N is at most ``pose_max_points()``: the
+    points stay in the block's shared memory."""
     single = R0.dim() == 2
-    if single:
-        R0, t0, pts_w, obs_uv, inv_sigma2, valid = (
-            a[None] for a in (R0, t0, pts_w, obs_uv, inv_sigma2, valid))
-    b, n = pts_w.shape[0], pts_w.shape[1]
+    b = 1 if single else R0.shape[0]
+    n = pts_w.shape[-2]
+    lead = () if single else (b,)
+    check_cuda("R0", R0, torch.float32, lead + (3, 3))
+    check_cuda("t0", t0, torch.float32, lead + (3,))
+    check_cuda("cam_params", cam_params, torch.float32)
+    if cam_params.dim() != 1 or cam_params.shape[0] < 4:
+        raise ValueError("cam_params: expected (fx, fy, cx, cy, ...), got "
+                         f"shape {tuple(cam_params.shape)}")
+    check_cuda("pts_w", pts_w, torch.float32, lead + (n, 3))
+    check_cuda("obs_uv", obs_uv, torch.float32, lead + (n, 2))
+    check_cuda("inv_sigma2", inv_sigma2, torch.float32, lead + (n,))
+    check_cuda("valid", valid, torch.bool, lead + (n,))
+    if n > pose_max_points():
+        raise ValueError(f"pts_w: at most {pose_max_points()} points, got {n}")
     dev = pts_w.device
-    params = torch.cat([R0.reshape(b, 9), t0.reshape(b, 3),
-                        cam_params[:4].reshape(1, 4).expand(b, 4)], 1)
-    params = params.to(torch.float32).contiguous()
-    pts = pts_w.to(torch.float32).contiguous()
-    obs = obs_uv.to(torch.float32).contiguous()
-    iv2 = inv_sigma2.to(torch.float32).contiguous()
-    val = valid.contiguous()
-    check_cuda("params", params, torch.float32, (b, 16))
-    check_cuda("pts_w", pts, torch.float32, (b, n, 3))
-    check_cuda("obs_uv", obs, torch.float32, (b, n, 2))
-    check_cuda("inv_sigma2", iv2, torch.float32, (b, n))
-    check_cuda("valid", val, torch.bool, (b, n))
-    scratch = torch.empty((b, n), dtype=torch.uint8, device=dev)
-    pose = torch.empty((b, 12), dtype=torch.float32, device=dev)
-    chi2 = torch.empty((b, n), dtype=torch.float32, device=dev)
-    KERNEL.launch("pose_optimization", ptr(params), ptr(pts), ptr(obs),
-                  ptr(iv2), ptr(val), ptr(scratch), b, n, n_rounds, n_iters,
-                  ptr(pose), ptr(chi2), stream_of(pts))
-    R, t = pose[:, :9].reshape(b, 3, 3), pose[:, 9:]
-    if single:
-        return R[0], t[0], chi2[0]
+    R = torch.empty(lead + (3, 3), dtype=torch.float32, device=dev)
+    t = torch.empty(lead + (3,), dtype=torch.float32, device=dev)
+    chi2 = torch.empty(lead + (n,), dtype=torch.float32, device=dev)
+    KERNEL.launch("pose_optimization", ptr(R0), ptr(t0), ptr(cam_params),
+                  ptr(pts_w), ptr(obs_uv), ptr(inv_sigma2), ptr(valid), b, n,
+                  n_rounds, n_iters, ptr(R), ptr(t), ptr(chi2),
+                  stream_of(pts_w))
     return R, t, chi2
+
+
+@functools.cache
+def pose_max_points() -> int:
+    """The most points one K3 problem may have (shared-memory capacity)."""
+    return KERNEL.build().pose_max_points()
 
 
 def pose_optimization(R0, t0, pts_w, obs_uv, inv_sigma2, valid, cam_params,

@@ -101,6 +101,14 @@ def main() -> int:
     for e in events[:15]:
         print(f"[profile] {e.self_device_time_total / n_prof:9.1f} us/step "
               f"x{e.count // n_prof:4d}  {e.key[:90]}")
+    # The port's own kernels by name, wherever they rank.
+    for label, name in (("K1", "brief_kernel"), ("K2", "match_kernel"),
+                        ("K3", "pose_opt_kernel")):
+        mine = [e for e in events if name in e.key]
+        us = sum(e.self_device_time_total for e in mine) / n_prof
+        count = sum(e.count for e in mine) / n_prof
+        print(f"[kernel] {label} {name}: {us:.1f} us/step device time, "
+              f"{count:.0f} launches/step ({card})")
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "key_averages.txt"), "w") as fh:
         fh.write(f"{card}\n")

@@ -7,6 +7,10 @@ machine with a card and no JAX it runs as
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 """
 
+import os
+import shutil
+import subprocess
+
 import numpy as np
 import pytest
 import torch
@@ -51,11 +55,11 @@ def test_k1_kernel_matches_plain(dev, gen):
     assert torch.equal(out, cuda_brief.brief_descriptors_plain(*args))
 
 
-@pytest.mark.parametrize("mode", ["none", "window", "epipolar"])
-def test_k2_kernel_matches_plain(dev, gen, mode):
-    na, nb = 700, 300
+def _k2_case(gen, dev, mode, na, nb):
+    """Descriptors with duplicate columns (ties), validity and the mode's
+    gate data, as the kernel takes them."""
     db = gen.integers(0, 2 ** 32, (nb, 8), dtype=np.uint32)
-    db[1::2] = db[0::2]                       # duplicate columns: ties
+    db[1::2] = db[0:nb - nb % 2:2]            # duplicate columns: ties
     da = db[gen.integers(0, nb, na)].copy()
     da[::3] ^= np.uint32(5)
     va, vb = gen.random(na) > 0.1, gen.random(nb) > 0.1
@@ -73,13 +77,53 @@ def test_k2_kernel_matches_plain(dev, gen, mode):
     gates = {k: _t(v, dev) for k, v in gates.items()}
     if mode == "window":
         gates["level_window"] = (-1, 1)
-    args = tuple(_t(a, dev) for a in (da, db, va, vb))
+    return tuple(_t(a, dev) for a in (da, db, va, vb)), gates
+
+
+def _k2_check(args, gates):
     out = cuda_match.hamming_best2_kernel(*args, **gates)
     ref = cuda_match.hamming_best2_plain(*args, **gates)
     torch.cuda.synchronize()
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
+    return out
+
+
+@pytest.mark.parametrize("mode", ["none", "window", "epipolar"])
+def test_k2_kernel_matches_plain(dev, gen, mode):
+    out = _k2_check(*_k2_case(gen, dev, mode, 700, 300))
     assert bool((out[0] == out[1]).any())
+
+
+@pytest.mark.parametrize("mode", ["none", "window", "epipolar"])
+@pytest.mark.parametrize("na,nb", [(4095, 1023), (4095, 7)])
+def test_k2_kernel_ragged_matches_plain(dev, gen, mode, na, nb):
+    """Rows and columns that fill no whole 16-row block or 8-column tile."""
+    _k2_check(*_k2_case(gen, dev, mode, na, nb))
+
+
+def test_k2_kernel_main_path_shape(dev, gen):
+    """Window mode at the tracking step's 4096 landmarks x 1024 keypoints,
+    with one radius for all rows as a 0-d tensor."""
+    args, gates = _k2_case(gen, dev, "window", 4096, 1024)
+    out = _k2_check(args, gates)
+    assert int((out[0] < 1024).sum()) > 1000
+    gates["radius"] = torch.tensor(60.0, device=dev)
+    _k2_check(args, gates)
+
+
+def test_k2_sass_has_integer_tensor_instructions(dev):
+    """The distances run on the tensor cores: the 1-bit AND-popc products
+    are BMMA instructions in the kernel's SASS."""
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                        "cuobjdump")
+    tool = tool if os.path.exists(tool) else shutil.which("cuobjdump")
+    if not tool:
+        pytest.skip("the CUDA toolkit has no cuobjdump")
+    cuda_match.KERNEL.build()
+    sass = subprocess.run([tool, "-sass", str(cuda_match.KERNEL.library_path())],
+                          capture_output=True, text=True, check=True).stdout
+    assert "BMMA" in sass
 
 
 def test_k3_kernel_matches_plain(dev, gen):
@@ -105,7 +149,7 @@ def test_k3_kernel_matches_plain(dev, gen):
     Rk, tk, ck = cuda_pose_opt.pose_optimization_kernel(*args)
     Rp, tp, cp = cuda_pose_opt.pose_optimization_plain(*args)
     torch.cuda.synchronize()
-    # Gram-Schmidt + scalar Cholesky against SVD + linalg.solve, float32.
+    # Gram-Schmidt + LDL^T against SVD + linalg.solve, float32.
     assert float((Rk - Rp).abs().max()) <= 1e-4
     assert float((tk - tp).abs().max()) <= 1e-4
     nk = int(((ck <= cuda_pose_opt.CHI2_MONO) & args[5]).sum())
@@ -117,3 +161,35 @@ def test_k3_kernel_matches_plain(dev, gen):
         *(torch.stack([a, a]) for a in args[2:6]), args[6])
     assert torch.equal(Rb[0], Rk) and torch.equal(Rb[1], Rk)
     assert torch.equal(cb[1], ck)
+
+
+def test_k3_batch_rows_equal_single_runs(dev, gen):
+    """N = 1500 points, a batch of 3 different problems in one launch: each
+    row is bit-equal to its problem run alone, and within 1e-4 of plain."""
+    n, b = 1500, 3
+    cam = _t(np.array([420.0, 420.0, 320.0, 240.0], np.float32), dev)
+    probs = []
+    for _ in range(b):
+        pts = np.stack([gen.uniform(-4, 4, n), gen.uniform(-3, 3, n),
+                        gen.uniform(4, 12, n)], -1).astype(np.float32)
+        R_gt = lie.so3_exp(torch.tensor(gen.normal(0, 0.05, 3))).float()
+        t_gt = torch.tensor(gen.normal(0, 0.2, 3)).float()
+        pc = pts @ R_gt.numpy().T + t_gt.numpy()
+        uv = np.stack([420.0 * pc[:, 0] / pc[:, 2] + 320.0,
+                       420.0 * pc[:, 1] / pc[:, 2] + 240.0], -1)
+        uv += gen.normal(0, 0.5, uv.shape)
+        uv[gen.choice(n, 100, replace=False)] += gen.uniform(20, 80, (100, 2))
+        R0 = lie.so3_exp(torch.tensor(gen.normal(0, 0.01, 3)).float()) @ R_gt
+        t0 = t_gt + torch.tensor(gen.normal(0, 0.05, 3)).float()
+        probs.append((R0.to(dev), t0.to(dev)) + tuple(_t(a, dev) for a in (
+            pts, uv, 1.0 / 1.2 ** (2.0 * gen.integers(0, 8, n)),
+            gen.random(n) > 0.03)))
+    batch = [torch.stack(a) for a in zip(*probs)]
+    Rb, tb, cb = cuda_pose_opt.pose_optimization_kernel(*batch, cam)
+    for i, p in enumerate(probs):
+        Rs, ts, cs = cuda_pose_opt.pose_optimization_kernel(*p, cam)
+        assert torch.equal(Rb[i], Rs) and torch.equal(tb[i], ts)
+        assert torch.equal(cb[i], cs)
+        Rp, tp, _ = cuda_pose_opt.pose_optimization_plain(*p, cam)
+        assert float((Rs - Rp).abs().max()) <= 1e-4
+        assert float((ts - tp).abs().max()) <= 1e-4

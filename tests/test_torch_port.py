@@ -11,6 +11,7 @@ import torch
 from torch_port_util import n, t
 
 from orbslam3_byzyh_tpu_torch import convert, graft
+from orbslam3_byzyh_tpu_torch import device as device_mod
 from orbslam3_byzyh_tpu_torch.kernels import _build
 from orbslam3_byzyh_tpu_torch.ops import cuda_brief, cuda_match, fast_orb
 from orbslam3_byzyh_tpu_torch.pipeline import tracking
@@ -30,7 +31,10 @@ def _imports(path):
             yield node.module
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"],
+PORT_SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", PORT_SOURCES,
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_imports(path):
     """Static check (the environment imports jax at start-up, so a
@@ -41,13 +45,56 @@ def test_no_jax_imports(path):
         assert root not in ("jax", "jaxlib", "orbslam3_byzyh_tpu"), (path, mod)
 
 
+@pytest.mark.parametrize("path", PORT_SOURCES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_reads_no_jax_package_file(path):
+    """No module of the port builds a path into the JAX package's
+    directory: the port keeps its own copies of such files."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            assert node.value.strip("/") != "orbslam3_byzyh_tpu", path
+
+
+def test_brief_pattern_is_the_ports_own_copy():
+    pattern = pathlib.Path(fast_orb._PATTERN_PATH).resolve()
+    assert pattern.is_relative_to(PORT)
+    jax_copy = REPO / "orbslam3_byzyh_tpu" / "ops" / "orb_pattern.npy"
+    assert pattern.read_bytes() == jax_copy.read_bytes()
+
+
+def test_default_device_is_the_card(monkeypatch):
+    """Without a device the entry points select CUDA, and raise when there
+    is no card; the CPU is taken only when asked for."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.ones(3, np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        device_mod.resolve()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.to_torch(x)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.tree_to_torch((x, x))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        graft.example_tracking_args(48, 64, 32)
+    assert device_mod.resolve("cpu") == torch.device("cpu")
+    assert convert.to_torch(x, "cpu").device == torch.device("cpu")
+    args = graft.example_tracking_args(48, 64, 32, device="cpu")
+    assert all(a.device == torch.device("cpu") for a in args)
+    # With a card present, None is the card (and TF32 goes off).
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    assert device_mod.resolve() == torch.device("cuda")
+    assert not torch.backends.cudnn.allow_tf32
+
+
 def test_cpu_slice_launches_no_kernel():
     for k in KERNELS.values():
         k.launches = 0
     img = t(graft.example_arrays(96, 128, 64)[0])
     f = fast_orb.extract(img, n_features=64)
     scene = convert.tree_to_torch(graft.lifted_scene(
-        n(f.xy), n(f.level), n(f.desc), n(f.valid), h=96, w=128, n_lm=64))
+        n(f.xy), n(f.level), n(f.desc), n(f.valid), h=96, w=128, n_lm=64),
+        "cpu")
     _, R0, t0, *lm, cam = scene
     bind = torch.full((64,), -1, dtype=torch.int32)
     res = tracking.track_local_map(R0, t0, bind, *lm, f.xy, f.level, f.desc,
@@ -85,9 +132,9 @@ def test_failed_build_raises(monkeypatch, tmp_path):
 
 def test_convert_round_trip(rng):
     desc = rng.integers(0, 2 ** 32, (16, 8), dtype=np.uint32)
-    td = convert.to_torch(desc)
+    td = convert.to_torch(desc, "cpu")
     assert td.dtype == torch.int32
     np.testing.assert_array_equal(convert.desc_to_uint32(td), desc)
-    assert convert.to_torch(np.arange(3, dtype=np.int64)).dtype == torch.int32
-    assert convert.to_torch(np.ones(3)).dtype == torch.float32
-    assert convert.to_torch(np.ones(3, bool)).dtype == torch.bool
+    assert convert.to_torch(np.arange(3, dtype=np.int64), "cpu").dtype == torch.int32
+    assert convert.to_torch(np.ones(3), "cpu").dtype == torch.float32
+    assert convert.to_torch(np.ones(3, bool), "cpu").dtype == torch.bool

@@ -37,7 +37,7 @@ def _jax_track(scene, feats):
 
 
 def _port_track(scene, feats):
-    _, R0, t0, *lm, cam = convert.tree_to_torch(scene)
+    _, R0, t0, *lm, cam = convert.tree_to_torch(scene, "cpu")
     bind = torch.full((N_FEAT,), -1, dtype=torch.int32)
     return ttr.track_local_map(R0, t0, bind, *lm, *feats, cam, W, H)
 
@@ -45,7 +45,7 @@ def _port_track(scene, feats):
 def test_track_local_map_on_jax_features(small):
     feats, scene = small
     ref = _jax_track(scene, feats)
-    out = _port_track(scene, convert.tree_to_torch(feats))
+    out = _port_track(scene, convert.tree_to_torch(feats, "cpu"))
     np.testing.assert_array_equal(n(out.bindings), n(ref.bindings))
     assert int(out.n_inliers) == int(ref.n_inliers) > 0.8 * N_FEAT
     # Same matches; the pose differs only by the float32 solver path.
@@ -67,7 +67,7 @@ def test_slice_end_to_end(small):
 
 def test_example_args_match_jax():
     ref = jgraft.example_tracking_args(48, 64, 32)
-    out = graft.example_tracking_args(48, 64, 32)
+    out = graft.example_tracking_args(48, 64, 32, device="cpu")
     for a, b in zip(out, ref):
         b = np.asarray(b)
         a = n(a).view(np.uint32) if b.dtype == np.uint32 else n(a)
@@ -83,10 +83,10 @@ def test_tracking_step_full_size_cpu():
     img = t(graft.example_arrays()[0])
     f = tfo.extract(img, n_features=graft.N_FEATURES)
     scene = graft.lifted_scene(n(f.xy), n(f.level), n(f.desc), n(f.valid))
-    R, tt, n_inl = graft.tracking_step(*convert.tree_to_torch(scene))
+    R, tt, n_inl = graft.tracking_step(*convert.tree_to_torch(scene, "cpu"))
     assert int(n_inl) >= 900
     np.testing.assert_allclose(n(R), np.eye(3), atol=1e-3)
     np.testing.assert_allclose(n(tt), 0.0, atol=1e-3)
     # The random example map does not track: a single inlier.
-    _, _, n_ex = graft.tracking_step(*graft.example_tracking_args())
+    _, _, n_ex = graft.tracking_step(*graft.example_tracking_args(device="cpu"))
     assert int(n_ex) <= 2

@@ -15,7 +15,7 @@ torch.set_num_threads(2)
 
 def t(x):
     """numpy / JAX array -> CPU tensor (uint32 words become int32 bits)."""
-    return convert.to_torch(x)
+    return convert.to_torch(x, "cpu")
 
 
 def n(x):
