@@ -3,16 +3,28 @@
 
     python3 chip_smoke.py
 
-Builds the three CUDA kernels of the tracking step from
-``orbslam3_byzyh_tpu_torch/csrc`` with nvcc (in parallel), holds each
-against its plain PyTorch version on the card, runs ``graft.tracking_step``
-on a scene that tracks (the example image against a map lifted from its own
-features), checks the result and that every kernel was launched once by that
-run, and times the step and each kernel. Any failed check raises and the
-script exits non-zero. The last line of standard output is
+Builds the three CUDA kernels from ``orbslam3_byzyh_tpu_torch/csrc`` with
+nvcc (in parallel) and drives both entry points of the port through them:
+
+  * ``graft.tracking_step`` (480x640, 1024 features, 4096 landmarks) on a
+    scene that tracks (the example image against a map lifted from its own
+    features);
+  * ``graft.mono_frame_step`` at the EuRoC monocular configuration
+    (752x480 + radtan, 1200 features, 65536 landmark and 1024 keyframe
+    slots, the local window engaged) on ``graft.euroc_mono_scene``, in its
+    normal case (motion model) and its retry case (the widened retry from
+    the last pose), and the reference-keyframe fallback on the retry scene.
+
+Every kernel is held against its plain PyTorch version on the card: on
+synthetic inputs at both paths' shapes, and on the very inputs each path
+gave it (its wrapper's calls are recorded and replayed). Each path runs
+with the launch counts set to 0 just before and read just after; each must
+have launched every kernel it uses. Any failed check raises and the script
+exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``. Needs a CUDA device and ``nvcc``.
 
-Per kernel, at the main path's shapes:
+Per kernel, at the tracking step's shapes (and, under ``frame_step_calls``,
+at each of the frame step's calls):
   * ``ms``: the launch alone. The wrapper's launch is captured once and its
     C function is called again with the same prepared pointers; a spin kernel
     queued first keeps the host's launch cost out of the CUDA-event pair.
@@ -29,6 +41,7 @@ Per kernel, at the main path's shapes:
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import json
 import os
 import re
@@ -54,6 +67,8 @@ PRIME_CYCLES = 1_000_000
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
 INT8_OPS = 1979e12
+# At least 10^6 angles in [-pi, pi] for the sincosf check.
+N_ANGLES = 1 << 20
 
 
 def phase(name: str, msg: str) -> None:
@@ -117,6 +132,24 @@ def captured_launch(kernel, call):
     return out, again
 
 
+@contextlib.contextmanager
+def recorded(module, name: str):
+    """Record the (args, kwargs) of every call of ``module.name`` (a kernel
+    wrapper) made inside the block; the calls go through unchanged."""
+    calls = []
+    fn = getattr(module, name)
+
+    def spy(*args, **kwargs):
+        calls.append((args, kwargs))
+        return fn(*args, **kwargs)
+
+    setattr(module, name, spy)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
 def ptxas_summary(kernel) -> list:
     """Per compiled kernel: registers, shared memory and spill bytes, from
     the build's ``-Xptxas=-v`` report (empty if the build kept none)."""
@@ -135,6 +168,9 @@ def ptxas_summary(kernel) -> list:
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
             cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m:
+            cur["stack_bytes"] = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
         if m:
             cur["registers"] = int(m.group(1))
@@ -212,18 +248,193 @@ def main() -> int:
     tensor_ops = tensor_instructions(cuda_match.KERNEL)
     phase("1 build", f"K2 SASS tensor-core instructions: {tensor_ops}")
 
+    # -- per-kernel checks, bounds and times, for any call's inputs --------
+    def k1_check(args):
+        out = cuda_brief.brief_descriptors_kernel(*args)
+        ref = cuda_brief.brief_descriptors_plain(*args)
+        torch.cuda.synchronize()
+        err = int((out.long() - ref.long()).abs().max()) if out.numel() else 0
+        require(torch.equal(out, ref), "K1 descriptors differ from plain")
+        return err
+
+    def k1_bound(args):
+        # Each distinct sampled pixel read once (4 B), the keypoints' xy,
+        # level and angle (16 B), the pattern (4 KB), the words written
+        # (32 B); 6 flops to rotate each of the 512 sample points.
+        blurred, xy, kp_level, angle = args
+        sizes = [b.numel() for b in blurred]
+        table = torch.tensor([[sum(sizes[:i]), b.shape[0], b.shape[1]]
+                              for i, b in enumerate(blurred)],
+                             dtype=torch.int64, device=dev)[kp_level.long()]
+        gy, gx = fast_orb._pattern_positions(
+            xy, torch.cos(angle), torch.sin(angle), table[:, 2:3].float(),
+            table[:, 1:2].float())
+        n_pix = int(torch.unique(table[:, 0:1] + gy.long() * table[:, 2:3]
+                                 + gx.long()).numel())
+        k = xy.shape[0]
+        ms, by = bound(4 * n_pix + 16 * k + 4096 + 32 * k,
+                       {F32_FLOPS: 6 * 512 * k})
+        return ms, by, (f"{n_pix} distinct sampled pixels x 4 B + K={k} x "
+                        f"(16 B in + 32 B out) + 4 KB pattern over "
+                        f"{HBM_BPS / 1e12} TB/s; 6 x 512 x K f32 flops over "
+                        f"{F32_FLOPS / 1e12} TFLOP/s")
+
+    def k2_check(args, gates):
+        out = cuda_match.hamming_best2_kernel(*args, **gates)
+        ref = cuda_match.hamming_best2_plain(*args, **gates)
+        torch.cuda.synchronize()
+        err = 0
+        for name, a, b in zip(("best", "second", "best_j"), out, ref):
+            err = max(err, int((a.long() - b.long()).abs().max()))
+            require(torch.equal(a, b), f"K2: {name} differs from plain")
+        return err, out
+
+    def k2_bound(args, gates):
+        # Descriptors, validity and gate data read once, three int32 per
+        # row written. Operations: the window gate (5 f32 flops) on every
+        # pair of a valid row and a valid column, and the distance on every
+        # pair that passes the gate (all valid pairs without one), counted
+        # as a +-1 int8 dot product (512 operations): the kernel's 1-bit
+        # AND-popc products have no published H100 rate.
+        qa, qb, qva, qvb = args
+        na, nb = qa.shape[0], qb.shape[0]
+        n_valid_pairs = int(qva.sum()) * int(qvb.sum())
+        if "xy_a" in gates:
+            lo, hi = gates["level_window"]
+            gate = (matching.window_mask(gates["xy_a"], gates["xy_b"],
+                                         gates["radius"])
+                    & matching.level_mask(gates["level_a"], gates["level_b"],
+                                          lo, hi))
+            n_gated = int((gate & qva[:, None] & qvb[None, :]).sum())
+            ms, by = bound(na * (32 + 1 + 8 + 4 + 4 + 12)
+                           + nb * (32 + 1 + 8 + 4),
+                           {F32_FLOPS: 5 * n_valid_pairs,
+                            INT8_OPS: 2 * 256 * n_gated})
+            return ms, by, (
+                f"N={na} x 61 B + M={nb} x 45 B over {HBM_BPS / 1e12} TB/s; "
+                f"gate 5 f32 flops x {n_valid_pairs} valid pairs over "
+                f"{F32_FLOPS / 1e12} TFLOP/s + 512 int8 ops x {n_gated} gated "
+                f"pairs over {INT8_OPS / 1e12} TOP/s")
+        ms, by = bound(na * (32 + 1 + 12) + nb * (32 + 1),
+                       {INT8_OPS: 2 * 256 * n_valid_pairs})
+        return ms, by, (f"N={na} x 45 B + M={nb} x 33 B over "
+                        f"{HBM_BPS / 1e12} TB/s; 512 int8 ops x "
+                        f"{n_valid_pairs} valid pairs over "
+                        f"{INT8_OPS / 1e12} TOP/s")
+
+    def k3_check(args):
+        """Kernel against plain (per problem of a batch) within 1e-4 and
+        inliers within 2; a batch's rows bit-equal to their single runs."""
+        Rk, tk, ck = cuda_pose_opt.pose_optimization_kernel(*args)
+        batched = args[0].dim() == 3
+        probs = ([tuple(a[i] for a in args[:6]) + (args[6],)
+                  for i in range(args[0].shape[0])] if batched else [args])
+        err, inl = 0.0, []
+        for i, p in enumerate(probs):
+            Rs, ts, cs = ((Rk[i], tk[i], ck[i]) if batched else (Rk, tk, ck))
+            if batched:
+                R1, t1, c1 = cuda_pose_opt.pose_optimization_kernel(
+                    *(a.contiguous() for a in p))
+                torch.cuda.synchronize()
+                require(torch.equal(R1, Rs) and torch.equal(t1, ts)
+                        and torch.equal(c1, cs),
+                        f"K3 batch row {i} differs from its single run")
+            Rp, tp, cp = cuda_pose_opt.pose_optimization_plain(*p)
+            torch.cuda.synchronize()
+            err = max(err, float((Rs - Rp).abs().max()),
+                      float((ts - tp).abs().max()))
+            n_k = int(((cs <= cuda_pose_opt.CHI2_MONO) & p[5]).sum())
+            n_p = int(((cp <= cuda_pose_opt.CHI2_MONO) & p[5]).sum())
+            require(abs(n_k - n_p) <= 2, f"K3 inliers {n_k} vs plain {n_p}")
+            inl.append(n_k)
+        require(err <= 1e-4, f"K3 pose differs from plain by {err}")
+        return err, inl
+
+    def k3_bound(args, inliers):
+        # Per problem: 25 B per point in (xyz, uv, 1/sigma^2, valid) and 4 B
+        # out, the poses and camera. Operations: 45 passes (the first of
+        # round 0, one per LM iteration, the three re-markings fused with
+        # the next round's first pass, the final chi2). Round 0's 11 passes
+        # cover every valid point; the 34 later ones are counted over the
+        # final inliers, the mask the later rounds converge to. A pass costs
+        # 31 flops per point for the residual and chi2, plus 159 for the
+        # Jacobian, the 21 H and 6 g terms and the cost where the point is
+        # in the mask.
+        valid = args[5].reshape(-1, args[5].shape[-1])
+        npt = valid.shape[1]
+        flops, nbytes = 0, 0
+        for v, n_in in zip(valid, inliers):
+            n_valid = int(v.sum())
+            flops += (11 * n_valid + 34 * n_in) * 190 + 4 * n_valid * 31
+            nbytes += npt * (25 + 4) + 2 * 48 + 16
+        ms, by = bound(nbytes, {F32_FLOPS: flops})
+        return ms, by, (f"B={valid.shape[0]} x N={npt} x 29 B over "
+                        f"{HBM_BPS / 1e12} TB/s; {flops} f32 flops (45 passes "
+                        f"over the valid points and final inliers) over "
+                        f"{F32_FLOPS / 1e12} TFLOP/s")
+
+    wrappers = {"K1": cuda_brief.brief_descriptors_kernel,
+                "K2": cuda_match.hamming_best2_kernel,
+                "K3": cuda_pose_opt.pose_optimization_kernel}
+    plains = {"K1": cuda_brief.brief_descriptors_plain,
+              "K2": cuda_match.hamming_best2_plain,
+              "K3": cuda_pose_opt.pose_optimization_plain}
+
+    def timed(name, args, kwargs, plain_reps=N_TIMED_LAUNCHES):
+        """Launch alone, wrapper and plain times of one call's inputs."""
+        wrap = wrappers[name]
+        out, again = captured_launch(kernels[name],
+                                     lambda: wrap(*args, **kwargs))
+        t = {"ms": event_ms(again, primed=True),
+             "wrapper_ms": event_ms(lambda: wrap(*args, **kwargs))}
+        if name == "K3" and args[0].dim() == 3:     # plain: one problem each
+            probs = [tuple(a[i] for a in args[:6]) + (args[6],)
+                     for i in range(args[0].shape[0])]
+            t["plain_ms"] = event_ms(
+                lambda: [plains[name](*p) for p in probs], reps=plain_reps)
+        else:
+            t["plain_ms"] = event_ms(lambda: plains[name](*args, **kwargs),
+                                     reps=plain_reps)
+        del out
+        return t
+
+    def shape_of(name, args, kwargs):
+        if name == "K1":
+            return {"levels": [tuple(b.shape) for b in args[0]],
+                    "K": args[1].shape[0]}
+        if name == "K2":
+            mode = ("window" if "xy_a" in kwargs
+                    else "epipolar" if "lines" in kwargs else "none")
+            return {"N": args[0].shape[0], "M": args[1].shape[0],
+                    "mode": mode, "level_window": kwargs.get("level_window")}
+        return {"B": args[0].shape[0] if args[0].dim() == 3 else 1,
+                "N": args[2].shape[-2]}
+
+    def check_call(name, args, kwargs):
+        """Hold one recorded call against the plain version; return its
+        error and bound."""
+        if name == "K1":
+            err = k1_check(args)
+            b = k1_bound(args)
+        elif name == "K2":
+            err, _ = k2_check(args, kwargs)
+            b = k2_bound(args, kwargs)
+        else:
+            err, inl = k3_check(args)
+            b = k3_bound(args, inl)
+        return err, b
+
     rng = np.random.default_rng(0)
     arrays = graft.example_arrays()
     h, w = arrays[0].shape
     img = torch.from_numpy(arrays[0]).to(dev)
     results = {}
-    repeat = {}
 
-    # -- 2: K1 vs plain at the 8 levels of a 480x640 frame ----------------
+    # -- 2: K1 vs plain: keypoints over the 8 levels of a 480x640 frame ----
     pyr = fast_orb.build_pyramid(img, 8, 1.2)
     budget = fast_orb.level_feature_budget(graft.N_FEATURES, 8, 1.2)
     shapes = [tuple(p.shape) for p in pyr]
-    blurred = torch.cat([fast_orb.gaussian_blur(p).reshape(-1) for p in pyr])
+    blurred = [fast_orb.gaussian_blur(p) for p in pyr]
     xy, lvl = [], []
     for i, ((lh, lw), cap) in enumerate(zip(shapes, budget)):
         # Most keypoints inside the 19 px border, some at the image edge.
@@ -237,43 +448,43 @@ def main() -> int:
     kp_level = torch.from_numpy(np.concatenate(lvl)).to(dev)
     angle = torch.from_numpy(
         rng.uniform(-np.pi, np.pi, xy.shape[0]).astype(np.float32)).to(dev)
-    ca, sa = torch.cos(angle), torch.sin(angle)
-    k1_args = (blurred, shapes, xy, kp_level, ca, sa)
-    d_kernel, repeat["K1"] = captured_launch(
-        cuda_brief.KERNEL, lambda: cuda_brief.brief_descriptors_kernel(*k1_args))
-    d_plain = cuda_brief.brief_descriptors_plain(*k1_args)
-    torch.cuda.synchronize()
-    k1_err = int((d_kernel.long() - d_plain.long()).abs().max())
-    require(torch.equal(d_kernel, d_plain), "K1 descriptors differ from plain")
-    # Bound: each distinct sampled pixel read once (4 B), the keypoints'
-    # xy, level, cos, sin (20 B), the 512 pattern coordinates (2 x 512 x
-    # 4 B), the words written (32 B); 6 flops to rotate each sample point.
-    n_kp = xy.shape[0]
-    offs = np.cumsum([0] + [a * b for a, b in shapes])[:-1]
-    table = torch.tensor([[o, a, b] for o, (a, b) in zip(offs, shapes)],
-                         dtype=torch.int64, device=dev)[kp_level.long()]
-    gy, gx = fast_orb._pattern_positions(xy, ca, sa, table[:, 2:3].float(),
-                                         table[:, 1:2].float())
-    n_pix = int(torch.unique(table[:, 0:1] + gy.long() * table[:, 2:3]
-                             + gx.long()).numel())
-    results["K1"] = {"max_abs_err": k1_err}
-    results["K1"]["bound_ms"], results["K1"]["bound_by"] = bound(
-        4 * n_pix + 20 * n_kp + 2 * 512 * 4 + 32 * n_kp,
-        {F32_FLOPS: 6 * 512 * n_kp})
-    results["K1"]["bound"] = (
-        f"{n_pix} distinct sampled pixels x 4 B + K={n_kp} x (20 B in + 32 B "
-        f"out) + 4 KB pattern over {HBM_BPS / 1e12} TB/s; 6 x 512 x K f32 "
-        f"flops over {F32_FLOPS / 1e12} TFLOP/s")
-    results["K1"]["ms"] = event_ms(repeat["K1"], primed=True)
-    results["K1"]["wrapper_ms"] = event_ms(
-        lambda: cuda_brief.brief_descriptors_kernel(*k1_args))
-    results["K1"]["plain_ms"] = event_ms(
-        lambda: cuda_brief.brief_descriptors_plain(*k1_args))
-    phase("2 K1", f"K={n_kp} over {len(shapes)} levels: bit-identical "
-          f"descriptors; launch alone {results['K1']['ms']:.4f} ms, wrapper "
+    k1_args = (blurred, xy, kp_level, angle)
+    results["K1"] = {"max_abs_err": k1_check(k1_args)}
+    (results["K1"]["bound_ms"], results["K1"]["bound_by"],
+     results["K1"]["bound"]) = k1_bound(k1_args)
+    results["K1"].update(timed("K1", k1_args, {}))
+    phase("2 K1", f"480x640, K={xy.shape[0]} over {len(shapes)} levels: "
+          f"bit-identical descriptors; launch alone "
+          f"{results['K1']['ms']:.4f} ms, wrapper "
           f"{results['K1']['wrapper_ms']:.4f} ms, plain "
           f"{results['K1']['plain_ms']:.4f} ms, bound "
           f"{results['K1']['bound_ms']:.5f} ms ({card})")
+    # The kernel's sincosf against torch.cos / torch.sin.
+    ang = torch.linspace(-np.pi, np.pi, N_ANGLES, device=dev)
+    s_k, c_k = cuda_brief.sincos_on_card(ang)
+    torch.cuda.synchronize()
+    n_diff = int((s_k != torch.sin(ang)).sum() + (c_k != torch.cos(ang)).sum())
+    require(n_diff == 0, f"sincosf differs from torch.sin/cos at {n_diff} "
+            f"of {2 * N_ANGLES} values")
+    phase("2 K1", f"sincosf bit-equal to torch.sin / torch.cos over "
+          f"{N_ANGLES} angles in [-pi, pi]")
+    # The EuRoC-mono frame's size, ragged keypoint counts included.
+    rng1 = np.random.default_rng(1)
+    eu = graft.EUROC_MONO
+    img_eu = torch.from_numpy(graft.example_image(eu.height, eu.width)).to(dev)
+    blurred_eu = [fast_orb.gaussian_blur(p)
+                  for p in fast_orb.build_pyramid(img_eu, 8, 1.2)]
+    for k in (1, 31, eu.n_features, eu.n_features + 1):
+        lv = rng1.integers(0, 8, k).astype(np.int32)
+        kxy = np.stack([rng1.integers(0, eu.width, k),
+                        rng1.integers(0, eu.height, k)], -1)
+        kxy = np.floor(kxy / 1.2 ** lv[:, None]).astype(np.float32)
+        k1_check((blurred_eu, torch.from_numpy(kxy).to(dev),
+                  torch.from_numpy(lv).to(dev),
+                  torch.from_numpy(rng1.uniform(-np.pi, np.pi, k).astype(
+                      np.float32)).to(dev)))
+    phase("2 K1", f"{eu.height}x{eu.width}: bit-identical at K = 1, 31, "
+          f"{eu.n_features}, {eu.n_features + 1}")
 
     # The lifted scene from the card's own features: it feeds K2, K3 and
     # the slice.
@@ -310,48 +521,62 @@ def main() -> int:
     k2_cases["none"] = (da, db, va, vb, {})
     k2_cases["epipolar"] = (da, db, va, vb, dict(xy_b=kxy, lines=lines,
                                                  line_th=th))
+    # The frame step's shapes: 1200 x 1200 without a gate, duplicates; the
+    # motion model's two tries stacked, 2400 x 1200, radius 15 then 30,
+    # level window +-8.
+    m = eu.n_features
+    db2 = torch.from_numpy(rng1.integers(-2 ** 31, 2 ** 31, (m, 8),
+                                         dtype=np.int64).astype(np.int32))
+    db2[1::2] = db2[0::2]
+    da2 = db2[torch.from_numpy(rng1.integers(0, m, m))].clone()
+    da2[::3] ^= 5
+    db2, da2 = db2.to(dev), da2.to(dev)
+    va2 = torch.from_numpy(rng1.random(m) > 0.05).to(dev)
+    vb2 = torch.from_numpy(rng1.random(m) > 0.05).to(dev)
+    k2_cases["none 1200"] = (da2, db2, va2, vb2, {})
+    xb = torch.from_numpy(np.stack([rng1.uniform(0, eu.width, m),
+                                    rng1.uniform(0, eu.height, m)],
+                                   -1).astype(np.float32)).to(dev)
+    xa = xb[torch.from_numpy(rng1.integers(0, m, m)).to(dev)] + torch.from_numpy(
+        rng1.normal(0, 12, (m, 2)).astype(np.float32)).to(dev)
+    stacked = dict(
+        xy_a=torch.cat([xa, xa + 20.0]), xy_b=xb,
+        radius=torch.cat([torch.full((m,), 15.0, device=dev),
+                          torch.full((m,), 30.0, device=dev)]),
+        level_a=torch.zeros(2 * m, dtype=torch.int32, device=dev),
+        level_b=torch.from_numpy(rng1.integers(0, 8, m).astype(
+            np.int32)).to(dev), level_window=(-8, 8))
+    k2_cases["stacked window"] = (da2.repeat(2, 1), db2, va2.repeat(2), vb2,
+                                  stacked)
     k2_err = 0
     for mode, (qa, qb, qva, qvb, gates) in k2_cases.items():
-        out_k = cuda_match.hamming_best2_kernel(qa, qb, qva, qvb, **gates)
-        out_p = cuda_match.hamming_best2_plain(qa, qb, qva, qvb, **gates)
-        torch.cuda.synchronize()
-        for name, a, b in zip(("best", "second", "best_j"), out_k, out_p):
-            k2_err = max(k2_err, int((a.long() - b.long()).abs().max()))
-            require(torch.equal(a, b), f"K2 {mode}: {name} differs from plain")
+        err, out_k = k2_check((qa, qb, qva, qvb), gates)
+        k2_err = max(k2_err, err)
         matched = int((out_k[0] < matching.INVALID_DIST).sum())
         ties = int((out_k[0] == out_k[1]).sum())
         phase("3 K2", f"{mode}: {qa.shape[0]}x{qb.shape[0]} identical "
               f"(rows with a candidate {matched}, best==second {ties})")
+    qa, qb, qva, qvb, gates = k2_cases["stacked window"]
+    _, out_k = k2_check((qa, qb, qva, qvb), gates)
+    for half in range(2):
+        rows = slice(m * half, m * (half + 1))
+        one = dict(gates, xy_a=gates["xy_a"][rows].contiguous(),
+                   radius=gates["radius"][rows].contiguous(),
+                   level_a=gates["level_a"][rows].contiguous())
+        alone = cuda_match.hamming_best2_kernel(
+            qa[rows].contiguous(), qb, qva[rows].contiguous(), qvb, **one)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a[rows], b) for a, b in zip(out_k, alone)),
+                f"K2 stacked: half {half} differs from its own launch")
+    phase("3 K2", "stacked window: each half equals its own launch")
     qa, qb, qva, qvb, gates = k2_cases["window"]
-    out_k, repeat["K2"] = captured_launch(
-        cuda_match.KERNEL,
-        lambda: cuda_match.hamming_best2_kernel(qa, qb, qva, qvb, **gates))
-    # Bound: descriptors, validity and window data read once, three int32
-    # per row written. Operations: the gate (5 f32 flops) on every pair of
-    # a valid row and a valid column, and the distance on every pair that
-    # passes it, counted as a +-1 int8 dot product (256 multiply-adds): the
-    # kernel's 1-bit AND-popc products have no published H100 rate.
-    na, nb = qa.shape[0], qb.shape[0]
-    gate = (matching.window_mask(gates["xy_a"], gates["xy_b"], gates["radius"])
-            & matching.level_mask(gates["level_a"], gates["level_b"], -1, 1))
-    n_gated = int((gate & qva[:, None] & qvb[None, :]).sum())
-    n_valid_pairs = int(qva.sum()) * int(qvb.sum())
     results["K2"] = {"max_abs_err": k2_err}
-    results["K2"]["bound_ms"], results["K2"]["bound_by"] = bound(
-        na * (32 + 1 + 8 + 4 + 4 + 12) + nb * (32 + 1 + 8 + 4),
-        {F32_FLOPS: 5 * n_valid_pairs, INT8_OPS: 2 * 256 * n_gated})
-    results["K2"]["bound"] = (
-        f"N={na} x 61 B + M={nb} x 45 B over {HBM_BPS / 1e12} TB/s; gate 5 "
-        f"f32 flops x {n_valid_pairs} valid pairs over {F32_FLOPS / 1e12} "
-        f"TFLOP/s + 512 int8 ops x {n_gated} gated pairs over "
-        f"{INT8_OPS / 1e12} TOP/s")
-    results["K2"]["ms"] = event_ms(repeat["K2"], primed=True)
-    results["K2"]["wrapper_ms"] = event_ms(
-        lambda: cuda_match.hamming_best2_kernel(qa, qb, qva, qvb, **gates))
-    results["K2"]["plain_ms"] = event_ms(
-        lambda: cuda_match.hamming_best2_plain(qa, qb, qva, qvb, **gates))
-    phase("3 K2", f"window {na}x{nb}: launch alone {results['K2']['ms']:.4f} "
-          f"ms, wrapper {results['K2']['wrapper_ms']:.4f} ms, plain "
+    (results["K2"]["bound_ms"], results["K2"]["bound_by"],
+     results["K2"]["bound"]) = k2_bound((qa, qb, qva, qvb), gates)
+    results["K2"].update(timed("K2", (qa, qb, qva, qvb), gates))
+    phase("3 K2", f"window {qa.shape[0]}x{qb.shape[0]}: launch alone "
+          f"{results['K2']['ms']:.4f} ms, wrapper "
+          f"{results['K2']['wrapper_ms']:.4f} ms, plain "
           f"{results['K2']['plain_ms']:.4f} ms, bound "
           f"{results['K2']['bound_ms']:.5f} ms ({card})")
 
@@ -368,45 +593,18 @@ def main() -> int:
     valid_np[rng.choice(npt, 30, replace=False)] = False
     pvalid = torch.from_numpy(valid_np).to(dev) & feats.valid
     k3_args = (R0, t0_, pts, obs, inv_s2, pvalid, cam)
-    (Rk, tk, chi2k), repeat["K3"] = captured_launch(
-        cuda_pose_opt.KERNEL,
-        lambda: cuda_pose_opt.pose_optimization_kernel(*k3_args))
-    Rp, tp, chi2p = cuda_pose_opt.pose_optimization_plain(*k3_args)
-    torch.cuda.synchronize()
-    k3_err = max(float((Rk - Rp).abs().max()), float((tk - tp).abs().max()))
-    n_k = int(((chi2k <= cuda_pose_opt.CHI2_MONO) & pvalid).sum())
-    n_p = int(((chi2p <= cuda_pose_opt.CHI2_MONO) & pvalid).sum())
-    require(k3_err <= 1e-4, f"K3 pose differs from plain by {k3_err}")
-    require(abs(n_k - n_p) <= 2, f"K3 inliers {n_k} vs plain {n_p}")
-    # Bound: 25 B per point in (xyz, uv, 1/sigma^2, valid) and 4 B out, the
-    # poses and camera. Operations: 45 passes (the first of round 0, one per
-    # LM iteration, the three re-markings fused with the next round's first
-    # pass, the final chi2). Round 0's 11 passes cover every valid point;
-    # the 34 later ones are counted over the final inliers, the mask the
-    # later rounds converge to. A pass costs 31 flops per point for the
-    # residual and chi2, plus 159 for the Jacobian, the 21 H and 6 g terms
-    # and the cost where the point is in the mask.
-    n_valid = int(pvalid.sum())
-    flops = (11 * n_valid + 34 * n_k) * 190 + 4 * n_valid * 31
+    k3_err, (n_k,) = k3_check(k3_args)
     results["K3"] = {"max_abs_err": k3_err}
-    results["K3"]["bound_ms"], results["K3"]["bound_by"] = bound(
-        npt * (25 + 4) + 2 * 48 + 16, {F32_FLOPS: flops})
-    results["K3"]["bound"] = (
-        f"N={npt} x 29 B over {HBM_BPS / 1e12} TB/s; (11 x {n_valid} valid + "
-        f"34 x {n_k} inliers) x 190 + 4 x {n_valid} x 31 = {flops} f32 flops "
-        f"over {F32_FLOPS / 1e12} TFLOP/s")
-    results["K3"]["ms"] = event_ms(repeat["K3"], primed=True)
-    results["K3"]["wrapper_ms"] = event_ms(
-        lambda: cuda_pose_opt.pose_optimization_kernel(*k3_args))
-    results["K3"]["plain_ms"] = event_ms(
-        lambda: cuda_pose_opt.pose_optimization_plain(*k3_args), reps=10)
-    phase("4 K3", f"N={npt}: max |dR|,|dt| {k3_err:.2e}; inliers kernel {n_k} "
-          f"plain {n_p}; launch alone {results['K3']['ms']:.4f} ms, wrapper "
+    (results["K3"]["bound_ms"], results["K3"]["bound_by"],
+     results["K3"]["bound"]) = k3_bound(k3_args, [n_k])
+    results["K3"].update(timed("K3", k3_args, {}, plain_reps=10))
+    phase("4 K3", f"N={npt}: max |dR|,|dt| {k3_err:.2e}; inliers {n_k}; "
+          f"launch alone {results['K3']['ms']:.4f} ms, wrapper "
           f"{results['K3']['wrapper_ms']:.4f} ms, plain "
           f"{results['K3']['plain_ms']:.4f} ms, bound "
           f"{results['K3']['bound_ms']:.5f} ms ({card})")
 
-    # -- 5: the slice through the kernels -----------------------------------
+    # -- 5: the tracking step through the kernels ---------------------------
     for k in kernels.values():
         k.launches = 0
     R, t, n_inl = graft.tracking_step(*scene)
@@ -432,29 +630,180 @@ def main() -> int:
           f"versions {n_cpu}); |R-I| {r_err:.2e} |t| {t_err:.2e}; "
           f"launches {launches}")
 
-    # -- 6: times --------------------------------------------------------------
+    # -- 6: the EuRoC-mono frame step through the kernels -------------------
+    cam_eu = torch.tensor([eu.fx, eu.fy, eu.cx, eu.cy], dtype=torch.float32,
+                          device=dev)
+    dist_eu = torch.tensor(eu.dist, dtype=torch.float32, device=dev)
+    f_eu = graft.mono_extract(img_eu, cam_eu, dist_eu)
+    n_valid = int(f_eu.valid.sum())
+    feats_np = tuple(convert.to_numpy(a) for a in (
+        f_eu.xy, f_eu.level, f_eu.desc, f_eu.angle, f_eu.valid))
+    mono = {}
+    frame_calls = {"K1": [], "K2": [], "K3": []}
+    launches_fs = launches_fb = None
+    for case in ("normal", "retry"):
+        args = graft.MonoFrameArgs(*convert.tree_to_torch(
+            graft.euroc_mono_scene(*feats_np, case=case), dev))
+        for k in kernels.values():
+            k.launches = 0
+        with recorded(cuda_brief, "brief_descriptors_kernel") as c1, \
+                recorded(cuda_match, "hamming_best2_kernel") as c2, \
+                recorded(cuda_pose_opt, "pose_optimization_kernel") as c3:
+            res, info, n_found, _ = graft.mono_frame_step(*args)
+            torch.cuda.synchronize()
+        got = {n: k.launches for n, k in kernels.items()}
+        require(got == {"K1": 1, "K2": 2, "K3": 2},
+                f"frame step ({case}) launches {got}, expected K1 1, K2 2, "
+                f"K3 2")
+        if case == "normal":
+            launches_fs = got
+            for name, calls in (("K1", c1), ("K2", c2), ("K3", c3)):
+                frame_calls[name] += [(case, a, kw) for a, kw in calls]
+        info_np = convert.to_numpy(info)
+        n_gpu = int(info_np[0])
+        r_err = float((res.R - eye).abs().max())
+        t_err = float(res.t.abs().max())
+        require(bool(torch.isfinite(info).all()), "non-finite frame step info")
+        require(n_gpu >= 0.9 * n_valid,
+                f"frame step ({case}): {n_gpu} inliers of {n_valid} valid")
+        require(r_err <= 1e-3 and t_err <= 1e-3,
+                f"frame step ({case}) pose error R {r_err} t {t_err}")
+        require(int((n_found - args.n_found).sum())
+                == int((res.bindings >= 0).sum()),
+                "found counters do not follow the bindings")
+        # Which branch: the motion model's own inliers from the predicted
+        # pose (frame_step takes the retry below 10).
+        first = tracking.track_motion_model(
+            args.R_pred, args.t_pred, args.lm_pos, args.lm_valid,
+            args.last_bind, args.last_desc, f_eu.xy, f_eu.level, f_eu.desc,
+            f_eu.valid, args.cam_params, last_angle=args.last_angle,
+            feats_angle=f_eu.angle)
+        n_first = int(first.n_inliers)
+        took_retry = n_first < tracking.RETRY_BELOW
+        require(took_retry == (case == "retry"),
+                f"frame step ({case}): the motion model keeps {n_first} "
+                f"inliers, so the {'retry' if took_retry else 'first try'} "
+                f"was taken")
+        # The same inputs through the plain versions on the CPU.
+        _, info_cpu, _, _ = graft.mono_frame_step(*(a.cpu() for a in args))
+        n_cpu = int(info_cpu[0])
+        require(abs(n_cpu - n_gpu) <= 0.01 * n_gpu,
+                f"frame step ({case}): CPU {n_cpu} vs card {n_gpu} inliers")
+        # No host read inside frame_step: torch raises on any operation
+        # that synchronises the stream.
+        def step():
+            return tracking.frame_step(
+                args.R_pred, args.t_pred, args.R_last, args.t_last,
+                args.lm_pos, args.lm_desc, args.lm_normal, args.lm_min_d,
+                args.lm_max_d, args.lm_valid, args.last_bind, args.last_desc,
+                args.last_angle, f_eu.xy, f_eu.level, f_eu.desc, f_eu.valid,
+                f_eu.angle, torch.full((eu.n_features,), -1.0, device=dev),
+                torch.zeros((), device=dev), torch.zeros((), device=dev),
+                args.obs_kf, args.obs_valid, args.ref_kf, eu.kf_ref_min_obs,
+                args.n_kf, args.n_found, args.n_visible, args.cam_params,
+                eu.width, eu.height, max_kf=eu.max_kf)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            _, info_ns, _, _ = step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        require(abs(int(info_ns[0]) - n_gpu) <= 0.01 * n_gpu,
+                f"frame_step on the extracted features: {int(info_ns[0])} "
+                f"inliers against {n_gpu}")
+        mono[case] = {"n_inliers": n_gpu, "n_valid": n_valid,
+                      "n_inliers_cpu": n_cpu, "first_try_inliers": n_first,
+                      "R_err": r_err, "t_err": t_err}
+        phase("6 frame step", f"{case}: mono_frame_step {eu.height}x"
+              f"{eu.width}, {eu.n_features} features, {eu.max_lm} landmark "
+              f"slots: n_inliers {n_gpu} of {n_valid} valid (CPU plain "
+              f"versions {n_cpu}); motion model from the predicted pose "
+              f"{n_first} -> {'retry' if took_retry else 'first try'}; "
+              f"|R-I| {r_err:.2e} |t| {t_err:.2e}; launches {got}; no "
+              f"synchronisation inside frame_step")
+        if case == "retry":
+            # The reference-keyframe fallback, forced on the retry scene.
+            for k in kernels.values():
+                k.launches = 0
+            with recorded(cuda_match, "hamming_best2_kernel") as c2, \
+                    recorded(cuda_pose_opt, "pose_optimization_kernel") as c3:
+                fb = graft.mono_reference_fallback(f_eu, args)
+                torch.cuda.synchronize()
+            launches_fb = {n: k.launches for n, k in kernels.items()}
+            require(launches_fb == {"K1": 0, "K2": 2, "K3": 2},
+                    f"fallback launches {launches_fb}")
+            frame_calls["K2"] += [("fallback", a, kw) for a, kw in c2]
+            frame_calls["K3"] += [("fallback", a, kw) for a, kw in c3]
+            n_fb = int(fb.n_inliers)
+            fr = float((fb.R - eye).abs().max())
+            ft = float(fb.t.abs().max())
+            require(n_fb >= 0.9 * n_valid and fr <= 1e-3 and ft <= 1e-3,
+                    f"fallback: {n_fb} inliers, R {fr} t {ft}")
+            mono["fallback"] = {"n_inliers": n_fb, "R_err": fr, "t_err": ft}
+            phase("6 frame step", f"reference-KF fallback on the retry "
+                  f"scene: n_inliers {n_fb}; |R-I| {fr:.2e} |t| {ft:.2e}; "
+                  f"launches {launches_fb}")
+
+    # Each kernel on the inputs the frame step gave it.
+    fs_calls = {n: [] for n in kernels}
+    for name, calls in frame_calls.items():
+        for where, args, kwargs in calls:
+            err, (b_ms, b_by, b_txt) = check_call(name, args, kwargs)
+            entry = {"call": where, "shape": shape_of(name, args, kwargs),
+                     "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+                     "bound": b_txt}
+            entry.update(timed(name, args, kwargs,
+                               plain_reps=5 if name == "K3" else 20))
+            fs_calls[name].append(entry)
+            phase("6 frame step", f"{name} {where} {entry['shape']}: "
+                  f"identical to plain (max err {err:.2e}); launch alone "
+                  f"{entry['ms']:.4f} ms, wrapper {entry['wrapper_ms']:.4f} "
+                  f"ms, plain {entry['plain_ms']:.4f} ms, bound "
+                  f"{b_ms:.5f} ms by {b_by} ({card})")
+
+    # -- 7: times --------------------------------------------------------------
     gen = torch.Generator(dev).manual_seed(0)
+
+    def step_times(step, frames):
+        for i in range(N_WARMUP_STEPS):
+            step(frames[i % N_TIMED_FRAMES])
+        out = []
+        for frame in frames:
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+            step(frame)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t_start) * 1e3)
+        # p80: the highest percentile with ten samples beyond it at 50.
+        return statistics.median(out), statistics.quantiles(out, n=5)[-1], out
+
     frames = [img + 0.5 * torch.randn(img.shape, device=dev, generator=gen)
               for _ in range(N_TIMED_FRAMES)]
-    for i in range(N_WARMUP_STEPS):
-        graft.tracking_step(frames[i % N_TIMED_FRAMES], *scene[1:])
-    step_ms = []
-    for frame in frames:
-        torch.cuda.synchronize()
-        t_start = time.perf_counter()
-        graft.tracking_step(frame, *scene[1:])
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t_start) * 1e3)
-    step_med = statistics.median(step_ms)
-    # p80: the highest percentile with ten samples beyond it at 50 frames.
-    step_p80 = statistics.quantiles(step_ms, n=5)[-1]
-    phase("6 times", f"tracking_step median {step_med:.3f} ms, p80 "
+    step_med, step_p80, step_ms = step_times(
+        lambda fr: graft.tracking_step(fr, *scene[1:]), frames)
+    phase("7 times", f"tracking_step median {step_med:.3f} ms, p80 "
           f"{step_p80:.3f} ms over {N_TIMED_FRAMES} frames (min "
           f"{min(step_ms):.3f}, max {max(step_ms):.3f}) = "
           f"{1e3 / step_med:.1f} fps, after {N_WARMUP_STEPS} warm-up steps "
           f"({card})")
+    args = graft.MonoFrameArgs(*convert.tree_to_torch(
+        graft.euroc_mono_scene(*feats_np, case="normal"), dev))
+    frames_eu = [img_eu + 0.5 * torch.randn(img_eu.shape, device=dev,
+                                            generator=gen)
+                 for _ in range(N_TIMED_FRAMES)]
+
+    def mono_step(frame):
+        _, info, _, _ = graft.mono_frame_step(frame, *args[1:])
+        return info.cpu()          # the caller's one read of the frame
+
+    mono_med, mono_p80, mono_ms = step_times(mono_step, frames_eu)
+    phase("7 times", f"mono_frame_step (EuRoC mono, normal case) median "
+          f"{mono_med:.3f} ms, p80 {mono_p80:.3f} ms over {N_TIMED_FRAMES} "
+          f"frames (min {min(mono_ms):.3f}, max {max(mono_ms):.3f}) = "
+          f"{1e3 / mono_med:.1f} fps, after {N_WARMUP_STEPS} warm-up steps, "
+          f"the read of info included ({card})")
     for n, r in results.items():
-        phase("6 times", f"{n}: launch alone {r['ms']:.4f} ms, wrapper "
+        phase("7 times", f"{n}: launch alone {r['ms']:.4f} ms, wrapper "
               f"{r['wrapper_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.5f} ms by {r['bound_by']} ({card})")
 
@@ -473,14 +822,19 @@ def main() -> int:
         {"name": f"{n} {sources[n][0]}", "route": "cuda",
          "source": f"orbslam3_byzyh_tpu_torch/{sources[n][1]}",
          "replaces": sources[n][2], "launches": launches[n],
+         "launches_frame_step": launches_fs[n],
+         "launches_fallback": launches_fb[n],
          "max_abs_err": results[n]["max_abs_err"],
          "ms": results[n]["ms"], "plain_ms": results[n]["plain_ms"],
          "bound_ms": results[n]["bound_ms"],
          "bound_by": results[n]["bound_by"], "library_ms": None,
          "library": sources[n][3], "wrapper_ms": results[n]["wrapper_ms"],
-         "bound": results[n]["bound"], "ptxas": ptxas[n]}
+         "bound": results[n]["bound"], "ptxas": ptxas[n],
+         "frame_step_calls": fs_calls[n]}
         for n in kernels], "k2_sass_tensor_instructions": tensor_ops,
-        "step_ms": step_med, "step_p80_ms": step_p80, "card": card}))
+        "step_ms": step_med, "step_p80_ms": step_p80,
+        "mono_frame_step_ms": mono_med, "mono_frame_step_p80_ms": mono_p80,
+        "mono_frame_step": mono, "card": card}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,6 +5,10 @@ compare-and-pack that follows it in ``fast_orb.extract``. The CUDA source is
 ``csrc/brief.cu``; :func:`brief_descriptors_plain` is the same function in
 plain PyTorch (pattern positions + one gather + ``_pack_bits``).
 
+Both take the blurred levels as a list of (h, w) tensors, as ``extract``
+holds them: the kernel reads each level where it lies, so no concatenated
+copy of the pyramid is made for it.
+
 Dispatch: a CPU tensor takes the plain version, a CUDA tensor the kernel.
 """
 
@@ -21,77 +25,93 @@ MAX_LEVELS = 16
 
 
 class _LevelTable(ctypes.Structure):
-    """Passed by value: element offset, height and width of each level
-    inside the concatenated blurred-pyramid buffer."""
+    """Passed by value: base pointer, height and width of each level."""
 
-    _fields_ = [("offset", ctypes.c_int * MAX_LEVELS),
+    _fields_ = [("base", ctypes.c_void_p * MAX_LEVELS),
                 ("h", ctypes.c_int * MAX_LEVELS),
                 ("w", ctypes.c_int * MAX_LEVELS)]
 
 
 _P = ctypes.c_void_p
 KERNEL = Kernel("brief", {
-    # img, levels, kp_level, xy, ca, sa, pattern, k, out, stream
-    "brief_descriptors": [_P, _LevelTable, _P, _P, _P, _P, _P, ctypes.c_int,
-                          _P, _P],
+    # levels, kp_level, xy, angle, pattern, k, out, stream
+    "brief_descriptors": [_LevelTable, _P, _P, _P, _P, ctypes.c_int, _P, _P],
+    # angle, n, sin_out, cos_out, stream
+    "brief_sincos": [_P, ctypes.c_int, _P, _P, _P],
 })
 
 
-def _offsets(shapes):
-    out, acc = [], 0
-    for h, w in shapes:
-        out.append(acc)
-        acc += h * w
-    return out, acc
-
-
-def brief_descriptors_plain(blurred, shapes, xy, kp_level, ca, sa):
+def brief_descriptors_plain(blurred, xy, kp_level, angle):
     """Plain PyTorch version: (K, 8) int32 descriptor words."""
-    offsets, _ = _offsets(shapes)
-    dev = blurred.device
-    table = torch.tensor([[o, h, w] for o, (h, w) in zip(offsets, shapes)],
+    dev = xy.device
+    sizes = [b.numel() for b in blurred]
+    offsets = [sum(sizes[:i]) for i in range(len(sizes))]
+    table = torch.tensor([[o, b.shape[0], b.shape[1]]
+                          for o, b in zip(offsets, blurred)],
                          dtype=torch.int64, device=dev)[kp_level.long()]
     off, h, w = table[:, 0:1], table[:, 1:2], table[:, 2:3]
-    gy, gx = fast_orb._pattern_positions(xy, ca, sa, w.float(), h.float())
-    vals = blurred[off + gy.long() * w + gx.long()]          # (K, 512)
+    gy, gx = fast_orb._pattern_positions(xy, torch.cos(angle),
+                                         torch.sin(angle), w.float(),
+                                         h.float())
+    flat = torch.cat([b.reshape(-1) for b in blurred])
+    vals = flat[off + gy.long() * w + gx.long()]              # (K, 512)
     return fast_orb._pack_bits(vals[:, :256] < vals[:, 256:])
 
 
-def brief_descriptors_kernel(blurred, shapes, xy, kp_level, ca, sa):
-    """K1 on the card: one warp per keypoint, all levels in one launch."""
-    k = xy.shape[0]
-    _, total = _offsets(shapes)
-    if len(shapes) > MAX_LEVELS:
-        raise ValueError(f"at most {MAX_LEVELS} levels, got {len(shapes)}")
-    check_cuda("blurred", blurred, torch.float32, (total,))
-    check_cuda("xy", xy, torch.float32, (k, 2))
-    check_cuda("kp_level", kp_level, torch.int32, (k,))
-    check_cuda("ca", ca, torch.float32, (k,))
-    check_cuda("sa", sa, torch.float32, (k,))
+def brief_descriptors_kernel(blurred, xy, kp_level, angle):
+    """K1 on the card: a block of 4 warps per keypoint, two point pairs a
+    thread, all levels in one launch. Every input is a contiguous CUDA tensor
+    that the kernel reads where it lies (levels float32 (h, w); xy float32
+    (K, 2), 8-byte aligned; kp_level int32; angle float32 radians), so a
+    call is one launch beside the allocation of its output."""
+    k, n = xy.shape[0], len(blurred)
+    if n > MAX_LEVELS:
+        raise ValueError(f"at most {MAX_LEVELS} levels, got {n}")
+    for i, b in enumerate(blurred):
+        if not (isinstance(b, torch.Tensor) and b.is_cuda
+                and b.dtype == torch.float32 and b.dim() == 2
+                and b.is_contiguous()):
+            check_cuda(f"blurred[{i}]", b, torch.float32)
+            raise ValueError(f"blurred[{i}]: expected (h, w), got "
+                             f"{tuple(b.shape)}")
     table = _LevelTable()
-    for i, (o, (h, w)) in enumerate(zip(_offsets(shapes)[0], shapes)):
-        table.offset[i], table.h[i], table.w[i] = o, h, w
+    table.base[:n] = [b.data_ptr() for b in blurred]
+    table.h[:n] = [b.shape[0] for b in blurred]
+    table.w[:n] = [b.shape[1] for b in blurred]
+    check_cuda("xy", xy, torch.float32, (k, 2))
+    if xy.data_ptr() % 8:
+        raise ValueError("xy: expected 8-byte aligned rows")
+    check_cuda("kp_level", kp_level, torch.int32, (k,))
+    check_cuda("angle", angle, torch.float32, (k,))
     out = torch.empty((k, 8), dtype=torch.int32, device=xy.device)
     if k == 0:
         return out
     pattern = fast_orb._constants(xy.device)["pattern"]
-    KERNEL.launch("brief_descriptors", ptr(blurred), table, ptr(kp_level),
-                  ptr(xy), ptr(ca), ptr(sa), ptr(pattern), k, ptr(out),
-                  stream_of(xy))
+    KERNEL.launch("brief_descriptors", table, ptr(kp_level), ptr(xy),
+                  ptr(angle), ptr(pattern), k, ptr(out), stream_of(xy))
     return out
 
 
-def brief_descriptors(blurred, shapes, xy, kp_level, angle):
+def sincos_on_card(angle):
+    """(sin, cos) of a CUDA float32 tensor by the kernel's own sincosf, for
+    holding it against torch.sin / torch.cos. Not a K1 launch: it is not
+    counted."""
+    check_cuda("angle", angle, torch.float32)
+    s, c = torch.empty_like(angle), torch.empty_like(angle)
+    err = KERNEL.build().brief_sincos(ptr(angle), angle.numel(), ptr(s),
+                                      ptr(c), stream_of(angle))
+    if err != 0:
+        raise RuntimeError(f"brief_sincos failed: CUDA error {err}")
+    return s, c
+
+
+def brief_descriptors(blurred, xy, kp_level, angle):
     """Steered-BRIEF descriptors of keypoints on several pyramid levels.
 
-    blurred: (sum h*w,) float32, the blurred levels concatenated row-major;
-    shapes: [(h, w)] per level; xy: (K, 2) level-local keypoint coords;
-    kp_level: (K,) int32 index into ``shapes``; angle: (K,) radians.
-    Returns (K, 8) int32 words.
+    blurred: [(h, w) float32] the blurred levels; xy: (K, 2) level-local
+    keypoint coords; kp_level: (K,) int32 index into ``blurred``; angle:
+    (K,) radians. Returns (K, 8) int32 words.
     """
-    ca, sa = torch.cos(angle), torch.sin(angle)
-    args = (blurred, shapes, xy.contiguous(), kp_level.contiguous(),
-            ca.contiguous(), sa.contiguous())
-    if blurred.device.type == "cpu":
-        return brief_descriptors_plain(*args)
-    return brief_descriptors_kernel(*args)
+    if xy.device.type == "cpu":
+        return brief_descriptors_plain(blurred, xy, kp_level, angle)
+    return brief_descriptors_kernel(blurred, xy, kp_level, angle)

@@ -89,14 +89,11 @@ def _constants(device: torch.device) -> dict:
     """The blur taps, moment kernels and BRIEF pattern, copied to
     ``device`` once: a copy from pageable host memory synchronises the
     stream, which would stall the host on every level of every frame."""
-    pat = torch.from_numpy(PATTERN)
     return {
         "gauss": torch.from_numpy(_GAUSS1D).to(device),
         "moments": torch.from_numpy(_MOMENTS).to(device),
-        # (2, 512): row 0 x, row 1 y; columns 0-255 are the A points of the
-        # 256 pairs, 256-511 the B points.
-        "pattern": torch.stack([torch.cat([pat[:, 0], pat[:, 2]]),
-                                torch.cat([pat[:, 1], pat[:, 3]])]).to(device),
+        # (256, 4): ax, ay, bx, by of each pair (K1 reads a row as a float4).
+        "pattern": torch.from_numpy(PATTERN).to(device),
     }
 
 
@@ -237,7 +234,9 @@ def _pattern_positions(xy, ca, sa, w, h):
     rounding half to even; the centre is rounded too. ``w``/``h`` are
     float tensors broadcastable to (K, 1): each keypoint's level size."""
     pat = _constants(xy.device)["pattern"]
-    px, py = pat[0:1], pat[1:2]
+    # (1, 512): the A points of the 256 pairs, then the B points.
+    px = torch.cat([pat[:, 0], pat[:, 2]])[None]
+    py = torch.cat([pat[:, 1], pat[:, 3]])[None]
     ca, sa = ca[:, None], sa[:, None]
     col = torch.round(px * ca - py * sa)
     row = torch.round(px * sa + py * ca)
@@ -270,7 +269,7 @@ def extract(img: torch.Tensor, n_features: int = 1024, n_levels: int = 8,
     budget = level_feature_budget(n_features, n_levels, scale)
 
     xs, lvls, angs, resps, valids = [], [], [], [], []
-    blurred, shapes, level_xy, level_idx = [], [], [], []
+    blurred, level_xy, level_idx = [], [], []
     for lv, lvl_img in enumerate(pyr):
         cap = budget[lv]
         if cap == 0:
@@ -288,11 +287,10 @@ def extract(img: torch.Tensor, n_features: int = 1024, n_levels: int = 8,
         angle = torch.atan2(m01[iy, ix], m10[iy, ix])
 
         # K1 input: this level's blurred image and keypoints, indexed by
-        # position in ``shapes`` (levels with no budget are skipped).
-        level_idx.append(torch.full((cap,), len(shapes), dtype=torch.int32,
+        # position in ``blurred`` (levels with no budget are skipped).
+        level_idx.append(torch.full((cap,), len(blurred), dtype=torch.int32,
                                     device=dev))
-        blurred.append(gaussian_blur(lvl_img).reshape(-1))
-        shapes.append((h, w))
+        blurred.append(gaussian_blur(lvl_img))
         level_xy.append(xy)
         xs.append(xy * (scale ** lv))
         lvls.append(torch.full((cap,), lv, dtype=torch.int32, device=dev))
@@ -301,8 +299,7 @@ def extract(img: torch.Tensor, n_features: int = 1024, n_levels: int = 8,
         valids.append(valid)
 
     desc = cuda_brief.brief_descriptors(
-        torch.cat(blurred), shapes, torch.cat(level_xy), torch.cat(level_idx),
-        torch.cat(angs))
+        blurred, torch.cat(level_xy), torch.cat(level_idx), torch.cat(angs))
     return FrameFeatures(
         xy=torch.cat(xs), level=torch.cat(lvls), angle=torch.cat(angs),
         response=torch.cat(resps), desc=desc, valid=torch.cat(valids))

@@ -1,17 +1,23 @@
-"""Batched Hamming-distance descriptor matching (the tracking subset).
+"""Batched Hamming-distance descriptor matching.
 
-Port of ``orbslam3_byzyh_tpu/ops/matching.py``. Descriptors are (N, 8)
-int32 words holding the JAX package's uint32 bits. Distances are int32 in
-[0, 256]; ``INVALID_DIST`` (1024) marks masked-out pairs. The fused
-masked top-2 reduction is kernel K2 (:mod:`.cuda_match`).
+Port of ``orbslam3_byzyh_tpu/ops/matching.py`` (all but the epipolar
+search). Descriptors are (N, 8) int32 words holding the JAX package's
+uint32 bits. Distances are int32 in [0, 256]; ``INVALID_DIST`` (1024) marks
+masked-out pairs. The fused masked top-2 reduction is kernel K2
+(:mod:`.cuda_match`): ``match`` without a pair mask takes its "none" mode,
+``match_window`` and ``search_by_projection`` its window mode.
 """
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 TH_LOW = 50
 TH_HIGH = 100
+HISTO_LENGTH = 30
 INVALID_DIST = 1024
 
 _M1, _M2, _M4 = 0x55555555, 0x33333333, 0x0F0F0F0F
@@ -88,6 +94,105 @@ def mutual_filter_from_best(best, best_j, accept, m: int):
     first_row = first_row.scatter_reduce(0, bj, torch.where(keep, rows, n),
                                          reduce="amin")
     return keep & (first_row[bj] == rows)
+
+
+def mutual_filter(dist, best_j, accept):
+    """``mutual_filter_from_best`` on a full distance matrix."""
+    n = dist.shape[0]
+    best = dist[torch.arange(n, device=dist.device), best_j.long()]
+    return mutual_filter_from_best(best, best_j, accept, dist.shape[1])
+
+
+def top_k_lowest_first(x: torch.Tensor, k: int):
+    """``jax.lax.top_k`` of a 1-D integer tensor: the k largest values in
+    descending order, the lower index first among equal values. The index
+    is folded into an int64 key, so the order does not rest on
+    ``torch.topk``'s, which promises none on ties. Returns (values,
+    indices int64)."""
+    m = x.shape[0]
+    idx = torch.arange(m, device=x.device)
+    key = x.to(torch.int64) * m + (m - 1 - idx)
+    top = torch.topk(key, k).values
+    return torch.div(top, m, rounding_mode="floor"), m - 1 - top % m
+
+
+def rotation_consistency(angle_a, angle_b, best_j, accept,
+                         n_bins: int = HISTO_LENGTH):
+    """Keep only matches whose angle difference falls in the top-3 histogram
+    bins (ComputeThreeMaxima, with its 0.1x count cutoffs).
+
+    float32 throughout, as in the JAX package: ``torch.remainder`` and
+    ``jnp.mod`` both take the divisor's sign; the bin scale is the float32
+    of n_bins / 2 pi; rounding is half to even; ties between bins go to the
+    lower bin."""
+    two_pi = float(np.float32(2.0 * math.pi))
+    rot = torch.remainder(angle_a - angle_b[best_j.long()], two_pi)
+    scale = float(np.float32(n_bins / (2.0 * math.pi)))
+    bin_idx = torch.round(rot * scale).to(torch.int32).clamp(0, n_bins)
+    bin_idx = torch.where(bin_idx == n_bins, 0, bin_idx).long()
+    hist = torch.zeros(n_bins, dtype=torch.int32, device=rot.device)
+    hist = hist.index_add(0, bin_idx, accept.to(torch.int32))
+    top_vals, top_bins = top_k_lowest_first(hist, 3)
+    cut = 0.1 * top_vals[0].to(torch.float32)
+    keep2 = top_vals[1].to(torch.float32) > cut
+    keep3 = top_vals[2].to(torch.float32) > cut
+    in_top = (bin_idx == top_bins[0]) \
+        | ((bin_idx == top_bins[1]) & keep2) \
+        | ((bin_idx == top_bins[2]) & keep3)
+    return accept & in_top
+
+
+def apply_rotation_filter(mj, angle_a, angle_b):
+    """Post-filter a finished match vector by the rotation histogram."""
+    accept = mj >= 0
+    keep = rotation_consistency(angle_a, angle_b, mj.clamp_min(0), accept)
+    return torch.where(keep, mj, -1)
+
+
+def match(da, db, valid_a, valid_b, pair_mask=None, max_dist: int = TH_LOW,
+          ratio: float = 0.9, angles=None, mutual: bool = True):
+    """Generic one-shot matcher: (match_j (N,) int32 index into b or -1,
+    dist (N,) int32). ``angles`` = (angle_a, angle_b) adds the rotation
+    histogram gate (before the mutual filter, as in the JAX package).
+
+    Without ``pair_mask`` the top-2 is K2's "none" mode, which returns
+    exactly ``best_two(masked_hamming(...))``; a pair mask takes the plain
+    path."""
+    from . import cuda_match
+
+    if pair_mask is None:
+        best, second, best_j = cuda_match.hamming_best2(da, db, valid_a,
+                                                        valid_b)
+    else:
+        best, second, best_j = best_two(
+            masked_hamming(da, db, valid_a, valid_b, pair_mask))
+    accept = best <= max_dist
+    if ratio is not None:
+        accept = accept & ratio_test(best, second, ratio)
+    if angles is not None:
+        accept = rotation_consistency(angles[0], angles[1], best_j, accept)
+    if mutual:
+        accept = mutual_filter_from_best(best, best_j, accept, db.shape[0])
+    return (torch.where(accept, best_j, -1),
+            torch.where(accept, best, INVALID_DIST))
+
+
+def match_window(da, db, valid_a, valid_b, xy_a, xy_b, radius,
+                 level_a, level_b, level_window=(-8, 8),
+                 max_dist: int = TH_LOW, ratio: float = 0.9,
+                 mutual: bool = True):
+    """Window-gated match (SearchForInitialization style): K2's window
+    mode. ``radius``: one value or (N,)."""
+    from . import cuda_match
+
+    if not isinstance(radius, torch.Tensor):
+        radius = torch.full((), radius, dtype=torch.float32,
+                            device=da.device)
+    best, second, best_j = cuda_match.hamming_best2(
+        da, db, valid_a, valid_b, xy_a=xy_a, xy_b=xy_b, radius=radius,
+        level_a=level_a, level_b=level_b, level_window=level_window)
+    return _finish_match(best, second, best_j, db.shape[0], max_dist, ratio,
+                         mutual)
 
 
 def window_mask(xy_a, xy_b, radius):

@@ -47,7 +47,9 @@ def pose_optimization(R0, t0, pts_w, obs_uv, inv_sigma2, valid, cam_params,
     """Monocular motion-only BA.
 
     R0, t0: initial Tcw. pts_w: (N, 3) world points. obs_uv: (N, 2) pixels.
-    inv_sigma2: (N,) observation information. valid: (N,) bool.
+    inv_sigma2: (N,) observation information. valid: (N,) bool. A leading
+    batch dimension B on every argument but ``cam_params`` solves B
+    problems at once (one K3 launch on the card).
     """
     from . import cuda_pose_opt
 
@@ -58,4 +60,4 @@ def pose_optimization(R0, t0, pts_w, obs_uv, inv_sigma2, valid, cam_params,
         n_rounds=n_rounds, n_iters=n_iters)
     inlier = (chi2 <= cuda_pose_opt.CHI2_MONO) & valid
     return PoseOptResult(R=R, t=t, inlier=inlier,
-                         n_inliers=inlier.sum().to(torch.int32), chi2=chi2)
+                         n_inliers=inlier.sum(-1).to(torch.int32), chi2=chi2)

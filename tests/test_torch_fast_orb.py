@@ -154,8 +154,7 @@ def test_brief_plain_matches_jax(rng, jax_levels, witness):
     angle = _same_trig_angles(rng, xy.shape[0])
     ca, sa = n(torch.cos(t(angle))), n(torch.sin(t(angle)))
     out = cuda_brief.brief_descriptors_plain(
-        torch.cat([t(b).reshape(-1) for b in blurred]),
-        [b.shape for b in blurred], t(xy), t(lvl), t(ca), t(sa))
+        [t(b) for b in blurred], t(xy), t(lvl), t(angle))
     ref = []
     for i, b in enumerate(blurred):
         sel = lvl == i
@@ -182,11 +181,8 @@ def test_brief_dispatch_cpu_uses_plain(rng, jax_levels):
     xy, lvl = _multi_level_keypoints(rng, [img], 16, margin=0)
     angle = t(rng.uniform(-np.pi, np.pi, 16).astype(np.float32))
     before = cuda_brief.KERNEL.launches
-    out = cuda_brief.brief_descriptors(b.reshape(-1), [img.shape], t(xy),
-                                       t(lvl), angle)
-    ref = cuda_brief.brief_descriptors_plain(
-        b.reshape(-1), [img.shape], t(xy), t(lvl), torch.cos(angle),
-        torch.sin(angle))
+    out = cuda_brief.brief_descriptors([b], t(xy), t(lvl), angle)
+    ref = cuda_brief.brief_descriptors_plain([b], t(xy), t(lvl), angle)
     assert torch.equal(out, ref)
     assert cuda_brief.KERNEL.launches == before
 

@@ -38,21 +38,53 @@ def _t(x, dev):
     return convert.to_torch(x, dev)
 
 
+def _k1_case(dev, gen, h, w, k):
+    """The blurred levels of the example frame at h x w and k keypoints on
+    random levels, some at the image edge."""
+    img = _t(graft.example_arrays(h, w, 16)[0], dev)
+    blurred = [fast_orb.gaussian_blur(p)
+               for p in fast_orb.build_pyramid(img, 8, 1.2)]
+    lvl = gen.integers(0, 8, k).astype(np.int32)
+    xy = np.stack([gen.integers(0, w, k), gen.integers(0, h, k)], -1)
+    xy = np.floor(xy / 1.2 ** lvl[:, None]).astype(np.float32)
+    ang = gen.uniform(-np.pi, np.pi, k).astype(np.float32)
+    return blurred, _t(xy, dev), _t(lvl, dev), _t(ang, dev)
+
+
 def test_k1_kernel_matches_plain(dev, gen):
     img = _t(graft.example_arrays(240, 320, 16)[0], dev)
     pyr = fast_orb.build_pyramid(img, 4, 1.2)
-    shapes = [tuple(p.shape) for p in pyr]
-    blurred = torch.cat([fast_orb.gaussian_blur(p).reshape(-1) for p in pyr])
+    blurred = [fast_orb.gaussian_blur(p) for p in pyr]
     k = 200
     lvl = gen.integers(0, 4, k).astype(np.int32)
     xy = np.stack([gen.integers(0, 320, k), gen.integers(0, 240, k)], -1)
     xy = np.floor(xy / 1.2 ** lvl[:, None]).astype(np.float32)
     ang = _t(gen.uniform(-np.pi, np.pi, k).astype(np.float32), dev)
-    args = (blurred, shapes, _t(xy, dev), _t(lvl, dev), torch.cos(ang),
-            torch.sin(ang))
+    args = (blurred, _t(xy, dev), _t(lvl, dev), ang)
     out = cuda_brief.brief_descriptors_kernel(*args)
     torch.cuda.synchronize()
     assert torch.equal(out, cuda_brief.brief_descriptors_plain(*args))
+
+
+@pytest.mark.parametrize("h,w", [(480, 640), (480, 752)])
+@pytest.mark.parametrize("k", [1, 31, 1201])
+def test_k1_kernel_sizes_match_plain(dev, gen, h, w, k):
+    """Both frame sizes of the port's entry points, ragged keypoint
+    counts: bit-identical words."""
+    args = _k1_case(dev, gen, h, w, k)
+    out = cuda_brief.brief_descriptors_kernel(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, cuda_brief.brief_descriptors_plain(*args))
+
+
+def test_k1_sincos_equals_torch(dev):
+    """K1 takes the angle and computes its cosine and sine with sincosf:
+    bit-equal to torch.cos / torch.sin on the card over 2^20 angles in
+    [-pi, pi], the range of atan2."""
+    ang = torch.linspace(-np.pi, np.pi, 1 << 20, device=dev)
+    s, c = cuda_brief.sincos_on_card(ang)
+    torch.cuda.synchronize()
+    assert torch.equal(s, torch.sin(ang)) and torch.equal(c, torch.cos(ang))
 
 
 def _k2_case(gen, dev, mode, na, nb):
@@ -126,6 +158,36 @@ def test_k2_sass_has_integer_tensor_instructions(dev):
     assert "BMMA" in sass
 
 
+def test_k2_frame_step_shapes(dev, gen):
+    """The frame step's K2 calls at EuRoC-mono widths: the motion model's
+    two tries stacked as 2400 rows x 1200 keypoints (radius 15 for the
+    first half, 30 for the second, level window +-8), each half equal to
+    its own launch; the reference-keyframe match, 1200 x 1200 without a
+    gate, with duplicate descriptors."""
+    args, gates = _k2_case(gen, dev, "window", 1200, 1200)
+    xy_a = torch.cat([gates["xy_a"], gates["xy_a"] + 9.0])
+    radius = torch.cat([torch.full((1200,), 15.0, device=dev),
+                        torch.full((1200,), 30.0, device=dev)])
+    lvl = torch.zeros(2400, dtype=torch.int32, device=dev)
+    stacked = dict(xy_a=xy_a, xy_b=gates["xy_b"], radius=radius,
+                   level_a=lvl, level_b=gates["level_b"],
+                   level_window=(-8, 8))
+    da = args[0].repeat(2, 1)
+    va = args[2].repeat(2)
+    out = _k2_check((da, args[1], va, args[3]), stacked)
+    for half in range(2):
+        rows = slice(1200 * half, 1200 * (half + 1))
+        one = dict(stacked, xy_a=xy_a[rows].contiguous(),
+                   radius=radius[rows].contiguous(), level_a=lvl[rows])
+        alone = cuda_match.hamming_best2_kernel(
+            da[rows].contiguous(), args[1], va[rows].contiguous(), args[3],
+            **one)
+        for a, b in zip(out, alone):
+            assert torch.equal(a[rows], b)
+    out = _k2_check(*_k2_case(gen, dev, "none", 1200, 1200))
+    assert bool((out[0] == out[1]).any())
+
+
 def test_k3_kernel_matches_plain(dev, gen):
     """The pose-opt test problem: noisy projections with outliers."""
     n = 700
@@ -193,3 +255,65 @@ def test_k3_batch_rows_equal_single_runs(dev, gen):
         Rp, tp, _ = cuda_pose_opt.pose_optimization_plain(*p, cam)
         assert float((Rs - Rp).abs().max()) <= 1e-4
         assert float((ts - tp).abs().max()) <= 1e-4
+
+
+def test_k3_two_tries_of_the_motion_model(dev, gen):
+    """B = 2 at N = 1200, as frame_step runs the motion model and its
+    retry: each row bit-equal to its single run."""
+    n = 1200
+    cam = _t(np.array([458.654, 457.296, 367.215, 248.375], np.float32), dev)
+    pts = np.stack([gen.uniform(-4, 4, n), gen.uniform(-3, 3, n),
+                    gen.uniform(3, 12, n)], -1).astype(np.float32)
+    pc = pts
+    uv = np.stack([458.654 * pc[:, 0] / pc[:, 2] + 367.215,
+                   457.296 * pc[:, 1] / pc[:, 2] + 248.375], -1)
+    probs = []
+    for k in range(2):
+        R0 = lie.so3_exp(torch.tensor(gen.normal(0, 0.01 * (k + 1), 3))
+                         ).float()
+        t0 = torch.tensor(gen.normal(0, 0.03, 3)).float()
+        obs = uv + gen.normal(0, 0.5, uv.shape)
+        valid = gen.random(n) > 0.05 * (k + 1)
+        probs.append((R0.to(dev), t0.to(dev)) + tuple(_t(a, dev) for a in (
+            pts, obs, 1.0 / 1.2 ** (2.0 * gen.integers(0, 8, n)), valid)))
+    batch = [torch.stack(a) for a in zip(*probs)]
+    Rb, tb, cb = cuda_pose_opt.pose_optimization_kernel(*batch, cam)
+    for i, p in enumerate(probs):
+        Rs, ts, cs = cuda_pose_opt.pose_optimization_kernel(*p, cam)
+        assert torch.equal(Rb[i], Rs) and torch.equal(tb[i], ts)
+        assert torch.equal(cb[i], cs)
+
+
+def test_frame_step_makes_no_host_read(dev):
+    """The EuRoC-mono frame step on the card under
+    torch.cuda.set_sync_debug_mode("error"): no operation of frame_step
+    synchronises with the host (the retry is chosen on the device)."""
+    from orbslam3_byzyh_tpu_torch.pipeline import tracking
+    cfg = graft.EUROC_MONO
+    img = _t(graft.example_image(cfg.height, cfg.width), dev)
+    cam = _t(np.array([cfg.fx, cfg.fy, cfg.cx, cfg.cy], np.float32), dev)
+    dist = _t(np.array(cfg.dist, np.float32), dev)
+    f = graft.mono_extract(img, cam, dist)
+    sc = graft.euroc_mono_scene(*(convert.to_numpy(a) for a in (
+        f.xy, f.level, f.desc, f.angle, f.valid)), case="retry")
+    a = graft.MonoFrameArgs(*convert.tree_to_torch(sc, dev))
+
+    def step():
+        return tracking.frame_step(
+            a.R_pred, a.t_pred, a.R_last, a.t_last, a.lm_pos, a.lm_desc,
+            a.lm_normal, a.lm_min_d, a.lm_max_d, a.lm_valid, a.last_bind,
+            a.last_desc, a.last_angle, f.xy, f.level, f.desc, f.valid,
+            f.angle, torch.full((cfg.n_features,), -1.0, device=dev),
+            torch.zeros((), device=dev), torch.zeros((), device=dev),
+            a.obs_kf, a.obs_valid, a.ref_kf, cfg.kf_ref_min_obs, a.n_kf,
+            a.n_found, a.n_visible, a.cam_params, cfg.width, cfg.height,
+            max_kf=cfg.max_kf)
+
+    step()                    # first call: builds and one-time constants
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res, info, _, _ = step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(info[0]) >= 0.9 * int(f.valid.sum())

@@ -78,3 +78,53 @@ def test_pinhole(rng, fn):
 def test_kb8_not_ported():
     with pytest.raises(NotImplementedError):
         tcam.project(tcam.KB8, torch.zeros(8), torch.ones(3))
+
+
+EUROC_CAM = np.array([458.654, 457.296, 367.215, 248.375], np.float32)
+EUROC_DIST = np.array([-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05],
+                      np.float32)
+DIST_K3 = np.array([-0.2, 0.05, 1e-3, -5e-4, 0.01], np.float32)
+
+
+def _pixels(rng, k=400):
+    """EuRoC-sized frame, corners included."""
+    uv = np.stack([rng.uniform(0, 752, k), rng.uniform(0, 480, k)], -1)
+    uv[:4] = [[0, 0], [751, 0], [0, 479], [751, 479]]
+    return uv.astype(np.float32)
+
+
+def test_pinhole_unproject(rng):
+    uv = _pixels(rng)
+    ref = jcam.pinhole_unproject(jnp.asarray(EUROC_CAM), jnp.asarray(uv))
+    out = tcam.pinhole_unproject(t(EUROC_CAM), t(uv))
+    np.testing.assert_allclose(n(out), n(ref), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("dist", [EUROC_DIST, DIST_K3], ids=["euroc", "k3"])
+def test_radtan_distort_undistort(rng, dist):
+    xy = (_pixels(rng) - EUROC_CAM[2:]) / EUROC_CAM[:2]
+    ref = n(jcam.radtan_distort(jnp.asarray(dist), jnp.asarray(xy)))
+    np.testing.assert_allclose(n(tcam.radtan_distort(t(dist), t(xy))), ref,
+                               rtol=RTOL, atol=ATOL)
+    ref = n(jcam.radtan_undistort(jnp.asarray(dist), jnp.asarray(xy)))
+    out = n(tcam.radtan_undistort(t(dist), t(xy)))
+    # Eight fixed-point iterations, the same float32 operations in the same
+    # order; XLA may still fuse differently, so a few ulps of the normalized
+    # coordinates (~1e-6 px at fx 458).
+    np.testing.assert_allclose(out, ref, rtol=0, atol=3e-6)
+
+
+def test_undistort_pixels_euroc(rng):
+    """The front-end's undistortion on EuRoC's coefficients: within 1e-5 px
+    of the JAX package, and a fixed point of the distortion near the
+    centre."""
+    uv = _pixels(rng)
+    ref = n(jcam.undistort_pixels(jnp.asarray(EUROC_CAM),
+                                  jnp.asarray(EUROC_DIST), jnp.asarray(uv)))
+    out = n(tcam.undistort_pixels(t(EUROC_CAM), t(EUROC_DIST), t(uv)))
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5)
+    back = n(tcam.radtan_distort(
+        t(EUROC_DIST), (t(out) - t(EUROC_CAM[2:])) / t(EUROC_CAM[:2])))
+    back = back * EUROC_CAM[:2] + EUROC_CAM[2:]
+    centre = np.linalg.norm(uv - EUROC_CAM[2:], axis=1) < 200
+    np.testing.assert_allclose(back[centre], uv[centre], atol=0.05)

@@ -2,6 +2,7 @@
 the projection search, against the JAX package. All integer results exact.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -173,3 +174,110 @@ def test_mutual_filter_exact(rng):
                                      jnp.asarray(accept), m)
     out = tm.mutual_filter_from_best(t(best), t(best_j), t(accept), m)
     np.testing.assert_array_equal(n(out), n(ref))
+    # The same filter on a full distance matrix whose best_j entries hold
+    # the best distances.
+    dist = rng.integers(0, 300, (300, m)).astype(np.int32)
+    dist[np.arange(300), best_j] = best
+    ref = jm.mutual_filter(jnp.asarray(dist), jnp.asarray(best_j),
+                           jnp.asarray(accept))
+    out = tm.mutual_filter(t(dist), t(best_j), t(accept))
+    np.testing.assert_array_equal(n(out), n(ref))
+
+
+def _angles(rng, na, nb, best_j):
+    """Angles whose differences crowd a few histogram bins (as a real
+    rotation does), with the rest spread, and some exactly on a bin edge
+    (k * 2 pi / 30), where the float32 rounding decides the bin."""
+    angle_b = rng.uniform(-np.pi, np.pi, nb).astype(np.float32)
+    rot = np.where(rng.random(na) < 0.6, rng.normal(0.4, 0.05, na),
+                   rng.uniform(-np.pi, np.pi, na))
+    edge = rng.random(na) < 0.1
+    rot[edge] = rng.integers(-15, 15, edge.sum()) * (2 * np.pi / 30) + 0.5 * (
+        2 * np.pi / 30)
+    angle_a = (angle_b[best_j] + rot).astype(np.float32)
+    return angle_a, angle_b
+
+
+@pytest.mark.parametrize("spread", ["peaked", "flat", "empty"])
+def test_rotation_consistency_exact(rng, spread):
+    na, nb = 500, 300
+    best_j = rng.integers(0, nb, na).astype(np.int32)
+    angle_a, angle_b = _angles(rng, na, nb, best_j)
+    if spread == "flat":
+        angle_a = rng.uniform(-4, 4, na).astype(np.float32)
+    accept = rng.random(na) < (0.0 if spread == "empty" else 0.8)
+    ref = jm.rotation_consistency(jnp.asarray(angle_a), jnp.asarray(angle_b),
+                                  jnp.asarray(best_j), jnp.asarray(accept))
+    out = tm.rotation_consistency(t(angle_a), t(angle_b), t(best_j),
+                                  t(accept))
+    np.testing.assert_array_equal(n(out), n(ref))
+    mj = np.where(accept, best_j, -1).astype(np.int32)
+    ref = jm.apply_rotation_filter(jnp.asarray(mj), jnp.asarray(angle_a),
+                                   jnp.asarray(angle_b))
+    out = tm.apply_rotation_filter(t(mj), t(angle_a), t(angle_b))
+    np.testing.assert_array_equal(n(out), n(ref))
+
+
+def test_top_k_lowest_first_ties(rng):
+    x = rng.integers(0, 4, 4096).astype(np.int32)      # heavy ties
+    for k in (1, 3, 100, 4096):
+        vals, idx = jax.lax.top_k(jnp.asarray(x), k)
+        tv, ti = tm.top_k_lowest_first(t(x), k)
+        np.testing.assert_array_equal(n(tv), n(vals))
+        np.testing.assert_array_equal(n(ti), n(idx))
+
+
+@pytest.mark.parametrize("gate", ["none", "angles", "pair_mask"])
+def test_match_exact(rng, gate):
+    """``match`` with duplicate columns (ties) against the JAX package:
+    without a pair mask the port takes K2's none mode (its plain version
+    here), angles included."""
+    na, nb = 400, 300
+    da, db = _desc_with_ties(rng, na, nb)
+    # Near-copies of columns without a twin, so that the TH_LOW and ratio
+    # gates pass for many rows.
+    uniq = np.arange(nb // 2 + 1, nb, 2)
+    db[uniq] = rng.integers(0, 2 ** 32, (len(uniq), 8), dtype=np.uint32)
+    k = na // 2
+    da[:k] = db[rng.choice(uniq, k)] ^ (
+        rng.integers(0, 2 ** 32, (k, 8), dtype=np.uint32) & np.uint32(3))
+    va, vb = rng.random(na) > 0.05, rng.random(nb) > 0.05
+    kw = dict(max_dist=jm.TH_LOW, ratio=0.7)
+    jkw, tkw = dict(kw), dict(kw)
+    if gate == "angles":
+        best_j = n(jm.best_two(jm.masked_hamming(da, db, va, vb))[2])
+        angle_a, angle_b = _angles(rng, na, nb, best_j)
+        jkw["angles"] = (jnp.asarray(angle_a), jnp.asarray(angle_b))
+        tkw["angles"] = (t(angle_a), t(angle_b))
+    elif gate == "pair_mask":
+        pm = rng.random((na, nb)) < 0.5
+        jkw["pair_mask"], tkw["pair_mask"] = jnp.asarray(pm), t(pm)
+    ref = jm.match(da, db, jnp.asarray(va), jnp.asarray(vb), **jkw)
+    before = cuda_match.KERNEL.launches
+    out = tm.match(t(da), t(db), t(va), t(vb), **tkw)
+    assert cuda_match.KERNEL.launches == before     # CPU: the plain version
+    assert (n(ref[0]) >= 0).sum() > 20
+    np.testing.assert_array_equal(n(out[0]), n(ref[0]))
+    np.testing.assert_array_equal(n(out[1]), n(ref[1]))
+
+
+@pytest.mark.parametrize("radius", ["scalar", "per_row"])
+def test_match_window_exact(rng, radius):
+    na, nb = 300, 260
+    da, db = _desc_with_ties(rng, na, nb)
+    xy_a, xy_b, la, lb, r = _window_inputs(rng, na, nb)
+    k = na // 2
+    da[:k] = db[:k] ^ (rng.integers(0, 2 ** 32, (k, 8), dtype=np.uint32)
+                       & np.uint32(1))
+    va, vb = rng.random(na) > 0.05, rng.random(nb) > 0.05
+    rad = 40.0 if radius == "scalar" else r
+    args = (da, db, va, vb, xy_a, xy_b)
+    ref = jm.match_window(*[jnp.asarray(a) for a in args], rad,
+                          jnp.asarray(la), jnp.asarray(lb),
+                          level_window=(-2, 2), max_dist=jm.TH_LOW, ratio=0.9)
+    out = tm.match_window(*[t(a) for a in args],
+                          rad if radius == "scalar" else t(rad), t(la), t(lb),
+                          level_window=(-2, 2), max_dist=tm.TH_LOW, ratio=0.9)
+    assert (n(ref[0]) >= 0).sum() > 10
+    np.testing.assert_array_equal(n(out[0]), n(ref[0]))
+    np.testing.assert_array_equal(n(out[1]), n(ref[1]))

@@ -109,7 +109,7 @@ def test_kernel_wrappers_reject_cpu_tensors():
     z = torch.zeros
     with pytest.raises(ValueError):
         cuda_brief.brief_descriptors_kernel(
-            z(100), [(10, 10)], z(4, 2), z(4, dtype=torch.int32), z(4), z(4))
+            [z(10, 10)], z(4, 2), z(4, dtype=torch.int32), z(4))
     with pytest.raises(ValueError):
         cuda_match.hamming_best2_kernel(
             z(4, 8, dtype=torch.int32), z(5, 8, dtype=torch.int32),
