@@ -13,7 +13,15 @@ nvcc (in parallel) and drives both entry points of the port through them:
     (752x480 + radtan, 1200 features, 65536 landmark and 1024 keyframe
     slots, the local window engaged) on ``graft.euroc_mono_scene``, in its
     normal case (motion model) and its retry case (the widened retry from
-    the last pose), and the reference-keyframe fallback on the retry scene.
+    the last pose), and the reference-keyframe fallback on the retry scene;
+  * ``graft.mono_keyframe_step`` (the per-keyframe mapping bundle:
+    triangulation against 3 covisible keyframes through K2's epipolar mode,
+    duplicate fusion through K2's window mode over all 65536 landmark
+    slots, the windowed Schur BA, culling) on ``graft.euroc_mono_map`` at
+    the same capacity, in its normal case and its full case (the capacity
+    valve retires landmarks and the slot allocation recycles them); each
+    planted stage must fire, the result must agree with the CPU plain path,
+    and the synchronisations with the host inside the step are counted.
 
 Every kernel is held against its plain PyTorch version on the card: on
 synthetic inputs at both paths' shapes, and on the very inputs each path
@@ -23,8 +31,8 @@ have launched every kernel it uses. Any failed check raises and the script
 exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``. Needs a CUDA device and ``nvcc``.
 
-Per kernel, at the tracking step's shapes (and, under ``frame_step_calls``,
-at each of the frame step's calls):
+Per kernel, at the tracking step's shapes (and, under ``frame_step_calls``
+and ``keyframe_step_calls``, at each of those steps' calls):
   * ``ms``: the launch alone. The wrapper's launch is captured once and its
     C function is called again with the same prepared pointers; a spin kernel
     queued first keeps the host's launch cost out of the CUDA-event pair.
@@ -50,6 +58,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -69,6 +78,12 @@ F32_FLOPS = 67e12
 INT8_OPS = 1979e12
 # At least 10^6 angles in [-pi, pi] for the sincosf check.
 N_ANGLES = 1 << 20
+# The keyframe step: timed calls after warm-up calls, each from the same map.
+N_TIMED_KEYFRAMES = 20
+N_WARMUP_KEYFRAMES = 5
+# A triangulation decision may differ between the card and the CPU only
+# where a gate value lies within float32 rounding of its threshold.
+FLIP_MARGIN = 1e-5
 
 
 def phase(name: str, msg: str) -> None:
@@ -209,6 +224,80 @@ def bound(bytes_moved: float, ops: dict) -> tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def pose_error(R, t, R_true, t_true) -> float:
+    """Largest of the rotation's entry-wise error and the camera centre's
+    error in m (numpy, float64)."""
+    R, t = np.asarray(R, np.float64), np.asarray(t, np.float64)
+    R0, t0 = np.asarray(R_true, np.float64), np.asarray(t_true, np.float64)
+    return max(float(np.abs(R - R0).max()),
+               float(np.abs(R.T @ t - R0.T @ t0).max()))
+
+
+def triangulation_margins(X, Ra, ta, Rb, tb, xy_a, xy_b, level_a, level_b,
+                          cam_params) -> np.ndarray:
+    """Per row, in float64 from the triangulated points: the smallest
+    relative distance of any of ``triangulate_pair``'s gates (depth in both
+    views, chi2 5.991, the scale ratio's bounds, parallax cos 0.9998) to
+    its threshold."""
+    f = lambda a: np.asarray(a, np.float64)
+    X, Ra, ta, Rb, tb, xy_a, xy_b = map(f, (X, Ra, ta, Rb, tb, xy_a, xy_b))
+    fx, fy, cx, cy = f(cam_params)
+    la, lb = np.asarray(level_a), np.asarray(level_b)
+    margins = []
+    for R, t, xo, lv in ((Ra, ta, xy_a, la), (Rb, tb, xy_b, lb)):
+        pc = X @ R.T + t
+        uv = np.stack([fx * pc[:, 0] / pc[:, 2] + cx,
+                       fy * pc[:, 1] / pc[:, 2] + cy], -1)
+        chi2 = ((uv - xo) ** 2).sum(-1) / 1.2 ** (2 * lv)
+        margins += [np.abs(pc[:, 2]) / np.linalg.norm(X, axis=-1),
+                    np.abs(chi2 - 5.991) / 5.991]
+    ca, cb = -Ra.T @ ta, -Rb.T @ tb
+    da = np.linalg.norm(X - ca, axis=-1)
+    db = np.linalg.norm(X - cb, axis=-1)
+    octave = 1.2 ** (la - lb).astype(np.float64)
+    for b in (octave * 1.8, octave / 1.8):
+        margins.append(np.abs(da / db - b) / b)
+    cos = (((X - ca) / da[:, None]) * ((X - cb) / db[:, None])).sum(-1)
+    margins.append(np.abs(cos - 0.9998) / 0.9998)
+    return np.min(margins, axis=0)
+
+
+@contextlib.contextmanager
+def counted_syncs():
+    """Count the operations that synchronise the stream with the host
+    inside the block (``torch.cuda.set_sync_debug_mode("warn")``): yields a
+    list that ends up holding each warning's "file:line"."""
+    where = []
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield where
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    where += [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+              if "synchroniz" in str(w.message)]
+
+
+@contextlib.contextmanager
+def spied(module, name: str, record):
+    """Call ``record(args, kwargs, result)`` after every call of
+    ``module.name`` made inside the block."""
+    fn = getattr(module, name)
+
+    def spy(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        record(args, kwargs, out)
+        return out
+
+    setattr(module, name, spy)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -315,6 +404,23 @@ def main() -> int:
                 f"gate 5 f32 flops x {n_valid_pairs} valid pairs over "
                 f"{F32_FLOPS / 1e12} TFLOP/s + 512 int8 ops x {n_gated} gated "
                 f"pairs over {INT8_OPS / 1e12} TOP/s")
+        if "lines" in gates:
+            # The epipolar gate: (a u + b v + c)^2 / (a^2 + b^2) < th_j,
+            # 5 f32 flops a pair (the row's 1 / (a^2 + b^2) once a row).
+            ln, xb, th = gates["lines"], gates["xy_b"], gates["line_th"]
+            num = ln[:, None, 0] * xb[None, :, 0] + ln[:, None, 1] \
+                * xb[None, :, 1] + ln[:, None, 2]
+            inv = 1.0 / (ln[:, 0] ** 2 + ln[:, 1] ** 2).clamp_min(1e-12)
+            gate = num * num * inv[:, None] < th[None, :]
+            n_gated = int((gate & qva[:, None] & qvb[None, :]).sum())
+            ms, by = bound(na * (32 + 1 + 12 + 12) + nb * (32 + 1 + 8 + 4),
+                           {F32_FLOPS: 5 * n_valid_pairs,
+                            INT8_OPS: 2 * 256 * n_gated})
+            return ms, by, (
+                f"N={na} x 57 B + M={nb} x 45 B over {HBM_BPS / 1e12} TB/s; "
+                f"epipolar gate 5 f32 flops x {n_valid_pairs} valid pairs "
+                f"over {F32_FLOPS / 1e12} TFLOP/s + 512 int8 ops x {n_gated} "
+                f"gated pairs over {INT8_OPS / 1e12} TOP/s")
         ms, by = bound(na * (32 + 1 + 12) + nb * (32 + 1),
                        {INT8_OPS: 2 * 256 * n_valid_pairs})
         return ms, by, (f"N={na} x 45 B + M={nb} x 33 B over "
@@ -406,7 +512,8 @@ def main() -> int:
             mode = ("window" if "xy_a" in kwargs
                     else "epipolar" if "lines" in kwargs else "none")
             return {"N": args[0].shape[0], "M": args[1].shape[0],
-                    "mode": mode, "level_window": kwargs.get("level_window")}
+                    "mode": mode, "level_window": kwargs.get("level_window"),
+                    "valid_rows": int(args[2].sum())}
         return {"B": args[0].shape[0] if args[0].dim() == 3 else 1,
                 "N": args[2].shape[-2]}
 
@@ -807,6 +914,255 @@ def main() -> int:
               f"{r['wrapper_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.5f} ms by {r['bound_by']} ({card})")
 
+    # -- 8: the EuRoC-mono keyframe step through the kernels ----------------
+    from orbslam3_byzyh_tpu_torch.models import map_state
+    from orbslam3_byzyh_tpu_torch.pipeline import mapping
+
+    cpu = torch.device("cpu")
+
+    def replay_flips(m):
+        """Replay the bundle's insert, valve and triangulation on the card
+        and on the CPU side by side: (neighbour, row, margin) for each row
+        whose decision differs on the same input. Each side goes on with
+        its own result."""
+        nf, kf = eu.n_features, m.kf_id
+        sides = {}
+        for d in (dev, cpu):
+            a = graft.mono_map_args(m, d)
+            st = map_state.add_keyframe(a[0], kf, a[2], a[3], a[4], a[5])
+            st = map_state.add_observations(
+                st, a[6].clamp_min(0), kf,
+                torch.arange(nf, dtype=torch.int32, device=d), a[6] >= 0)
+            sides[d.type] = [a[5], st, a[6], a[7]]
+        st = sides["cpu"][1]
+        counts = map_state.covisibility_counts(st, kf, eu.max_kf)
+        counts = torch.where(st.kfs.valid, counts, 0)
+        counts[kf] = 0
+        cv, ci = matching.top_k_lowest_first(counts,
+                                             eu.triangulation_neighbors)
+        for side in sides.values():
+            side[1] = mapping.landmark_overflow_valve(side[1], nf)
+        flips = []
+        for nb, c in zip(ci.tolist(), cv.tolist()):
+            out = {}
+            for name, (f, st, b, cam) in sides.items():
+                k, ok_nb = st.kfs, c >= 15
+                out[name] = mapping.triangulate_pair(
+                    k.R[kf], k.t[kf], f.xy, f.level, f.desc,
+                    f.valid & (b < 0) & ok_nb, k.R[nb], k.t[nb], k.kp_xy[nb],
+                    k.kp_level[nb], k.kp_desc[nb], k.kp_valid[nb] & ok_nb,
+                    cam)
+            same = (sides["cuda"][2].cpu() < 0) == (sides["cpu"][2] < 0)
+            diff = ((out["cuda"].good.cpu() != out["cpu"].good)
+                    & same).nonzero().flatten().numpy()
+            if len(diff):
+                f, st = sides["cpu"][:2]
+                r = out["cpu"]
+                kb = r.kp_b.long()
+                marg = triangulation_margins(
+                    r.pos.numpy(), st.kfs.R[kf].numpy(), st.kfs.t[kf].numpy(),
+                    st.kfs.R[nb].numpy(), st.kfs.t[nb].numpy(), f.xy.numpy(),
+                    st.kfs.kp_xy[nb][kb].numpy(), f.level.numpy(),
+                    st.kfs.kp_level[nb][kb].numpy(), m.cam_params)
+                flips += [(nb, int(i), float(marg[i])) for i in diff]
+            for name, side in sides.items():
+                st, b = side[1], side[2]
+                r = out[name]
+                slots, ok = mapping._alloc_landmark_slots(st.lms.valid,
+                                                          r.good)
+                side[1] = map_state.add_landmarks(
+                    st, slots, r.pos, r.desc, kf, r.kp_a, nb, r.kp_b, ok,
+                    r.normal, r.min_dist, r.max_dist)
+                side[2] = map_state.scatter_rows(
+                    b, torch.where(ok, r.kp_a, nf), torch.where(ok, slots, -1))
+        return flips
+
+    def new_slots(st, kf):
+        return set(torch.nonzero((st.lms.first_kf == kf)
+                                 & st.lms.valid).flatten().tolist())
+
+    keyframe, ks_calls, launches_ks = {}, {n: [] for n in kernels}, None
+    for case in ("normal", "full"):
+        m = graft.euroc_mono_map(case=case)
+        kargs = graft.mono_map_args(m, dev)
+        st0, kf = kargs[0], m.kf_id
+        seen = {}
+
+        def on_valve(a, _, out):
+            seen["valve"] = int((a[0].lms.valid & ~out.lms.valid).sum())
+
+        def on_fuse(a, _, out):
+            seen["fuse_killed"] = int((a[0].lms.valid & ~out.lms.valid).sum())
+            had = ((a[0].obs.kf == kf) & a[0].obs.valid).any(1)
+            has = ((out.obs.kf == kf) & out.obs.valid).any(1)
+            seen["fuse_new_obs"] = int((has & ~had).sum())
+
+        def on_ba(a, _, out):
+            moved = (out.kfs.R != a[0].kfs.R).flatten(1).any(1)
+            obs = a[0].obs
+            in_free = obs.valid & (obs.kf >= 0) & moved[obs.kf.clamp_min(0)]
+            seen["ba_free"] = int(moved.sum())
+            seen["ba_lms"] = int((in_free.any(1) & a[0].lms.valid).sum())
+
+        for k in kernels.values():
+            k.launches = 0
+        with recorded(cuda_match, "hamming_best2_kernel") as c2, \
+                spied(mapping, "landmark_overflow_valve", on_valve), \
+                spied(mapping, "fuse_duplicates", on_fuse), \
+                spied(mapping, "windowed_local_ba", on_ba):
+            st, bind, info, culled = graft.mono_keyframe_step(*kargs)
+            torch.cuda.synchronize()
+        got = {n: k.launches for n, k in kernels.items()}
+        require(got == {"K1": 0, "K2": 4, "K3": 0},
+                f"keyframe step ({case}) launches {got}, expected K2 4")
+        modes = [("epipolar" if "lines" in kw else "window") for _, kw in c2]
+        require(modes == ["epipolar"] * 3 + ["window"]
+                and c2[-1][0][0].shape[0] == eu.max_lm,
+                f"keyframe step ({case}) K2 calls {modes}")
+        if case == "normal":
+            launches_ks = got
+            for a, kw in c2:
+                err, (b_ms, b_by, b_txt) = check_call("K2", a, kw)
+                entry = {"call": f"keyframe step {case}",
+                         "shape": shape_of("K2", a, kw), "max_abs_err": err,
+                         "bound_ms": b_ms, "bound_by": b_by, "bound": b_txt}
+                entry.update(timed("K2", a, kw, plain_reps=20))
+                ks_calls["K2"].append(entry)
+                phase("8 keyframe step", f"K2 {entry['shape']}: identical to "
+                      f"plain; launch alone {entry['ms']:.4f} ms, wrapper "
+                      f"{entry['wrapper_ms']:.4f} ms, plain "
+                      f"{entry['plain_ms']:.4f} ms, bound {b_ms:.5f} ms by "
+                      f"{b_by} ({card})")
+        else:
+            for a, kw in c2:
+                check_call("K2", a, kw)
+            phase("8 keyframe step", f"K2 ({case}): all 4 calls identical to "
+                  f"plain")
+        # Every planted stage fired.
+        new = new_slots(st, kf)
+        live0 = set(torch.nonzero(st0.lms.valid).flatten().tolist())
+        recycled = len(new & live0)
+        culled_ids = torch.nonzero(culled).flatten().tolist()
+        err0 = pose_error(m.R, m.t, m.R_true, m.t_true)
+        err1 = pose_error(st.kfs.R[kf].cpu(), st.kfs.t[kf].cpu(), m.R_true,
+                          m.t_true)
+        inv = map_state.check_invariants(st, kf + 1, eu.max_lm)
+        require(len(new) >= 300, f"keyframe step ({case}): {len(new)} new "
+                f"landmarks < 300")
+        require(seen["fuse_killed"] >= 1 and seen["fuse_new_obs"] >= 1,
+                f"keyframe step ({case}): fusion {seen}")
+        require(culled_ids == [m.cull_kf], f"keyframe step ({case}): culled "
+                f"{culled_ids}, planted {m.cull_kf}")
+        require((seen["valve"] > 0) == (case == "full")
+                and (recycled > 0) == (case == "full"),
+                f"keyframe step ({case}): valve retired {seen['valve']}, "
+                f"{recycled} slots recycled")
+        require(seen["ba_free"] == eu.local_window + 1
+                and seen["ba_lms"] > eu.ba_lm_window,
+                f"keyframe step ({case}): BA window {seen}")
+        require(err1 < err0, f"keyframe step ({case}): pose error {err0} -> "
+                f"{err1}")
+        require(inv == [], f"keyframe step ({case}): invariants {inv}")
+        require(bool(torch.equal(st0.lms.valid.cpu(),
+                                 torch.from_numpy(m.state.lms.valid))),
+                "the keyframe step wrote into its input map")
+        # The CPU plain path on the same numpy inputs.
+        st_c, bind_c, info_c, culled_c = graft.mono_keyframe_step(
+            *graft.mono_map_args(m, cpu))
+        new_c = new_slots(st_c, kf)
+        d_bind = int((bind.cpu() != bind_c).sum())
+        flips = [] if (new == new_c and d_bind == 0) else replay_flips(m)
+        for nb, row, margin in flips:
+            phase("8 keyframe step", f"{case}: triangulation against keyframe "
+                  f"{nb}, row {row}: card and CPU differ, gate margin "
+                  f"{margin:.3e}")
+        require(all(mg < FLIP_MARGIN for _, _, mg in flips),
+                f"keyframe step ({case}): flips beyond float rounding {flips}")
+        n_bound = int((bind_c >= 0).sum())
+        require(torch.equal(culled.cpu(), culled_c), "culled differs from CPU")
+        require(len(new ^ new_c) <= max(1, 0.01 * len(new_c))
+                and d_bind <= max(1, 0.01 * n_bound),
+                f"keyframe step ({case}): new slots {len(new)} vs CPU "
+                f"{len(new_c)} ({len(new ^ new_c)} differ), bindings differ "
+                f"at {d_bind}")
+        live = st_c.kfs.valid
+        pose_gap = max(float((st.kfs.R.cpu() - st_c.kfs.R)[live].abs().max()),
+                       float((st.kfs.t.cpu() - st_c.kfs.t)[live].abs().max()))
+        require(pose_gap <= 1e-3, f"keyframe step ({case}): poses differ "
+                f"from the CPU by {pose_gap}")
+        # The synchronisations with the host inside the step.
+        with counted_syncs() as where:
+            graft.mono_keyframe_step(*kargs)
+        torch.cuda.synchronize()
+        keyframe[case] = {
+            "new_landmarks": len(new), "new_landmarks_cpu": len(new_c),
+            "bindings": int((bind >= 0).sum()), "bindings_in": int(
+                (kargs[6] >= 0).sum()), "bindings_differ_cpu": d_bind,
+            "fusion_killed": seen["fuse_killed"],
+            "fusion_new_observations": seen["fuse_new_obs"],
+            "valve_retired": seen["valve"], "slots_recycled": recycled,
+            "ba_free_keyframes": seen["ba_free"],
+            "ba_landmarks_seen": seen["ba_lms"], "culled": culled_ids,
+            "pose_error_before": err0, "pose_error_after": err1,
+            "pose_gap_cpu": pose_gap, "flips": flips,
+            "live_landmarks_in": int(st0.lms.valid.sum()),
+            "live_landmarks_out": int(st.lms.valid.sum()),
+            "syncs": len(where), "sync_sites": sorted(set(where))}
+        phase("8 keyframe step", f"{case}: mono_keyframe_step, {eu.max_kf} "
+              f"keyframe / {eu.max_lm} landmark slots, {kf} live keyframes: "
+              f"{len(new)} new landmarks (CPU plain versions {len(new_c)}), "
+              f"fusion killed {seen['fuse_killed']} and added "
+              f"{seen['fuse_new_obs']} observations, valve retired "
+              f"{seen['valve']} ({recycled} slots recycled), BA window "
+              f"{seen['ba_free']} free keyframes seeing {seen['ba_lms']} > "
+              f"{eu.ba_lm_window} landmarks, culled {culled_ids}; pose error "
+              f"{err0:.2e} -> {err1:.2e}; poses within {pose_gap:.2e} of the "
+              f"CPU; launches {got}; {len(where)} synchronisations "
+              f"{sorted(set(where))}")
+
+    # The timed keyframe step: every call from the same input map.
+    m = graft.euroc_mono_map(case="normal")
+    kargs = graft.mono_map_args(m, dev)
+
+    def kf_step():
+        return graft.mono_keyframe_step(*kargs)[2].cpu()
+
+    for _ in range(N_WARMUP_KEYFRAMES):
+        kf_step()
+    for k in kernels.values():
+        k.launches = 0
+    kf_ms = []
+    for _ in range(N_TIMED_KEYFRAMES):
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        kf_step()
+        torch.cuda.synchronize()
+        kf_ms.append((time.perf_counter() - t_start) * 1e3)
+    per_call = {n: k.launches / N_TIMED_KEYFRAMES for n, k in kernels.items()}
+    kf_med = statistics.median(kf_ms)
+    kf_p80 = statistics.quantiles(kf_ms, n=5)[-1]
+    # All device work of a call, by the profiler over a few calls.
+    from torch.profiler import ProfilerActivity, profile
+    n_prof = 3
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_prof):
+            kf_step()
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    kf_device_launches = sum(e.count for e in dev_events) / n_prof
+    kf_busy_ms = sum(e.self_device_time_total for e in dev_events) / n_prof / 1e3
+    phase("8 keyframe step", f"mono_keyframe_step (normal case) median "
+          f"{kf_med:.3f} ms, p80 {kf_p80:.3f} ms over {N_TIMED_KEYFRAMES} "
+          f"calls (min {min(kf_ms):.3f}, max {max(kf_ms):.3f}), after "
+          f"{N_WARMUP_KEYFRAMES} warm-up calls, the read of info included; "
+          f"K1-K3 launches per call {per_call}; {kf_device_launches:.0f} "
+          f"device operations and {kf_busy_ms:.3f} ms of device time per "
+          f"call (profiler, {n_prof} calls); "
+          f"{keyframe['normal']['syncs']} synchronisations per call ({card})")
+
     sources = {"K1": ("steered-BRIEF sampler", "csrc/brief.cu",
                       "orbslam3_byzyh_tpu/ops/pallas_brief.py:161",
                       "none: no single PyTorch call gathers rotated sample "
@@ -830,11 +1186,18 @@ def main() -> int:
          "bound_by": results[n]["bound_by"], "library_ms": None,
          "library": sources[n][3], "wrapper_ms": results[n]["wrapper_ms"],
          "bound": results[n]["bound"], "ptxas": ptxas[n],
-         "frame_step_calls": fs_calls[n]}
+         "frame_step_calls": fs_calls[n],
+         "launches_keyframe_step": launches_ks[n],
+         "keyframe_step_calls": ks_calls[n]}
         for n in kernels], "k2_sass_tensor_instructions": tensor_ops,
         "step_ms": step_med, "step_p80_ms": step_p80,
         "mono_frame_step_ms": mono_med, "mono_frame_step_p80_ms": mono_p80,
-        "mono_frame_step": mono, "card": card}))
+        "mono_frame_step": mono, "keyframe_step_ms": kf_med,
+        "keyframe_step_p80_ms": kf_p80,
+        "keyframe_step_launches_per_call": per_call,
+        "keyframe_step_device_ops_per_call": kf_device_launches,
+        "keyframe_step_device_ms_per_call": kf_busy_ms,
+        "keyframe_step": keyframe, "card": card}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

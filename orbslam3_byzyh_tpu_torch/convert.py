@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from . import device as device_mod
+from .models import map_state as ms
 
 
 def to_torch(x, device=None) -> torch.Tensor:
@@ -51,3 +52,28 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 def desc_to_uint32(t: torch.Tensor) -> np.ndarray:
     """(N, 8) int32 descriptor words -> the JAX package's uint32 words."""
     return to_numpy(t).astype(np.int32, copy=False).view(np.uint32)
+
+
+def map_state_to_torch(state_np, device=None):
+    """A map state of numpy (or JAX) arrays, shaped as the JAX package's
+    ``MapState``, -> the port's ``MapState`` of tensors on ``device``
+    (``None``: the card). Descriptors become bit-identical int32 words."""
+    dev = device_mod.resolve(device)
+    return ms.MapState(
+        kfs=ms.KeyFrames(*(to_torch(a, dev) for a in state_np.kfs)),
+        lms=ms.Landmarks(*(to_torch(a, dev) for a in state_np.lms)),
+        obs=ms.Observations(*(to_torch(a, dev) for a in state_np.obs)))
+
+
+def map_state_to_numpy(state):
+    """The port's ``MapState`` -> the same NamedTuples of numpy arrays, with
+    the JAX package's dtypes (descriptors as uint32 words)."""
+    desc = {"kp_desc", "desc"}
+
+    def conv(group):
+        return type(group)(*(
+            desc_to_uint32(x) if name in desc else to_numpy(x)
+            for name, x in zip(group._fields, group)))
+
+    return ms.MapState(kfs=conv(state.kfs), lms=conv(state.lms),
+                       obs=conv(state.obs))

@@ -1,5 +1,5 @@
-"""Entry points: the per-frame tracking step, the monocular frame step, and
-their example inputs.
+"""Entry points: the per-frame tracking step, the monocular frame step, the
+monocular keyframe step, and their example inputs.
 
 ``tracking_step`` is the flagship per-frame computation (ORB extraction +
 local-map tracking + motion-only pose optimization), with the same
@@ -10,6 +10,11 @@ frame (``MonoSlam._extract`` then ``tracking.frame_step``) at the EuRoC
 monocular configuration; ``mono_reference_fallback`` is its
 reference-keyframe fallback. ``euroc_mono_scene`` builds a map at that
 configuration's full capacity that a frame tracks against.
+
+``mono_keyframe_step`` is the one device dispatch ``MonoSlam._create_keyframe``
+makes for each new keyframe (``mapping.keyframe_bundle`` with the visual
+system's local BA and keyframe culling). ``euroc_mono_map`` builds a map at
+the EuRoC-mono capacity in which every stage of that step has work.
 """
 
 from __future__ import annotations
@@ -20,9 +25,10 @@ import numpy as np
 import torch
 
 from . import convert
+from .models import map_state as ms
 from .ops import camera as cam
 from .ops import fast_orb, lie
-from .pipeline import tracking
+from .pipeline import mapping, tracking
 
 N_FEATURES = 1024
 # The initial pose of the lifted scene: exp([rho, phi]) off the identity.
@@ -40,7 +46,10 @@ class MonoConfig(NamedTuple):
     features over 8 levels at scale 1.2, FAST 20/7), the runner's map
     capacity (1024 keyframes, 65536 landmarks) and the system's defaults
     (12 observations a landmark; a local window of 20 voted + 4 recent
-    keyframes and 4096 landmarks; TrackedMapPoints(3))."""
+    keyframes and 4096 landmarks; TrackedMapPoints(3); the keyframe
+    bundle's local BA over the keyframe and its 8 best covisible
+    neighbours, 32 keyframes and 4096 landmarks in all, and triangulation
+    against 3 neighbours)."""
 
     width: int = 752
     height: int = 480
@@ -59,6 +68,10 @@ class MonoConfig(NamedTuple):
     n_local_lm: int = 4096
     recent_kf: int = 4
     kf_ref_min_obs: int = 3
+    local_window: int = 8
+    ba_window: int = 32
+    ba_lm_window: int = 4096
+    triangulation_neighbors: int = 3
 
 
 EUROC_MONO = MonoConfig()
@@ -353,3 +366,332 @@ def euroc_mono_scene(feats_xy, feats_level, feats_desc, feats_angle,
         n_found=n_found.astype(np.int32), n_visible=n_visible.astype(np.int32),
         cam_params=np.array([cfg.fx, cfg.fy, cfg.cx, cfg.cy], f32),
         dist=np.array(cfg.dist, f32))
+
+
+# --- The keyframe step ------------------------------------------------------
+
+def mono_keyframe_step(state, kf_id, R, t, stamp, feats, bindings,
+                       cam_params, n_lm_hwm, cfg: MonoConfig = EUROC_MONO):
+    """What ``MonoSlam._create_keyframe`` runs on the device for a new
+    keyframe: ``mapping.keyframe_bundle`` at ``cfg``'s windows, monocular
+    (``ur`` all -1), with the local BA and keyframe culling on. ``state`` is
+    a ``map_state.MapState``; ``feats`` the frame's features (``xy``,
+    ``level``, ``angle``, ``desc``, ``valid``); ``bindings`` (N,) int32
+    the tracked landmark of each keypoint. Returns (state', bindings',
+    info, culled) as the JAX package's ``keyframe_bundle`` does."""
+    ur = torch.full((cfg.n_features,), -1.0, device=feats.xy.device)
+    return mapping.keyframe_bundle(
+        state, kf_id, R, t, stamp, feats, ur, bindings, cam_params,
+        n_lm_hwm, float(cfg.width), float(cfg.height),
+        n_neighbors=cfg.triangulation_neighbors,
+        n_free=cfg.local_window + 1, n_window=cfg.ba_window,
+        n_lm_window=cfg.ba_lm_window, do_kf_cull=True, do_local_ba=True)
+
+
+class MonoMap(NamedTuple):
+    """``mono_keyframe_step``'s arguments as numpy (the map with the JAX
+    package's dtypes: descriptors uint32), and the scene's truth."""
+
+    state: ms.MapState       # numpy leaves
+    kf_id: int               # the new keyframe's slot
+    R: np.ndarray            # (3, 3) its pose as tracking gave it
+    t: np.ndarray
+    stamp: float
+    feats: fast_orb.FrameFeatures   # numpy leaves, desc uint32
+    bindings: np.ndarray     # (N,) int32
+    cam_params: np.ndarray   # (4,) float32
+    n_lm_hwm: int
+    R_true: np.ndarray       # the new keyframe's true pose
+    t_true: np.ndarray
+    cull_kf: int             # the planted redundant keyframe
+
+
+def mono_map_args(m: MonoMap, device=None) -> tuple:
+    """``mono_keyframe_step``'s first nine arguments from a :class:`MonoMap`,
+    as tensors on ``device`` (``None``: the card)."""
+    feats = fast_orb.FrameFeatures(*convert.tree_to_torch(m.feats, device))
+    return (convert.map_state_to_torch(m.state, device), m.kf_id,
+            convert.to_torch(m.R, device), convert.to_torch(m.t, device),
+            m.stamp, feats, convert.to_torch(m.bindings, device),
+            convert.to_torch(m.cam_params, device), m.n_lm_hwm)
+
+
+def _rodrigues(w) -> np.ndarray:
+    """so(3) vector -> rotation matrix (float64)."""
+    w = np.asarray(w, np.float64)
+    th = np.linalg.norm(w)
+    if th < 1e-12:
+        return np.eye(3)
+    k = w / th
+    K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * K @ K
+
+
+def _path_pose(k: int, spacing: float):
+    """Keyframe k's true pose on a smooth path along +x, looking along +z:
+    (R_cw, t_cw, camera centre)."""
+    c = np.array([spacing * k, 0.08 * np.sin(0.07 * k),
+                  0.05 * np.sin(0.05 * k)])
+    R_wc = _rodrigues([0.02 * np.sin(0.04 * k), 0.03 * np.sin(0.03 * k),
+                       0.01 * np.sin(0.05 * k)])
+    return R_wc.T, -R_wc.T @ c, c
+
+
+def _perturb(rng, R, t, rot: float, trans: float):
+    """A pose with about ``rot`` rad and ``trans`` m of noise."""
+    dR = _rodrigues(rng.normal(0, rot, 3))
+    return dR @ R, dR @ t + rng.normal(0, trans, 3)
+
+
+# euroc_mono_map's keyframe spacing along its path, m.
+_SPACING = 0.15
+# Level of a scene point: ORB's share of features per octave at 1.2.
+_LEVEL_P = np.array([0.3, 0.22, 0.16, 0.12, 0.08, 0.06, 0.04, 0.02])
+
+
+def euroc_mono_map(cfg: MonoConfig = EUROC_MONO, case: str = "normal",
+                   seed: int = 0, n_live_kf: int = 200,
+                   view_points: int = 7000) -> MonoMap:
+    """A map at ``cfg``'s capacity and a new keyframe for it (numpy in and
+    out), in which every stage of ``mono_keyframe_step`` has work.
+
+    A field of 3D points (about ``view_points`` in each view) is seen by
+    ``n_live_kf`` keyframes on a smooth path, 0.15 m apart. Each view
+    picks ``cfg.n_features`` of its visible points as keypoints: the
+    projection with 0.3 px noise, the point's level, and its 256-bit
+    descriptor with 0-8 bits flipped. A point seen by at least two
+    keyframes is a landmark, observed by its 2..``max_obs`` most recent
+    views (2 and 3 observations 20 % each); its position carries 1 cm of
+    noise and the keyframe poses about 0.3 mrad and 2 mm. The new keyframe
+    sits in slot ``n_live_kf`` with the pose tracking gave it (about 1.5
+    mrad and 1 cm off) and the tracked bindings. Planted:
+
+      * 70 % of the points it sees are not mapped yet (triangulation);
+      * 8 % of its mapped keypoints were missed by tracking (fusion: a new
+        observation, or a duplicate of a landmark that triangulation
+        recreates there);
+      * the newest keyframes observe more landmarks than the BA window;
+      * 2 % of the landmarks were found in fewer than 20 % of the frames
+        that saw them (landmark culling);
+      * keyframe ``n_live_kf // 2`` has every one of its landmarks
+        observed at least 4 times (keyframe culling).
+
+    ``case`` = "normal": the map holds what the views give. "full": old
+    landmarks, observed by 2-3 keyframes of the first half, fill all but
+    2/3 of ``n_features`` slots, so the capacity valve retires the oldest
+    and the slot allocation recycles.
+    """
+    if case not in ("normal", "full"):
+        raise ValueError(f"case: 'normal' or 'full', got {case!r}")
+    rng = np.random.default_rng(seed)
+    K, nf, O, L = n_live_kf, cfg.n_features, cfg.max_obs, cfg.max_lm
+    if K + 1 > cfg.max_kf or K < 12:
+        raise ValueError(f"n_live_kf: 12..{cfg.max_kf - 1}, got {K}")
+    p_cull = K // 2
+    fx, fy, cx, cy = cfg.fx, cfg.fy, cfg.cx, cfg.cy
+    W, H = cfg.width, cfg.height
+    poses = [_path_pose(k, _SPACING) for k in range(K + 1)]
+
+    # The point field: a slab in front of the path, as dense as asked.
+    half_w = 10.0 * max(cx, W - cx) / fx + 1.0
+    lo = np.array([-half_w, -5.5, 4.0])
+    hi = np.array([_SPACING * K + half_w, 5.5, 10.0])
+
+    def project(k, X):
+        R, t, _ = poses[k]
+        pc = X @ R.T + t
+        z = pc[:, 2]
+        uv = np.stack([fx * pc[:, 0] / z + cx, fy * pc[:, 1] / z + cy], -1)
+        ok = ((z > 0.1) & (uv[:, 0] >= 8) & (uv[:, 0] < W - 8)
+              & (uv[:, 1] >= 8) & (uv[:, 1] < H - 8))
+        return uv, ok
+
+    pilot = rng.uniform(lo, hi, (20000, 3))
+    frac = max(project(K // 2, pilot)[1].mean(), 1e-6)
+    n_pts = int(view_points / frac)
+    X = rng.uniform(lo, hi, (n_pts, 3))
+    base = rng.integers(0, 2 ** 32, (n_pts, 8), dtype=np.uint32)
+    p_level = rng.choice(8, n_pts, p=_LEVEL_P).astype(np.int32)
+    p_angle = rng.uniform(-np.pi, np.pi, n_pts)
+
+    # Each view's keypoints.
+    kp_pt = np.full((K + 1, nf), -1, np.int64)
+    kp_xy = np.zeros((K + 1, nf, 2), np.float32)
+    kp_desc = np.zeros((K + 1, nf, 8), np.uint32)
+    kp_level = np.zeros((K + 1, nf), np.int32)
+    kp_angle = np.zeros((K + 1, nf), np.float32)
+    for k in range(K + 1):
+        uv, ok = project(k, X)
+        vis = np.flatnonzero(ok)
+        pick = rng.permutation(vis)[:nf]
+        n = len(pick)
+        kp_pt[k, :n] = pick
+        kp_xy[k, :n] = uv[pick] + rng.normal(0, 0.3, (n, 2))
+        flips = np.zeros((n, 8), np.uint32)
+        n_bits = rng.integers(0, 9, n)
+        for j in range(8):
+            pos = rng.integers(0, 256, n)
+            bit = np.left_shift(np.uint32(1), (pos % 32).astype(np.uint32))
+            flips[np.arange(n), pos // 32] ^= np.where(j < n_bits, bit,
+                                                       np.uint32(0))
+        kp_desc[k, :n] = base[pick] ^ flips
+        kp_level[k, :n] = p_level[pick]
+        kp_angle[k, :n] = p_angle[pick] + rng.normal(0, 0.02, n)
+    kp_valid = kp_pt >= 0
+
+    # Appearances in the old views, chronological per point.
+    kk, ii = np.nonzero(kp_valid[:K])
+    pts = kp_pt[kk, ii]
+    order = np.lexsort((kk, pts))
+    pts, kk, ii = pts[order], kk[order], ii[order]
+    count = np.bincount(pts, minlength=n_pts)
+    start = np.concatenate([[0], np.cumsum(count)[:-1]])
+    from_end = start[pts] + count[pts] - np.arange(len(pts))   # 1 = newest
+
+    # Which points are landmarks, and how many views observe each.
+    new_pts = kp_pt[K][kp_valid[K]]
+    shared = np.zeros(n_pts, bool)
+    shared[new_pts] = True
+    unmapped = shared & (rng.random(n_pts) < 0.7)
+    mapped = (count >= 2) & ~unmapped
+    c_obs = rng.choice(np.arange(2, O + 1), n_pts,
+                       p=np.r_[0.2, 0.2, np.full(O - 3, 0.6 / (O - 3))])
+    # The planted keyframe: each of its landmarks gets >= 4 observations,
+    # or the point stays unmapped.
+    is_p = kk == p_cull
+    rank_p = np.zeros(n_pts, np.int64)
+    rank_p[pts[is_p]] = from_end[is_p]
+    with_p = rank_p > 0
+    extend = with_p & (rank_p <= O) & (count >= 4)
+    c_obs = np.where(extend, np.maximum(np.maximum(c_obs, rank_p), 4), c_obs)
+    mapped &= ~(with_p & (rank_p <= c_obs) & (count < 4))
+    c_obs = np.minimum(c_obs, count)
+    keep = mapped[pts] & (from_end <= c_obs[pts])
+    lm_pts = np.flatnonzero(mapped)
+    n_lm = len(lm_pts)
+
+    # Landmark slots: scattered in the normal case; the full case fills all
+    # but 2/3 of a frame's features with old landmarks.
+    n_fill = 0 if case == "normal" else L - n_lm - 2 * nf // 3
+    if n_lm + max(n_fill, 0) > L or n_fill < 0:
+        raise ValueError(f"{n_lm} landmarks do not fit {L} slots")
+    slots = rng.permutation(L)
+    lm_slot = np.full(n_pts, -1, np.int64)
+    lm_slot[lm_pts] = slots[:n_lm]
+    fill_slots = slots[n_lm:n_lm + n_fill]
+
+    obs_kf = np.full((L, O), -1, np.int32)
+    obs_kp = np.full((L, O), -1, np.int32)
+    obs_valid = np.zeros((L, O), bool)
+    kept = np.flatnonzero(keep)
+    col = c_obs[pts[kept]] - from_end[kept]       # oldest kept first
+    rows = lm_slot[pts[kept]]
+    obs_kf[rows, col] = kk[kept]
+    obs_kp[rows, col] = ii[kept]
+    obs_valid[rows, col] = True
+
+    # Landmark rows (empty slots as map_state.empty_map makes them).
+    pos = np.zeros((L, 3))
+    desc = np.zeros((L, 8), np.uint32)
+    normal = np.zeros((L, 3))
+    min_d, max_d = np.zeros(L), np.full(L, 1e9)
+    n_obs = np.zeros(L, np.int32)
+    n_found = np.zeros(L, np.int32)
+    n_visible = np.zeros(L, np.int32)
+    first_kf = np.zeros(L, np.int32)
+    valid = np.zeros(L, bool)
+    sl = lm_slot[lm_pts]
+    centres = np.stack([p[2] for p in poses])
+    okf = obs_kf[sl]
+    ov = obs_valid[sl]
+    rays = X[lm_pts][:, None, :] - centres[np.maximum(okf, 0)]
+    rays /= np.linalg.norm(rays, axis=-1, keepdims=True)
+    mean_ray = (rays * ov[..., None]).sum(1)
+    last = okf[np.arange(n_lm), ov.sum(1) - 1]
+    d_ref = np.linalg.norm(X[lm_pts] - centres[last], axis=-1)
+    pos[sl] = X[lm_pts] + rng.normal(0, 0.01, (n_lm, 3))
+    desc[sl] = base[lm_pts]
+    normal[sl] = mean_ray / np.linalg.norm(mean_ray, axis=-1, keepdims=True)
+    max_d[sl] = d_ref * cfg.scale ** p_level[lm_pts]
+    min_d[sl] = max_d[sl] / cfg.scale ** (cfg.n_levels - 1)
+    n_obs[sl] = ov.sum(1)
+    first_kf[sl] = okf[:, 0]
+    valid[sl] = True
+    vis_n = rng.integers(3, 40, n_lm)
+    ratio = np.where(rng.random(n_lm) < 0.02, rng.uniform(0, 0.2, n_lm),
+                     rng.uniform(0.4, 1.0, n_lm))
+    n_visible[sl] = vis_n
+    n_found[sl] = np.floor(ratio * vis_n)
+
+    if n_fill:
+        # Old landmarks behind every camera, seen by 2-3 keyframes of the
+        # first half (never the planted one).
+        pool = np.setdiff1d(np.arange(1, K // 2), [p_cull])
+        m = np.arange(n_fill)
+        n_o = rng.integers(2, 4, n_fill)
+        kfs_f = np.sort(np.argsort(rng.random((n_fill, len(pool))), 1)[:, :3],
+                        1)
+        for j in range(3):
+            on = j < n_o
+            obs_kf[fill_slots[on], j] = pool[kfs_f[on, j]]
+            obs_kp[fill_slots[on], j] = rng.integers(0, nf, int(on.sum()))
+            obs_valid[fill_slots[on], j] = True
+        fpos = rng.uniform([-20, -5, -20], [0, 5, -10], (n_fill, 3))
+        pos[fill_slots] = fpos
+        desc[fill_slots] = rng.integers(0, 2 ** 32, (n_fill, 8),
+                                        dtype=np.uint32)
+        normal[fill_slots] = [0.0, 0.0, -1.0]
+        min_d[fill_slots], max_d[fill_slots] = 0.5, 40.0
+        n_obs[fill_slots] = n_o
+        first_kf[fill_slots] = pool[kfs_f[m, 0]]
+        n_visible[fill_slots] = rng.integers(3, 40, n_fill)
+        n_found[fill_slots] = n_visible[fill_slots]
+        valid[fill_slots] = True
+
+    # Keyframes: the old ones with pose noise; slot K stays empty.
+    Rk = np.tile(np.eye(3), (cfg.max_kf, 1, 1))
+    tk = np.zeros((cfg.max_kf, 3))
+    for k in range(K):
+        R, t, _ = poses[k]
+        Rk[k], tk[k] = (R, t) if k == 0 else _perturb(rng, R, t, 3e-4, 2e-3)
+
+    def slab(a, fill):
+        out = np.full((cfg.max_kf,) + a.shape[1:], fill, a.dtype)
+        out[:K] = a[:K]
+        return out
+
+    f32 = np.float32
+    kf_valid = np.zeros(cfg.max_kf, bool)
+    kf_valid[:K] = True
+    state = ms.MapState(
+        kfs=ms.KeyFrames(
+            R=Rk.astype(f32), t=tk.astype(f32),
+            stamp=(0.25 * np.arange(cfg.max_kf) * kf_valid).astype(f32),
+            kp_xy=slab(kp_xy, 0), kp_level=slab(kp_level, 0),
+            kp_angle=slab(kp_angle, 0), kp_desc=slab(kp_desc, 0),
+            kp_valid=slab(kp_valid, False),
+            kp_ur=np.full((cfg.max_kf, nf), -1.0, f32), valid=kf_valid),
+        lms=ms.Landmarks(
+            pos=pos.astype(f32), desc=desc, normal=normal.astype(f32),
+            min_dist=min_d.astype(f32), max_dist=max_d.astype(f32),
+            n_obs=n_obs, n_found=n_found, n_visible=n_visible,
+            first_kf=first_kf, valid=valid),
+        obs=ms.Observations(kf=obs_kf, kp=obs_kp, valid=obs_valid))
+
+    # The new keyframe as tracking leaves it: its mapped keypoints bound,
+    # 8 % of them missed.
+    R_true, t_true, _ = poses[K]
+    R_new, t_new = _perturb(rng, R_true, t_true, 1.5e-3, 1e-2)
+    slot_of = lm_slot[np.maximum(kp_pt[K], 0)]
+    bound = kp_valid[K] & (slot_of >= 0) & (rng.random(nf) >= 0.08)
+    feats = fast_orb.FrameFeatures(
+        xy=kp_xy[K], level=kp_level[K], angle=kp_angle[K],
+        response=np.zeros(nf, f32), desc=kp_desc[K], valid=kp_valid[K])
+    return MonoMap(
+        state=state, kf_id=K, R=R_new.astype(f32), t=t_new.astype(f32),
+        stamp=float(np.float32(0.25 * K)), feats=feats,
+        bindings=np.where(bound, slot_of, -1).astype(np.int32),
+        cam_params=np.array([fx, fy, cx, cy], f32),
+        n_lm_hwm=int(np.flatnonzero(valid).max()) + 1,
+        R_true=R_true.astype(f32), t_true=t_true.astype(f32),
+        cull_kf=p_cull)

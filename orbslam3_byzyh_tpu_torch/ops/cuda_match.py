@@ -62,19 +62,35 @@ def _inv_norm2(lines):
 
 def hamming_best2_plain(da, db, valid_a, valid_b, *, xy_a=None, xy_b=None,
                         radius=None, level_a=None, level_b=None,
-                        level_window=(0, 0), lines=None, line_th=None):
-    """Plain PyTorch version: (best, second, best_j), each (N,) int32."""
+                        level_window=(0, 0), lines=None, line_th=None,
+                        chunk_rows=None):
+    """Plain PyTorch version: (best, second, best_j), each (N,) int32.
+
+    Rows are taken ``chunk_rows`` at a time (default:
+    ``matching.chunk_rows_for(M)``); each row's result depends on that row
+    alone, so any block size gives the same bits."""
     mode = _mode(xy_a, lines)
-    pm = None
-    if mode == "window":
-        pm = matching.window_mask(xy_a, xy_b, radius) \
-            & matching.level_mask(level_a, level_b, *level_window)
-    elif mode == "epipolar":
-        num = (lines[:, None, 0] * xy_b[None, :, 0]
-               + lines[:, None, 1] * xy_b[None, :, 1] + lines[:, None, 2])
-        pm = num * num * _inv_norm2(lines)[:, None] < line_th[None, :]
-    dist = matching.masked_hamming(da, db, valid_a, valid_b, pm)
-    return matching.best_two(dist)
+    n, m = da.shape[0], db.shape[0]
+    step = chunk_rows or matching.chunk_rows_for(m)
+    if radius is not None and not isinstance(radius, torch.Tensor):
+        radius = torch.full((), radius, dtype=torch.float32, device=da.device)
+    out = []
+    for r0 in range(0, max(n, 1), step):
+        rows = slice(r0, r0 + step)
+        pm = None
+        if mode == "window":
+            rad = radius if radius.dim() == 0 else radius[rows]
+            pm = matching.window_mask(xy_a[rows], xy_b, rad) \
+                & matching.level_mask(level_a[rows], level_b, *level_window)
+        elif mode == "epipolar":
+            ln = lines[rows]
+            num = (ln[:, None, 0] * xy_b[None, :, 0]
+                   + ln[:, None, 1] * xy_b[None, :, 1] + ln[:, None, 2])
+            pm = num * num * _inv_norm2(ln)[:, None] < line_th[None, :]
+        dist = matching.masked_hamming(da[rows], db, valid_a[rows], valid_b,
+                                       pm)
+        out.append(matching.best_two(dist))
+    return tuple(torch.cat(parts) for parts in zip(*out))
 
 
 def hamming_best2_kernel(da, db, valid_a, valid_b, *, xy_a=None, xy_b=None,

@@ -1,11 +1,16 @@
 """Batched Hamming-distance descriptor matching.
 
-Port of ``orbslam3_byzyh_tpu/ops/matching.py`` (all but the epipolar
-search). Descriptors are (N, 8) int32 words holding the JAX package's
+Port of ``orbslam3_byzyh_tpu/ops/matching.py``. Descriptors are (N, 8) int32 words holding the JAX package's
 uint32 bits. Distances are int32 in [0, 256]; ``INVALID_DIST`` (1024) marks
 masked-out pairs. The fused masked top-2 reduction is kernel K2
 (:mod:`.cuda_match`): ``match`` without a pair mask takes its "none" mode,
-``match_window`` and ``search_by_projection`` its window mode.
+``match_window`` and ``search_by_projection`` its window mode,
+``search_epipolar`` its epipolar mode.
+
+The plain distance matrix is built in blocks of rows (``hamming_matrix``'s
+``chunk_rows``): each row's distances depend on that row alone, so a block
+gives the same bits as the whole, and the int64 temporaries stay small at
+the fusion search's 65536 x 1200.
 """
 
 from __future__ import annotations
@@ -33,12 +38,27 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
     return ((x * 0x01010101) >> 24 & 0xFF).to(torch.int32)
 
 
-def hamming_matrix(da: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
-    """(N, 8) x (M, 8) int32 words -> (N, M) int32 Hamming distances."""
-    dist = torch.zeros((da.shape[0], db.shape[0]), dtype=torch.int32,
-                       device=da.device)
-    for k in range(da.shape[1]):
-        dist += popcount32(da[:, None, k] ^ db[None, :, k])
+# Pairs per block of rows in the plain distance matrix (about 32 MB of
+# int64 temporaries).
+CHUNK_PAIRS = 1 << 22
+
+
+def chunk_rows_for(m: int) -> int:
+    """Rows per block so that a block holds at most ``CHUNK_PAIRS`` pairs."""
+    return max(1, CHUNK_PAIRS // max(m, 1))
+
+
+def hamming_matrix(da: torch.Tensor, db: torch.Tensor,
+                   chunk_rows: int | None = None) -> torch.Tensor:
+    """(N, 8) x (M, 8) int32 words -> (N, M) int32 Hamming distances, built
+    ``chunk_rows`` rows at a time (default: :func:`chunk_rows_for`)."""
+    n, m = da.shape[0], db.shape[0]
+    step = chunk_rows or chunk_rows_for(m)
+    dist = torch.zeros((n, m), dtype=torch.int32, device=da.device)
+    for r0 in range(0, n, step):
+        blk = dist[r0:r0 + step]
+        for k in range(da.shape[1]):
+            blk += popcount32(da[r0:r0 + step, None, k] ^ db[None, :, k])
     return dist
 
 
@@ -210,6 +230,19 @@ def level_mask(level_a, level_b, min_delta: int = 0, max_delta: int = 0):
     return (diff >= min_delta) & (diff <= max_delta)
 
 
+def epipolar_mask(F12, xy1, xy2, level2, sigma_levels2):
+    """Pairs (i, j) consistent with the fundamental F12 (x2^T F12 x1 = 0):
+    squared point-line distance in image 2 below 3.84 * sigma2(level of
+    kp2) (CheckDistEpipolarLine)."""
+    ones1 = torch.ones_like(xy1[:, :1])
+    l2 = torch.cat([xy1, ones1], -1) @ F12.T            # (N1, 3) lines
+    num = (l2[:, None, 0] * xy2[None, :, 0] + l2[:, None, 1] * xy2[None, :, 1]
+           + l2[:, None, 2]) ** 2
+    den = (l2[:, 0] ** 2 + l2[:, 1] ** 2).clamp_min(1e-12)[:, None]
+    th = 3.84 * sigma_levels2[level2.long()][None, :]
+    return num / den < th
+
+
 def predict_scale_level(dist, max_dist, scale: float = 1.2, n_levels: int = 8):
     """Pyramid level a landmark would appear at (MapPoint::PredictScale)."""
     ratio = (max_dist / dist.clamp_min(1e-6)).clamp_min(1e-6)
@@ -263,5 +296,23 @@ def search_by_projection(proj_xy, pred_level, lm_desc, lm_valid,
         lm_desc, kp_desc, lm_valid, kp_valid,
         xy_a=proj_xy, xy_b=kp_xy, radius=radius,
         level_a=pred_level, level_b=kp_level, level_window=level_window)
+    return _finish_match(best, second, best_j, kp_xy.shape[0],
+                         max_dist, ratio, mutual=True)
+
+
+def search_epipolar(lines_a, desc_a, valid_a, kp_xy, kp_level, desc_b,
+                    valid_b, sigma2_levels, max_dist: int = TH_LOW,
+                    ratio: float = 0.8):
+    """Epipolar-gated match for triangulation (SearchForTriangulation):
+    rows carry their epipolar line (N, 3) in image b; a pair passes when the
+    squared point-line distance is below 3.84 * sigma2(level_b). K2's
+    epipolar mode, then the ratio and mutual gates. Returns (match_j,
+    dist) per row."""
+    from . import cuda_match
+
+    th_b = 3.84 * sigma2_levels[kp_level.long()]
+    best, second, best_j = cuda_match.hamming_best2(
+        desc_a, desc_b, valid_a, valid_b, xy_b=kp_xy,
+        lines=lines_a.contiguous(), line_th=th_b)
     return _finish_match(best, second, best_j, kp_xy.shape[0],
                          max_dist, ratio, mutual=True)

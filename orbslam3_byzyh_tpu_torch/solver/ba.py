@@ -1,0 +1,258 @@
+"""Bundle adjustment with Schur-complement landmark elimination.
+
+Port of ``orbslam3_byzyh_tpu/solver/ba.py`` (pinhole, monocular rows).
+Observations are landmark-major:
+  * ``obs_kf    (L, O) int32``  keyframe index per observation slot (-1 empty)
+  * ``obs_uv    (L, O, 2)``     measured pixels
+  * ``obs_w     (L, O)``        information (1 / sigma^2 of the level)
+  * ``obs_valid (L, O) bool``
+
+Each landmark row is eliminated by its closed-form 3x3 inverse; its Schur
+contribution is summed into the dense reduced camera system (K, K, 6, 6)
+through a one-hot (L, O, K) keyframe indicator and matmuls, as the JAX
+package assembles it (kept for parity; a scatter-add form waits for a
+measurement on the card). The 6K x 6K solve is ``torch.linalg.solve_ex``,
+which reports failure in a tensor instead of reading it back to the host.
+The LM accept/reject decision is a ``torch.where`` on the device.
+
+Robust kernel: Huber sqrt(5.991); outliers are re-classified between
+stages. Stereo rows (``obs_ur``) and the KB8 camera raise
+``NotImplementedError`` until the stereo slice.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..ops import camera as cam
+from ..ops import lie
+from . import lm
+
+_STEREO_WAITS = "stereo BA rows (obs_ur) wait for the stereo slice"
+
+
+def _inv3x3(A: torch.Tensor) -> torch.Tensor:
+    """Closed-form batched 3x3 inverse (adjugate / det, the determinant
+    guarded at 1e-20)."""
+    a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
+    d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
+    g, h, i = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
+    A11 = e * i - f * h
+    A12 = c * h - b * i
+    A13 = b * f - c * e
+    A21 = f * g - d * i
+    A22 = a * i - c * g
+    A23 = c * d - a * f
+    A31 = d * h - e * g
+    A32 = b * g - a * h
+    A33 = a * e - b * d
+    det = a * A11 + b * A21 + c * A31
+    inv_det = 1.0 / torch.where(det.abs() < 1e-20,
+                                torch.full_like(det, 1e-20), det)
+    adj = torch.stack([
+        torch.stack([A11, A12, A13], -1),
+        torch.stack([A21, A22, A23], -1),
+        torch.stack([A31, A32, A33], -1)], -2)
+    return adj * inv_det[..., None, None]
+
+
+class BAProblem(NamedTuple):
+    R: torch.Tensor          # (K, 3, 3) Rcw per keyframe
+    t: torch.Tensor          # (K, 3)
+    points: torch.Tensor     # (L, 3) world landmarks
+    obs_kf: torch.Tensor     # (L, O) int32, -1 = empty slot
+    obs_uv: torch.Tensor     # (L, O, 2)
+    obs_w: torch.Tensor      # (L, O) information weights
+    obs_valid: torch.Tensor  # (L, O) bool
+    fixed: torch.Tensor      # (K,) bool: poses held constant
+    lm_valid: torch.Tensor   # (L,) bool
+    cam_params: torch.Tensor  # (4,) fx, fy, cx, cy
+    obs_ur: torch.Tensor = None   # stereo rows: not ported
+    bf: torch.Tensor = None
+
+
+class BAResult(NamedTuple):
+    R: torch.Tensor
+    t: torch.Tensor
+    points: torch.Tensor
+    obs_inlier: torch.Tensor  # (L, O) post-gating mask
+    cost: torch.Tensor
+
+
+def _residuals(p: BAProblem, R, t, points, model_id):
+    """Per-observation residuals (L, O, 2), pose Jacobians (L, O, 2, 6),
+    point Jacobians (L, O, 2, 3) and the depth gate (L, O)."""
+    if p.obs_ur is not None:
+        raise NotImplementedError(_STEREO_WAITS)
+    kf = p.obs_kf.clamp_min(0).long()
+    Rk = R[kf]                                   # (L, O, 3, 3)
+    tk = t[kf]                                   # (L, O, 3)
+    pw = points[:, None, :].expand(tk.shape)
+    pc = (Rk @ pw[..., None])[..., 0] + tk
+    uv = cam.project(model_id, p.cam_params, pc)
+    r = p.obs_uv - uv
+    Jproj = cam.project_jac(model_id, p.cam_params, pc)    # (L, O, 2, 3)
+    eye = torch.eye(3, dtype=pc.dtype, device=pc.device).expand(
+        pc.shape[:-1] + (3, 3))
+    dpc_dpose = torch.cat([eye, -lie.skew(pc)], -1)        # (L, O, 3, 6)
+    Jp = -(Jproj @ dpc_dpose)
+    Jl = -(Jproj @ Rk)
+    depth_ok = pc[..., 2] > 0.05
+    return r, Jp, Jl, depth_ok
+
+
+def _build_system(p: BAProblem, R, t, points, inlier, model_id, robust,
+                  delta2: float) -> dict:
+    """The normal-equation blocks of every landmark row and the cost. ``bl``
+    and ``bp_o`` carry the Gauss-Newton sign (H dx = b, b = -J^T W r)."""
+    r, Jp, Jl, depth_ok = _residuals(p, R, t, points, model_id)
+    chi2 = (r * r).sum(-1) * p.obs_w
+    mask = (p.obs_valid & inlier & depth_ok & (p.obs_kf >= 0)
+            & p.lm_valid[:, None])
+    w_rob = lm.huber_weight(chi2, delta2) if robust else torch.ones_like(chi2)
+    w = w_rob * p.obs_w * mask
+    if robust:
+        rho = torch.where(chi2 <= delta2, chi2,
+                          2.0 * torch.sqrt(delta2 * chi2) - delta2)
+    else:
+        rho = chi2
+    cost = (rho * mask).sum()
+
+    Jpw = Jp * w[..., None, None]
+    Jlw = Jl * w[..., None, None]
+    Hll = torch.einsum("lori,lorj->lij", Jlw, Jl)            # (L, 3, 3)
+    bl = -torch.einsum("lori,lor->li", Jlw, r)               # (L, 3)
+    Wlo = torch.einsum("lori,lorj->loij", Jpw, Jl)           # (L, O, 6, 3)
+    Hpp_o = torch.einsum("lori,lorj->loij", Jpw, Jp)         # (L, O, 6, 6)
+    bp_o = -torch.einsum("lori,lor->loi", Jpw, r)            # (L, O, 6)
+    return dict(Hll=Hll, bl=bl, W=Wlo, Hpp_o=Hpp_o, bp_o=bp_o,
+                cost=cost, chi2=chi2, mask=mask)
+
+
+def schur_pieces(obs_kf, sys: dict, lam, n_kf: int) -> dict:
+    """The Schur contributions summed over landmarks: Hpp (K, 6, 6), bp
+    (K, 6), cross (K, K, 6, 6), corr (K, 6); plus the per-landmark damped
+    inverses Hll_inv (L, 3, 3) and has_obs (L,) for back-substitution.
+    Segment sums over the keyframe index are matmuls with the one-hot
+    indicator E (L, O, K)."""
+    kf = obs_kf.clamp_min(0)
+    Hll = sys["Hll"]
+    diag_l = torch.diagonal(Hll, dim1=-2, dim2=-1)
+    Hll_d = Hll + torch.diag_embed(lam * diag_l.clamp_min(1e-9))
+    has_obs = diag_l.sum(-1) > 1e-12
+    eye = torch.eye(3, dtype=Hll.dtype, device=Hll.device).expand(Hll.shape)
+    Hll_d = torch.where(has_obs[:, None, None], Hll_d, eye)
+    Hll_inv = _inv3x3(Hll_d)
+
+    E = (kf[..., None] == torch.arange(n_kf, device=kf.device)).to(
+        Hll.dtype)                                           # (L, O, K)
+    Hpp = torch.einsum("lok,loij->kij", E, sys["Hpp_o"])
+    bp = torch.einsum("lok,loi->ki", E, sys["bp_o"])
+    W = sys["W"]
+    WHinv = torch.einsum("loij,ljk->loik", W, Hll_inv)       # (L, O, 6, 3)
+    U = torch.einsum("lok,loij->lkij", E, WHinv)             # (L, K, 6, 3)
+    V = torch.einsum("lok,loij->lkij", E, W)
+    cross = torch.einsum("lkim,lqjm->kqij", U, V)            # (K, K, 6, 6)
+    corr_o = torch.einsum("loik,lk->loi", WHinv, sys["bl"])
+    corr = torch.einsum("lok,loi->ki", E, corr_o)
+    return dict(Hpp=Hpp, bp=bp, cross=cross, corr=corr, Hll_inv=Hll_inv,
+                has_obs=has_obs)
+
+
+def schur_solve(Hpp, bp, cross, corr, lam, fixed, n_kf: int):
+    """Assemble and solve the reduced camera system -> dp (K, 6). Fixed
+    poses get identity rows and columns and a zero right-hand side."""
+    dtype, dev = Hpp.dtype, Hpp.device
+    k = torch.arange(n_kf, device=dev)
+    diag_p = torch.diagonal(Hpp, dim1=-2, dim2=-1)
+    eye6 = torch.eye(6, dtype=dtype, device=dev)
+    S = -cross
+    S[k, k] += Hpp
+    S[k, k] += torch.diag_embed(lam * diag_p.clamp_min(1e-9))
+    free = (~fixed).to(dtype)
+    S = S * free[:, None, None, None] * free[None, :, None, None]
+    S[k, k] += eye6 * fixed.to(dtype)[:, None, None]
+    rhs = (bp - corr) * free[:, None]
+    Sd = S.permute(0, 2, 1, 3).reshape(n_kf * 6, n_kf * 6)
+    dp, _ = torch.linalg.solve_ex(Sd, rhs.reshape(-1, 1))
+    return dp.reshape(n_kf, 6)
+
+
+def back_substitute(obs_kf, sys: dict, Hll_inv, has_obs, dp):
+    """Landmark updates: dl = Hll_inv (bl - sum_o W^T dp[kf])."""
+    kf = obs_kf.clamp_min(0).long()
+    Wt_dp = torch.einsum("loij,loi->lj", sys["W"], dp[kf])
+    dl = torch.einsum("lij,lj->li", Hll_inv, sys["bl"] - Wt_dp)
+    return torch.where(has_obs[:, None], dl, torch.zeros_like(dl))
+
+
+def _schur_reduce(p: BAProblem, sys: dict, lam, n_kf: int):
+    """One Schur step: pieces, solve, back-substitute -> (dp, dl)."""
+    pieces = schur_pieces(p.obs_kf, sys, lam, n_kf)
+    dp = schur_solve(pieces["Hpp"], pieces["bp"], pieces["cross"],
+                     pieces["corr"], lam, p.fixed, n_kf)
+    dl = back_substitute(p.obs_kf, sys, pieces["Hll_inv"],
+                         pieces["has_obs"], dp)
+    return dp, dl
+
+
+def _retract(R, t, points, dp, dl, fixed):
+    """Left SE(3) update of the free poses, one Newton-Schulz
+    re-orthonormalisation R (3I - R^T R) / 2, and the point update."""
+    dR, dt = lie.se3_exp(dp)
+    Rn = dR @ R
+    RtR = Rn.transpose(-1, -2) @ Rn
+    eye = torch.eye(3, dtype=R.dtype, device=R.device).expand(RtR.shape)
+    Rn = 0.5 * (Rn @ (3.0 * eye - RtR))
+    tn = (dR @ t[..., None])[..., 0] + dt
+    keep = fixed[:, None]
+    return (torch.where(keep[..., None], R, Rn), torch.where(keep, t, tn),
+            points + dl)
+
+
+# The system blocks an accepted step carries into the next iteration.
+_CARRIED = ("Hll", "bl", "W", "Hpp_o", "bp_o")
+
+
+def bundle_adjust(p: BAProblem, model_id: int = cam.PINHOLE,
+                  stages: tuple = (5, 10)) -> BAResult:
+    """Schur-complement LM bundle adjustment. ``stages``: LM iterations per
+    stage; between stages the observations are re-classified (chi2 <= 5.991
+    and depth > 0.05), and the last stage drops the robust kernel. Every
+    decision stays on the device."""
+    if p.obs_ur is not None:
+        raise NotImplementedError(_STEREO_WAITS)
+    delta2 = lm.CHI2_MONO
+    n_kf = p.R.shape[0]
+    inlier = torch.ones_like(p.obs_valid)
+    R, t, points = p.R, p.t, p.points
+
+    for si, n_iters in enumerate(stages):
+        robust = si < len(stages) - 1
+        state = (R, t, points)
+        sys_cur = _build_system(p, R, t, points, inlier, model_id, robust,
+                                delta2)
+        cost = sys_cur["cost"]
+        lam = torch.full((), 1e-4, dtype=torch.float32, device=R.device)
+        for _ in range(n_iters):
+            dp, dl = _schur_reduce(p, sys_cur, lam, n_kf)
+            cand = _retract(*state, dp, dl, p.fixed)
+            sys_cand = _build_system(p, *cand, inlier, model_id, robust,
+                                     delta2)
+            accept = sys_cand["cost"] < cost
+            state = tuple(torch.where(accept, b, a)
+                          for a, b in zip(state, cand))
+            sys_cur = {k: torch.where(accept, sys_cand[k], sys_cur[k])
+                       for k in _CARRIED}
+            lam = torch.where(accept, lam * 0.5, lam * 10.0)
+            cost = torch.where(accept, sys_cand["cost"], cost)
+        R, t, points = state
+        r, _, _, depth_ok = _residuals(p, R, t, points, model_id)
+        chi2 = (r * r).sum(-1) * p.obs_w
+        inlier = (chi2 <= delta2) & depth_ok
+
+    final = _build_system(p, R, t, points, inlier, model_id, False, delta2)
+    return BAResult(R=R, t=t, points=points,
+                    obs_inlier=inlier & final["mask"], cost=final["cost"])

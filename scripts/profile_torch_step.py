@@ -1,14 +1,19 @@
 #!/usr/bin/env python3
 """Where the time of the port's per-frame steps goes, on one CUDA device.
 
-    python scripts/profile_torch_step.py [--entry both] [--frames 20] [--out DIR]
+    python scripts/profile_torch_step.py [--entry all] [--frames 20] [--out DIR]
 
 ``--entry tracking``: ``graft.tracking_step`` on the lifted scene (480x640,
 1024 features, 4096 landmarks). ``--entry mono``: ``graft.mono_frame_step``
 on the EuRoC-mono scene (752x480 + radtan, 1200 features, 65536 landmark
 slots, normal case), with the caller's read of ``info`` as the system does
-it. ``both`` (the default) runs the two in turn. For each it reports, with
-the card's name and power limit:
+it. ``--entry keyframe``: ``graft.mono_keyframe_step`` on
+``graft.euroc_mono_map`` (1024 keyframe and 65536 landmark slots, 200 live
+keyframes, normal case), every call from the same input map, ending in the
+caller's read of ``info``; its stages are the bundle's stage functions
+re-run on the inputs the step gave them. ``both`` runs tracking and mono,
+``all`` (the default) the three in turn. For each it reports, with the
+card's name and power limit:
   * the step and its stages by host clock around synchronised calls,
     median over the frames (each a different noisy copy of the image),
     after 100 warm-up steps;
@@ -30,8 +35,8 @@ import time
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--entry", choices=("tracking", "mono", "both"),
-                    default="both")
+    ap.add_argument("--entry", choices=("tracking", "mono", "keyframe", "both",
+                                        "all"), default="all")
     ap.add_argument("--frames", type=int, default=20)
     ap.add_argument("--out", default="build/profile")
     args = ap.parse_args()
@@ -120,7 +125,7 @@ def main() -> int:
                 sort_by="self_device_time_total", row_limit=60))
         prof.export_chrome_trace(os.path.join(out, "trace.json"))
 
-    if args.entry in ("tracking", "both"):
+    if args.entry in ("tracking", "both", "all"):
         img = convert.to_torch(graft.example_arrays()[0], dev)
         f = fast_orb.extract(img, n_features=graft.N_FEATURES)
         scene = convert.tree_to_torch(graft.lifted_scene(
@@ -146,7 +151,7 @@ def main() -> int:
                lambda fr: graft.tracking_step(fr, *scene[1:]),
                {"extract": extract, "track_local_map": local_map})
 
-    if args.entry in ("mono", "both"):
+    if args.entry in ("mono", "both", "all"):
         cfg = graft.EUROC_MONO
         img = convert.to_torch(graft.example_image(cfg.height, cfg.width), dev)
         cam = convert.to_torch([cfg.fx, cfg.fy, cfg.cx, cfg.cy], dev)
@@ -178,6 +183,38 @@ def main() -> int:
 
         report("mono", noisy(img), step,
                {"mono_extract": mono_extract, "frame_step": frame_step})
+
+    if args.entry in ("keyframe", "all"):
+        from orbslam3_byzyh_tpu_torch.pipeline import mapping
+        kargs = graft.mono_map_args(graft.euroc_mono_map(), dev)
+        # Capture the inputs the step gives each stage function.
+        names = ("landmark_overflow_valve", "triangulate_pair",
+                 "fuse_duplicates", "windowed_local_ba", "cull_landmarks",
+                 "cull_keyframes")
+        calls = {name: [] for name in names}
+        originals = {name: getattr(mapping, name) for name in names}
+
+        def spy(name):
+            def fn(*a, **kw):
+                calls[name].append((a, kw))
+                return originals[name](*a, **kw)
+            return fn
+
+        for name in names:
+            setattr(mapping, name, spy(name))
+        try:
+            graft.mono_keyframe_step(*kargs)
+        finally:
+            for name, fn in originals.items():
+                setattr(mapping, name, fn)
+
+        def stage(name):
+            return lambda _: timed(lambda: [originals[name](*a, **kw)
+                                            for a, kw in calls[name]])[1]
+
+        report("keyframe", [None] * args.frames,
+               lambda _: graft.mono_keyframe_step(*kargs)[2].cpu(),
+               {name: stage(name) for name in names})
     return 0
 
 

@@ -1,0 +1,176 @@
+"""Port parity: Schur-complement bundle adjustment (``solver/ba.py``)
+against the JAX package's, on test_ba.py's synthetic problems.
+
+The pieces (``_build_system``, ``schur_pieces``, ``schur_solve``,
+``back_substitute``) each take the same inputs in both packages and agree
+within rtol 1e-4. ``bundle_adjust`` end to end: poses within 1e-4, points
+within 1e-3, the inlier mask equal; fixed poses bit-unchanged. The cases are
+test_ba.py's: a perturbed problem refined, fixed poses, gross outliers
+gated, empty landmarks left alone.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import test_ba
+import torch
+from torch_port_util import n, t
+
+from orbslam3_byzyh_tpu.ops import lie as jlie
+from orbslam3_byzyh_tpu.solver import ba as jba
+from orbslam3_byzyh_tpu_torch.ops import camera as tcam
+from orbslam3_byzyh_tpu_torch.solver import ba as tba
+from orbslam3_byzyh_tpu_torch.solver import lm as tlm
+
+K_PARAMS = test_ba.K_PARAMS
+
+
+def _perturb(rng, X, Rs, ts, first_free=2):
+    Rp, tp = Rs.copy(), ts.copy()
+    for k in range(first_free, len(Rs)):
+        dR = np.asarray(jlie.so3_exp(jnp.asarray(
+            rng.uniform(-0.02, 0.02, 3).astype(np.float32))))
+        Rp[k] = dR @ Rs[k]
+        tp[k] = ts[k] + rng.uniform(-0.05, 0.05, 3)
+    Xp = X + rng.uniform(-0.1, 0.1, X.shape).astype(np.float32)
+    return Xp, Rp.astype(np.float32), tp.astype(np.float32)
+
+
+def _problems(X, Rs, ts, okf, ouv, oval, fixed, obs_w=None):
+    """The same problem for both packages (the weights from the levels)."""
+    jp = test_ba.make_problem(X, Rs, ts, okf, ouv, oval, fixed)
+    if obs_w is not None:
+        jp = jp._replace(obs_w=jnp.asarray(obs_w))
+    tp = tba.BAProblem(*(t(np.asarray(a)) if a is not None else None
+                         for a in jp))
+    return jp, tp
+
+
+def _case(rng, name):
+    """test_ba.py's cases: (problem arrays, fixed)."""
+    if name == "refine":
+        X, Rs, ts, okf, ouv, oval = test_ba.synth_ba(rng)
+        Xp, Rp, tp = _perturb(rng, X, Rs, ts)
+        fixed = np.zeros(len(Rs), bool)
+        fixed[:2] = True
+        return (Xp, Rp, tp, okf, ouv, oval, fixed), (X, Rs, ts)
+    if name == "fixed":
+        X, Rs, ts, okf, ouv, oval = test_ba.synth_ba(rng, n_kf=4)
+        Xp = X + rng.uniform(-0.05, 0.05, X.shape).astype(np.float32)
+        return (Xp, Rs, ts, okf, ouv, oval,
+                np.array([True, True, False, False])), (X, Rs, ts)
+    if name == "outliers":
+        X, Rs, ts, okf, ouv, oval = test_ba.synth_ba(rng, noise=0.3)
+        flat = np.argwhere(oval)
+        rng.shuffle(flat)
+        for l, o in flat[: len(flat) // 20]:
+            ouv[l, o] += rng.uniform(30, 80, 2) * rng.choice([-1, 1], 2)
+        fixed = np.zeros(len(Rs), bool)
+        fixed[:2] = True
+        return (X, Rs, ts, okf, ouv, oval, fixed), (X, Rs, ts)
+    X, Rs, ts, okf, ouv, oval = test_ba.synth_ba(rng, n_lm=100)
+    oval[50:] = False
+    fixed = np.zeros(len(Rs), bool)
+    fixed[0] = True
+    return (X, Rs, ts, okf, ouv, oval, fixed), (X, Rs, ts)
+
+
+@pytest.fixture
+def problem(rng):
+    """The refine case with level weights and a dead landmark row."""
+    (Xp, Rp, tp, okf, ouv, oval, fixed), _ = _case(rng, "refine")
+    w = (1.0 / 1.44 ** rng.integers(0, 3, okf.shape)).astype(np.float32)
+    jp, tp_ = _problems(Xp, Rp, tp, okf, ouv, oval, fixed, w)
+    lm_valid = np.ones(len(Xp), bool)
+    lm_valid[7] = False
+    jp = jp._replace(lm_valid=jnp.asarray(lm_valid))
+    return jp, tp_._replace(lm_valid=t(lm_valid))
+
+
+def _close(got, ref, rtol=1e-4, what=""):
+    ref = np.asarray(ref)
+    scale = max(np.abs(ref).max(), 1e-30)
+    np.testing.assert_allclose(n(got), ref, rtol=rtol, atol=rtol * scale,
+                               err_msg=what)
+
+
+@pytest.mark.parametrize("robust", [True, False])
+def test_build_system_matches_jax(problem, robust):
+    jp, tp = problem
+    inl = np.ones(jp.obs_valid.shape, bool)
+    inl[::7, 1] = False
+    ref = jba._build_system(jp, jp.R, jp.t, jp.points, jnp.asarray(inl), 0,
+                            robust, tlm.CHI2_MONO)
+    got = tba._build_system(tp, tp.R, tp.t, tp.points, t(inl), 0, robust,
+                            tlm.CHI2_MONO)
+    for k in ("Hll", "bl", "W", "Hpp_o", "bp_o", "cost", "chi2"):
+        _close(got[k], ref[k], what=k)
+    np.testing.assert_array_equal(n(got["mask"]), np.asarray(ref["mask"]))
+
+
+def test_schur_pieces_solve_back_substitute_match_jax(problem):
+    jp, tp = problem
+    sys_j = jba._build_system(jp, jp.R, jp.t, jp.points,
+                              jnp.ones_like(jp.obs_valid), 0, True,
+                              tlm.CHI2_MONO)
+    sys_t = {k: t(np.asarray(v)) for k, v in sys_j.items()}
+    n_kf = jp.R.shape[0]
+    lam = 1e-3
+    pj = jba.schur_pieces(jp.obs_kf, sys_j, jnp.float32(lam), n_kf)
+    pt = tba.schur_pieces(tp.obs_kf, sys_t, torch.tensor(lam), n_kf)
+    for k in ("Hpp", "bp", "cross", "corr", "Hll_inv"):
+        _close(pt[k], pj[k], what=k)
+    np.testing.assert_array_equal(n(pt["has_obs"]), np.asarray(pj["has_obs"]))
+    piece = {k: t(np.asarray(v)) for k, v in pj.items()}
+    dp_j = jba.schur_solve(pj["Hpp"], pj["bp"], pj["cross"], pj["corr"],
+                           jnp.float32(lam), jp.fixed, n_kf)
+    dp_t = tba.schur_solve(piece["Hpp"], piece["bp"], piece["cross"],
+                           piece["corr"], torch.tensor(lam), tp.fixed, n_kf)
+    _close(dp_t, dp_j, what="dp")
+    assert (n(dp_t)[n(tp.fixed)] == 0).all()
+    dl_j = jba.back_substitute(jp.obs_kf, sys_j, pj["Hll_inv"],
+                               pj["has_obs"], dp_j)
+    dl_t = tba.back_substitute(tp.obs_kf, sys_t, piece["Hll_inv"],
+                               piece["has_obs"], t(np.asarray(dp_j)))
+    _close(dl_t, dl_j, what="dl")
+
+
+def test_inv3x3_matches_jax(rng):
+    A = rng.normal(0, 1, (500, 3, 3)).astype(np.float32)
+    A = A @ A.transpose(0, 2, 1) + 0.1 * np.eye(3, dtype=np.float32)
+    A[0] = 0.0                                  # the determinant guard
+    _close(tba._inv3x3(t(A)), jba._inv3x3(jnp.asarray(A)), what="inv")
+
+
+@pytest.mark.parametrize("name", ["refine", "fixed", "outliers", "empty"])
+def test_bundle_adjust_matches_jax(rng, name):
+    (X, Rs, ts, okf, ouv, oval, fixed), (X0, R0, t0) = _case(rng, name)
+    jp, tp = _problems(X, Rs, ts, okf, ouv, oval, fixed)
+    ref = jba.bundle_adjust(jp)
+    got = tba.bundle_adjust(tp)
+    np.testing.assert_allclose(n(got.R), np.asarray(ref.R), atol=1e-4)
+    np.testing.assert_allclose(n(got.t), np.asarray(ref.t), atol=1e-4)
+    np.testing.assert_allclose(n(got.points), np.asarray(ref.points),
+                               atol=1e-3)
+    np.testing.assert_array_equal(n(got.obs_inlier),
+                                  np.asarray(ref.obs_inlier))
+    np.testing.assert_allclose(float(got.cost), float(ref.cost), rtol=1e-4)
+    # Fixed poses bit-unchanged.
+    np.testing.assert_array_equal(n(got.R)[fixed], Rs[fixed])
+    np.testing.assert_array_equal(n(got.t)[fixed], ts[fixed])
+    if name == "refine":
+        for k in range(2, len(Rs)):
+            assert test_ba.rot_err_deg(n(got.R)[k], R0[k]) < 0.15
+            assert np.linalg.norm(n(got.t)[k] - t0[k]) < 0.03
+    if name == "empty":
+        np.testing.assert_allclose(n(got.points)[50:], X[50:], atol=1e-6)
+
+
+def test_stereo_rows_and_kb8_wait(problem):
+    _, tp = problem
+    stereo = tp._replace(obs_ur=torch.zeros_like(tp.obs_w),
+                         bf=torch.tensor(40.0))
+    with pytest.raises(NotImplementedError, match="stereo"):
+        tba.bundle_adjust(stereo)
+    with pytest.raises(NotImplementedError, match="PINHOLE"):
+        tba.bundle_adjust(tp, model_id=tcam.KB8)

@@ -317,3 +317,58 @@ def test_frame_step_makes_no_host_read(dev):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert int(info[0]) >= 0.9 * int(f.valid.sum())
+
+
+def test_k2_keyframe_step_shapes(dev, gen):
+    """The keyframe step's K2 calls at EuRoC-mono widths: the epipolar
+    search of the new keyframe's 1200 keypoints against a neighbour's 1200
+    (``graft.euroc_mono_map``'s views, lines from the poses), and the
+    fusion search's window mode over all 65536 landmark slots with sparse
+    candidate rows (the first launch above 4096 rows)."""
+    from orbslam3_byzyh_tpu_torch.pipeline import mapping, tracking
+
+    m = graft.euroc_mono_map(seed=3)
+    nb = m.kf_id - 2
+    k = m.state.kfs
+    cam = _t(m.cam_params, dev)
+    F = mapping.fundamental_from_poses(_t(m.R, dev), _t(m.t, dev),
+                                       _t(k.R[nb], dev), _t(k.t[nb], dev), cam)
+    xy_a = _t(m.feats.xy, dev)
+    lines = (torch.cat([xy_a, torch.ones_like(xy_a[:, :1])], -1)
+             @ F.T).contiguous()
+    th = 3.84 * tracking.SIGMA2.to(dev)[_t(k.kp_level[nb], dev).long()]
+    args = (_t(m.feats.desc, dev), _t(k.kp_desc[nb], dev),
+            _t(m.feats.valid & (m.bindings < 0), dev), _t(k.kp_valid[nb], dev))
+    out = _k2_check(args, dict(xy_b=_t(k.kp_xy[nb], dev), lines=lines,
+                               line_th=th))
+    assert int((out[0] <= 50).sum()) >= 100
+
+    args, gates = _k2_case(gen, dev, "window", 65536, 1200)
+    va = torch.from_numpy(gen.random(65536) < 0.05).to(dev)
+    gates["radius"] = _t(gen.uniform(3, 12, 65536), dev)
+    gates["xy_a"] = gates["xy_b"][_t(gen.integers(0, 1200, 65536), dev).long()] \
+        + _t(gen.normal(0, 2, (65536, 2)), dev)
+    out = _k2_check((args[0], args[1], va, args[3]), gates)
+    hits = out[0] < 1024
+    assert int(hits.sum()) > 1000 and not bool(hits[~va].any())
+
+
+def test_keyframe_step_on_the_card_matches_cpu(dev):
+    """The small map's keyframe step on the card against the plain versions
+    on the CPU: the same culled keyframe and new-landmark count (within
+    1 %, or one row), bindings within 1 %, the pose within 1e-3."""
+    from torch_port_util import small_map, small_map_config
+
+    cfg = small_map_config()
+    m = small_map("full")
+    out_c = graft.mono_keyframe_step(*graft.mono_map_args(m, "cpu"), cfg=cfg)
+    out_g = graft.mono_keyframe_step(*graft.mono_map_args(m, dev), cfg=cfg)
+    st_c, b_c, info_c, cul_c = out_c
+    st_g, b_g, info_g, cul_g = out_g
+    assert torch.equal(cul_g.cpu(), cul_c) and bool(cul_c[m.cull_kf])
+    new_c = int(((st_c.lms.first_kf == m.kf_id) & st_c.lms.valid).sum())
+    new_g = int(((st_g.lms.first_kf == m.kf_id) & st_g.lms.valid).sum())
+    assert abs(new_g - new_c) <= max(1, 0.01 * new_c)
+    nb_c, nb_g = int((b_c >= 0).sum()), int((b_g >= 0).sum())
+    assert abs(nb_g - nb_c) <= max(1, 0.01 * nb_c)
+    assert float((info_g.cpu()[3:] - info_c[3:]).abs().max()) <= 1e-3

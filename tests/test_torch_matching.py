@@ -281,3 +281,31 @@ def test_match_window_exact(rng, radius):
     assert (n(ref[0]) >= 0).sum() > 10
     np.testing.assert_array_equal(n(out[0]), n(ref[0]))
     np.testing.assert_array_equal(n(out[1]), n(ref[1]))
+
+
+@pytest.mark.parametrize("mode", ["none", "window", "epipolar"])
+def test_k2_plain_row_blocks_bit_identical(rng, mode):
+    """The plain version takes rows in blocks (so the fusion search's 65536
+    rows need no (N, M) int64 temporaries): any block size gives the same
+    bits as one block of all rows."""
+    na, nb = 181, 96
+    da, db = _desc_with_ties(rng, na, nb)
+    va, vb = rng.random(na) > 0.1, rng.random(nb) > 0.1
+    gates = {}
+    if mode == "window":
+        xy_a, xy_b, la, lb, radius = _window_inputs(rng, na, nb)
+        gates = dict(xy_a=t(xy_a), xy_b=t(xy_b), radius=t(radius),
+                     level_a=t(la), level_b=t(lb), level_window=(-1, 1))
+    elif mode == "epipolar":
+        lines, xy_b, th = _epipolar_inputs(rng, na, nb)
+        gates = dict(lines=t(lines), xy_b=t(xy_b), line_th=t(th))
+    args = (t(da), t(db), t(va), t(vb))
+    whole = cuda_match.hamming_best2_plain(*args, chunk_rows=na, **gates)
+    for rows in (1, 7, 64, 180):
+        part = cuda_match.hamming_best2_plain(*args, chunk_rows=rows, **gates)
+        for a, b in zip(part, whole):
+            assert torch.equal(a, b)
+    for rows in (1, 13):
+        assert torch.equal(tm.hamming_matrix(t(da), t(db), chunk_rows=rows),
+                           tm.hamming_matrix(t(da), t(db), chunk_rows=na))
+    assert tm.chunk_rows_for(1200) * 1200 <= tm.CHUNK_PAIRS
