@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Builds the three CUDA kernels from ``orbslam3_byzyh_tpu_torch/csrc`` with
-nvcc (in parallel) and drives both entry points of the port through them:
+nvcc (in parallel) and drives the four entry points of the port through
+them:
 
   * ``graft.tracking_step`` (480x640, 1024 features, 4096 landmarks) on a
     scene that tracks (the example image against a map lifted from its own
@@ -21,7 +22,15 @@ nvcc (in parallel) and drives both entry points of the port through them:
     the same capacity, in its normal case and its full case (the capacity
     valve retires landmarks and the slot allocation recycles them); each
     planted stage must fire, the result must agree with the CPU plain path,
-    and the synchronisations with the host inside the step are counted.
+    and the synchronisations with the host inside the step are counted;
+  * ``graft.mono_initialize`` (the monocular initial map: K2's window mode
+    at level 0, the two-view H/F RANSAC, the full-map BA over every one of
+    the 1024 keyframe and 65536 landmark slots with the scatter Schur
+    assembly) from the empty map against ``graft.euroc_mono_two_view``'s
+    second frame, in its general case (F must win), planar case (H must
+    win) and rotation case (it must fail and leave the map as it was); the
+    CPU plain path with the indices the card drew must agree, and the
+    synchronisations and host reads are counted and printed.
 
 Every kernel is held against its plain PyTorch version on the card: on
 synthetic inputs at both paths' shapes, and on the very inputs each path
@@ -31,8 +40,9 @@ have launched every kernel it uses. Any failed check raises and the script
 exits non-zero. The last line of standard output is
 ``{"ok": true, "device": {...}}``. Needs a CUDA device and ``nvcc``.
 
-Per kernel, at the tracking step's shapes (and, under ``frame_step_calls``
-and ``keyframe_step_calls``, at each of those steps' calls):
+Per kernel, at the tracking step's shapes (and, under ``frame_step_calls``,
+``keyframe_step_calls`` and ``init_step_calls``, at each of those steps'
+calls):
   * ``ms``: the launch alone. The wrapper's launch is captured once and its
     C function is called again with the same prepared pointers; a spin kernel
     queued first keeps the host's launch cost out of the CUDA-event pair.
@@ -84,6 +94,9 @@ N_WARMUP_KEYFRAMES = 5
 # A triangulation decision may differ between the card and the CPU only
 # where a gate value lies within float32 rounding of its threshold.
 FLIP_MARGIN = 1e-5
+# The init step: timed calls after warm-up calls, each from the empty map.
+N_TIMED_INITS = 10
+N_WARMUP_INITS = 2
 
 
 def phase(name: str, msg: str) -> None:
@@ -916,7 +929,9 @@ def main() -> int:
 
     # -- 8: the EuRoC-mono keyframe step through the kernels ----------------
     from orbslam3_byzyh_tpu_torch.models import map_state
+    from orbslam3_byzyh_tpu_torch.ops import camera as cam_mod
     from orbslam3_byzyh_tpu_torch.pipeline import mapping
+    from orbslam3_byzyh_tpu_torch.solver import lm as lm_mod
 
     cpu = torch.device("cpu")
 
@@ -1163,6 +1178,177 @@ def main() -> int:
           f"call (profiler, {n_prof} calls); "
           f"{keyframe['normal']['syncs']} synchronisations per call ({card})")
 
+    # -- 9: the monocular initialisation at EuRoC-mono capacity -----------
+    from orbslam3_byzyh_tpu_torch.solver import ba as ba_mod
+
+    def rotation_deg(R, R_true) -> float:
+        dR = np.asarray(R, np.float64).T @ np.asarray(R_true, np.float64)
+        w = np.array([dR[2, 1] - dR[1, 2], dR[0, 2] - dR[2, 0],
+                      dR[1, 0] - dR[0, 1]]) / 2
+        return float(np.degrees(np.arctan2(np.linalg.norm(w),
+                                           (np.trace(dR) - 1) / 2)))
+
+    def angle_deg(a, b) -> float:
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        c = a @ b / (np.linalg.norm(a) * np.linalg.norm(b))
+        return float(np.degrees(np.arccos(np.clip(c, -1.0, 1.0))))
+
+    def init_args(scene, d):
+        ref_f = fast_orb.FrameFeatures(*convert.tree_to_torch(scene.ref, d))
+        cur_f = fast_orb.FrameFeatures(*convert.tree_to_torch(scene.cur, d))
+        empty = map_state.empty_map(eu.max_kf, eu.max_lm, eu.max_obs,
+                                    eu.n_features, device=d)
+        return empty, ref_f, cur_f, 0.0, 0.05, cam_eu.to(d)
+
+    # The reference frame: the EuRoC-mono frame's own features (K1 ran in
+    # its extraction, phase 6).
+    init, init_calls, launches_init = {}, {n: [] for n in kernels}, None
+    expected = {"general": (True, False), "planar": (True, True),
+                "rotation": (False, False)}
+    for case, (want_ok, want_h) in expected.items():
+        scene = graft.euroc_mono_two_view(f_eu, eu, case)
+        iargs = init_args(scene, dev)
+        seen = {}
+
+        def on_local_ba(a, _, out):
+            seen["pre_ba"] = a[0]
+
+        def on_ba(a, kw, out):
+            seen["ba"] = (a[0], out)
+
+        for k in kernels.values():
+            k.launches = 0
+        with recorded(cuda_match, "hamming_best2_kernel") as c2, \
+                spied(mapping, "local_ba", on_local_ba), \
+                spied(ba_mod, "bundle_adjust", on_ba):
+            res = graft.mono_initialize(
+                *iargs, generator=torch.Generator(dev).manual_seed(0))
+            torch.cuda.synchronize()
+        got = {n: k.launches for n, k in kernels.items()}
+        require(got == {"K1": 0, "K2": 1, "K3": 0},
+                f"init ({case}) launches {got}, expected K2 1")
+        if case == "general":
+            launches_init = got
+            for a, kw in c2:
+                err, (b_ms, b_by, b_txt) = check_call("K2", a, kw)
+                entry = {"call": "init step general",
+                         "shape": shape_of("K2", a, kw), "max_abs_err": err,
+                         "bound_ms": b_ms, "bound_by": b_by, "bound": b_txt}
+                entry.update(timed("K2", a, kw, plain_reps=20))
+                init_calls["K2"].append(entry)
+                phase("9 init", f"K2 {entry['shape']}: identical to plain; "
+                      f"launch alone {entry['ms']:.4f} ms, wrapper "
+                      f"{entry['wrapper_ms']:.4f} ms, plain "
+                      f"{entry['plain_ms']:.4f} ms, bound {b_ms:.5f} ms by "
+                      f"{b_by} ({card})")
+        else:
+            for a, kw in c2:
+                check_call("K2", a, kw)
+        info = res.info
+        require((res.success, bool(info["used_h"])) == (want_ok, want_h),
+                f"init ({case}): success {res.success}, used_h "
+                f"{info['used_h']}, expected {want_ok}, {want_h} ({info})")
+        out = {"success": res.success, "used_h": info["used_h"],
+               "n_matches": info["n_matches"], "reason": info["reason"],
+               "host_reads": info["host_reads"]}
+        if not res.success:
+            require(res.state is iargs[0] and info["reason"] == "two_view",
+                    f"init ({case}): failed with {info['reason']}, or the map "
+                    f"changed")
+        else:
+            st = res.state
+            rot = rotation_deg(convert.to_numpy(res.R), scene.R)
+            t_ang = angle_deg(convert.to_numpy(res.t), scene.t)
+            pre = seen["pre_ba"]
+            z_pre = convert.to_numpy(pre.lms.pos[pre.lms.valid][:, 2])
+            z_post = convert.to_numpy(st.lms.pos[st.lms.valid][:, 2])
+            prob, ba_res = seen["ba"]
+            cost0 = float(ba_mod._build_system(
+                prob, prob.R, prob.t, prob.points, ba_res.obs_inlier,
+                cam_mod.PINHOLE, False, lm_mod.CHI2_MONO)["cost"])
+            cost1 = float(ba_res.cost)
+            inv = map_state.check_invariants(st, 2, eu.max_lm)
+            require(info["n_good"] >= 50, f"init ({case}): {info['n_good']} "
+                    f"good points < 50")
+            require(abs(float(np.median(z_pre)) - 1.0) <= 1e-5,
+                    f"init ({case}): median depth {np.median(z_pre)} before "
+                    f"the BA")
+            require(cost1 < cost0, f"init ({case}): BA cost {cost0} -> "
+                    f"{cost1}")
+            require(inv == [], f"init ({case}): invariants {inv}")
+            require(rot < 1.0 and t_ang < 5.0, f"init ({case}): rotation "
+                    f"error {rot} deg, translation direction {t_ang} deg")
+            out.update(n_good=info["n_good"], rotation_error_deg=rot,
+                       translation_angle_deg=t_ang,
+                       median_depth_before_ba=float(np.median(z_pre)),
+                       median_depth_after_ba=float(np.median(z_post)),
+                       ba_cost_before=cost0, ba_cost_after=cost1,
+                       live_landmarks=int(st.lms.valid.sum()))
+        # The CPU plain path with the indices the card drew.
+        if "idx" in info:
+            res_c = graft.mono_initialize(*init_args(scene, cpu),
+                                          idx=info["idx"].cpu())
+            require((res_c.success, res_c.info["used_h"])
+                    == (res.success, info["used_h"]),
+                    f"init ({case}): CPU success {res_c.success} used_h "
+                    f"{res_c.info['used_h']}")
+            if res.success:
+                n_g = int(res.state.lms.valid.sum())
+                n_c = int(res_c.state.lms.valid.sum())
+                d_bind = int((res.bindings.cpu() != res_c.bindings).sum())
+                r_gap = float((res.R.cpu() - res_c.R).abs().max())
+                require(r_gap <= 1e-3, f"init ({case}): R differs from the "
+                        f"CPU by {r_gap}")
+                require(abs(n_g - n_c) <= 0.01 * n_c
+                        and (d_bind == 0 or (n_g != n_c and d_bind
+                                             <= 0.01 * n_c)),
+                        f"init ({case}): landmarks {n_g} vs CPU {n_c}, "
+                        f"bindings differ at {d_bind}")
+                out.update(live_landmarks_cpu=n_c, bindings_differ_cpu=d_bind,
+                           R_gap_cpu=r_gap)
+        # The synchronisations with the host inside the entry point.
+        with counted_syncs() as where:
+            graft.mono_initialize(
+                *iargs, generator=torch.Generator(dev).manual_seed(0))
+        torch.cuda.synchronize()
+        out.update(syncs=len(where), sync_sites=sorted(set(where)))
+        init[case] = out
+        phase("9 init", f"{case}: mono_initialize, {eu.max_kf} keyframe / "
+              f"{eu.max_lm} landmark slots: {json.dumps(out)}; launches "
+              f"{got} ({card})")
+
+    # The timed init step: the general case from the empty map.
+    scene = graft.euroc_mono_two_view(f_eu, eu, "general")
+    iargs = init_args(scene, dev)
+
+    def init_step():
+        r = graft.mono_initialize(
+            *iargs, generator=torch.Generator(dev).manual_seed(0))
+        torch.cuda.synchronize()
+        return r
+
+    for _ in range(N_WARMUP_INITS):
+        init_step()
+    for k in kernels.values():
+        k.launches = 0
+    init_ms = []
+    for _ in range(N_TIMED_INITS):
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        init_step()
+        init_ms.append((time.perf_counter() - t_start) * 1e3)
+    init_per_call = {n: k.launches / N_TIMED_INITS
+                     for n, k in kernels.items()}
+    init_med = statistics.median(init_ms)
+    init_p80 = statistics.quantiles(init_ms, n=5)[-1]
+    phase("9 init", f"mono_initialize (general case) median {init_med:.3f} "
+          f"ms, p80 {init_p80:.3f} ms over {N_TIMED_INITS} calls (min "
+          f"{min(init_ms):.3f}, max {max(init_ms):.3f}), after "
+          f"{N_WARMUP_INITS} warm-up calls; K1-K3 launches per call "
+          f"{init_per_call}; {init['general']['syncs']} synchronisations and "
+          f"{len(init['general']['host_reads'])} host reads "
+          f"({', '.join(init['general']['host_reads'])}) per call ({card})")
+
     sources = {"K1": ("steered-BRIEF sampler", "csrc/brief.cu",
                       "orbslam3_byzyh_tpu/ops/pallas_brief.py:161",
                       "none: no single PyTorch call gathers rotated sample "
@@ -1188,7 +1374,9 @@ def main() -> int:
          "bound": results[n]["bound"], "ptxas": ptxas[n],
          "frame_step_calls": fs_calls[n],
          "launches_keyframe_step": launches_ks[n],
-         "keyframe_step_calls": ks_calls[n]}
+         "keyframe_step_calls": ks_calls[n],
+         "launches_init_step": launches_init[n],
+         "init_step_calls": init_calls[n]}
         for n in kernels], "k2_sass_tensor_instructions": tensor_ops,
         "step_ms": step_med, "step_p80_ms": step_p80,
         "mono_frame_step_ms": mono_med, "mono_frame_step_p80_ms": mono_p80,
@@ -1197,7 +1385,9 @@ def main() -> int:
         "keyframe_step_launches_per_call": per_call,
         "keyframe_step_device_ops_per_call": kf_device_launches,
         "keyframe_step_device_ms_per_call": kf_busy_ms,
-        "keyframe_step": keyframe, "card": card}))
+        "keyframe_step": keyframe, "init_step_ms": init_med,
+        "init_step_p80_ms": init_p80, "init_step_per_call": init_per_call,
+        "init_step": init, "card": card}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

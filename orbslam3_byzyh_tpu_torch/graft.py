@@ -15,6 +15,12 @@ configuration's full capacity that a frame tracks against.
 makes for each new keyframe (``mapping.keyframe_bundle`` with the visual
 system's local BA and keyframe culling). ``euroc_mono_map`` builds a map at
 the EuRoC-mono capacity in which every stage of that step has work.
+
+``mono_initialize`` is the device half of ``MonoSlam._try_initialize``: it
+builds the initial map from a reference frame and the current frame
+(two-view H/F RANSAC, the two first keyframes and their landmarks at
+median-depth scale, the full-map BA). ``euroc_mono_two_view`` builds the
+second frame for it from the reference frame's own features.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ import torch
 from . import convert
 from .models import map_state as ms
 from .ops import camera as cam
-from .ops import fast_orb, lie
+from .ops import fast_orb, geometry, lie
 from .pipeline import mapping, tracking
 
 N_FEATURES = 1024
@@ -49,7 +55,8 @@ class MonoConfig(NamedTuple):
     keyframes and 4096 landmarks; TrackedMapPoints(3); the keyframe
     bundle's local BA over the keyframe and its 8 best covisible
     neighbours, 32 keyframes and 4096 landmarks in all, and triangulation
-    against 3 neighbours)."""
+    against 3 neighbours; the two-view initialisation's gate of 100
+    matches)."""
 
     width: int = 752
     height: int = 480
@@ -72,6 +79,7 @@ class MonoConfig(NamedTuple):
     ba_window: int = 32
     ba_lm_window: int = 4096
     triangulation_neighbors: int = 3
+    min_init_matches: int = 100
 
 
 EUROC_MONO = MonoConfig()
@@ -695,3 +703,221 @@ def euroc_mono_map(cfg: MonoConfig = EUROC_MONO, case: str = "normal",
         n_lm_hwm=int(np.flatnonzero(valid).max()) + 1,
         R_true=R_true.astype(f32), t_true=t_true.astype(f32),
         cull_kf=p_cull)
+
+
+# --- The initialisation -----------------------------------------------------
+
+class InitResult(NamedTuple):
+    """``mono_initialize``'s result. On failure ``state`` is the map as it
+    was and ``bindings``, ``R`` and ``t`` are None."""
+
+    success: bool
+    state: ms.MapState
+    bindings: object         # (N,) int32 landmark of each current keypoint
+    R: object                # (3, 3) keyframe 1's pose after the BA
+    t: object
+    info: dict
+
+
+# The three reads of device values on the host that ``_try_initialize`` makes
+# for each attempt, by name; ``mono_initialize`` makes the same ones.
+INIT_HOST_READS = ("n_matches", "success", "good and points")
+
+
+def mono_initialize(state, ref, cur, ref_stamp: float, cur_stamp: float,
+                    cam_params, generator: torch.Generator = None,
+                    idx=None, cfg: MonoConfig = EUROC_MONO) -> InitResult:
+    """The device half of ``MonoSlam._try_initialize`` against the reference
+    frame ``ref``: ``match_for_initialization`` (K2's window mode), the
+    two-view solve, the median-depth scale, keyframes 0 (identity) and 1,
+    a landmark for each good point, the full-map BA with keyframe 1 free,
+    and the current frame's bindings. ``ref`` and ``cur`` are the frames'
+    features (``xy``, ``level``, ``angle``, ``desc``, ``valid``); ``state``
+    the (empty) map. The RANSAC's (200, 8) sample indices are ``idx``, or
+    are drawn from ``generator`` (a generator of the tensors' device) over
+    the matched rows.
+
+    The host reads ``INIT_HOST_READS``, as the JAX system does. ``info``
+    names the reads it made and holds ``n_matches``, ``used_h``, ``n_good``
+    (the new landmarks), ``median_depth``, ``idx`` and ``reason``: None, or
+    why it failed ("matches", "two_view", "good" or "depth")."""
+    dev = ref.xy.device
+    info = {"host_reads": list(INIT_HOST_READS[:1]), "reason": None}
+
+    def failed(reason):
+        info["reason"] = reason
+        return InitResult(False, state, None, None, None, info)
+
+    mj = tracking.match_for_initialization(
+        ref.xy, ref.desc, ref.valid, ref.level, cur.xy, cur.desc, cur.valid,
+        cur.level, ref_angle=ref.angle, cur_angle=cur.angle)
+    matched = mj >= 0
+    info["n_matches"] = int(matched.sum())
+    if info["n_matches"] < cfg.min_init_matches:
+        return failed("matches")
+
+    if idx is None:
+        if generator is None:
+            raise ValueError("mono_initialize: give the RANSAC's indices "
+                             "(idx) or a generator to draw them")
+        idx = geometry.sample_indices(
+            generator, geometry.N_ITERS, geometry.SAMPLE_SIZE,
+            matched.to(torch.float32) + 1e-9)
+    info["idx"] = idx
+    K = mapping._intrinsics(cam_params)
+    kp_cur = mj.clamp_min(0)
+    res = geometry.two_view_reconstruct(idx, ref.xy, cur.xy[kp_cur.long()], K,
+                                        matched)
+    info["host_reads"].append(INIT_HOST_READS[1])
+    success, info["used_h"] = torch.stack([res.success,
+                                           res.used_h]).tolist()
+    if not success:
+        return failed("two_view")
+
+    info["host_reads"].append(INIT_HOST_READS[2])
+    host = torch.cat([res.points, res.good[:, None].to(torch.float32)],
+                     1).cpu().numpy()
+    good, X = host[:, 3] > 0, host[:, :3]
+    info["n_good"] = int(good.sum())
+    if info["n_good"] < 50:
+        return failed("good")
+    med_depth = float(np.median(X[good][:, 2]))
+    info["median_depth"] = med_depth
+    if med_depth <= 0:
+        return failed("depth")
+    # float32 products with a float32 scale, as the JAX system's numpy
+    # arithmetic makes them.
+    inv_md = 1.0 / med_depth
+    X_scaled = res.points * inv_md
+    R1, t1 = res.R, res.t * inv_md
+
+    n_feat = ref.xy.shape[0]
+    zero3 = torch.zeros(3, device=dev)
+    state = ms.add_keyframe(state, 0, torch.eye(3, device=dev), zero3,
+                            ref_stamp, ref)
+    state = ms.add_keyframe(state, 1, R1, t1, cur_stamp, cur)
+    slots = torch.cumsum(res.good, 0) - 1
+    da = torch.linalg.vector_norm(X_scaled, dim=-1)
+    normal = X_scaled / da.clamp_min(1e-9)[:, None]
+    max_dist = da * torch.pow(cfg.scale, ref.level.to(torch.float32))
+    min_dist = max_dist / cfg.scale ** (cfg.n_levels - 1)
+    state = ms.add_landmarks(
+        state, slots, X_scaled, ref.desc, 0,
+        torch.arange(n_feat, dtype=torch.int32, device=dev), 1, kp_cur,
+        res.good, normal, min_dist, max_dist)
+
+    # Keyframe 1 free; an index write of a Python value would synchronise.
+    free = torch.arange(state.kfs.valid.shape[0], device=dev) == 1
+    state = mapping.local_ba(state, free, cam_params)
+
+    n_cur = cur.xy.shape[0]
+    tgt = torch.where(res.good & matched, kp_cur, n_cur)
+    bindings = ms.scatter_rows(
+        torch.full((n_cur,), -1, dtype=torch.int32, device=dev),
+        tgt, torch.where(res.good, slots, -1))
+    return InitResult(True, state, bindings, state.kfs.R[1], state.kfs.t[1],
+                      info)
+
+
+class TwoViewScene(NamedTuple):
+    """``euroc_mono_two_view``'s frames (numpy, descriptors uint32) and the
+    truth: the second camera's pose (x2 = R x1 + t, t in m)."""
+
+    ref: fast_orb.FrameFeatures
+    cur: fast_orb.FrameFeatures
+    R: np.ndarray
+    t: np.ndarray
+
+
+# The second camera of euroc_mono_two_view's cases: so(3) vector and centre
+# (m) in the first camera's frame.
+_TWO_VIEW_ROT = (0.01, -0.03, 0.005)
+_TWO_VIEW_CENTRE = (0.2, 0.01, 0.02)
+
+
+def _wrap_angle(a):
+    return (a + np.pi) % (2 * np.pi) - np.pi
+
+
+def euroc_mono_two_view(feats, cfg: MonoConfig = EUROC_MONO,
+                        case: str = "general", seed: int = 0) -> TwoViewScene:
+    """The second frame of a two-view initialisation, made from the
+    reference frame's own undistorted features ``feats`` (``xy``,
+    ``level``, ``angle``, ``desc``, ``valid``; numpy or tensors): each
+    reference keypoint gets a depth and is projected through a second
+    camera (0.3 px of noise, 0-4 descriptor bits flipped, its level kept,
+    its angle turned by about 0.02 rad); the keypoints left in view are
+    shuffled among random distractors up to ``cfg.n_features``.
+
+    ``case`` = "general": depths U(2, 8) m, the second camera 0.2 m to the
+    side and turned by about 2 degrees (most points have more than 1 degree
+    of parallax; F should win). "planar": the points lie on one plane 1.5 m
+    ahead, turned by 0.8 rad about the vertical axis (H should win: its
+    runner-up candidate keeps about 60 % of its points, against the 75 %
+    that would make the choice ambiguous). "rotation": the same turn
+    with no baseline (the initialisation must fail)."""
+    if case not in ("general", "planar", "rotation"):
+        raise ValueError(f"case: 'general', 'planar' or 'rotation', "
+                         f"got {case!r}")
+    to_np = (lambda a: convert.to_numpy(a) if isinstance(a, torch.Tensor)
+             else np.asarray(a))
+    xy = to_np(feats.xy).astype(np.float64)
+    level = to_np(feats.level).astype(np.int32)
+    angle = to_np(feats.angle).astype(np.float32)
+    desc = to_np(feats.desc).astype(np.int32, copy=False).view(np.uint32)
+    valid = to_np(feats.valid).astype(bool)
+    n = xy.shape[0]
+    rng = np.random.default_rng(seed)
+    fx, fy, cx, cy = cfg.fx, cfg.fy, cfg.cx, cfg.cy
+    ray = np.stack([(xy[:, 0] - cx) / fx, (xy[:, 1] - cy) / fy, np.ones(n)],
+                   -1)
+    if case == "planar":
+        normal = _rodrigues([0.0, 0.8, 0.0]) @ np.array([0.0, 0.0, 1.0])
+        depth = 1.5 / (ray @ normal)
+    else:
+        depth = rng.uniform(2.0, 8.0, n)
+    X = ray * depth[:, None]
+    R = _rodrigues(_TWO_VIEW_ROT)
+    centre = np.zeros(3) if case == "rotation" else np.array(_TWO_VIEW_CENTRE)
+    t = -R @ centre
+    pc = X @ R.T + t
+    uv = np.stack([fx * pc[:, 0] / pc[:, 2] + cx,
+                   fy * pc[:, 1] / pc[:, 2] + cy], -1)
+    uv += rng.normal(0.0, 0.3, uv.shape)
+    keep = (valid & (pc[:, 2] > 0.1) & (uv[:, 0] >= 0) & (uv[:, 0] < cfg.width)
+            & (uv[:, 1] >= 0) & (uv[:, 1] < cfg.height))
+    kept = np.flatnonzero(keep)
+    m = len(kept)
+    nf = cfg.n_features
+    if m > nf:
+        raise ValueError(f"{m} keypoints in view exceed {nf} features")
+
+    flips = np.zeros((m, 8), np.uint32)
+    n_bits = rng.integers(0, 5, m)
+    for j in range(4):
+        pos = rng.integers(0, 256, m)
+        bit = np.left_shift(np.uint32(1), (pos % 32).astype(np.uint32))
+        flips[np.arange(m), pos // 32] ^= np.where(j < n_bits, bit,
+                                                   np.uint32(0))
+    n_dis = nf - m
+    cur_xy = np.concatenate([uv[kept], np.stack([
+        rng.uniform(0, cfg.width, n_dis), rng.uniform(0, cfg.height, n_dis)],
+        -1)])
+    cur_level = np.concatenate([level[kept],
+                                rng.choice(level[valid], n_dis)])
+    cur_angle = np.concatenate([
+        _wrap_angle(angle[kept] + rng.normal(0.0, 0.02, m)),
+        rng.uniform(-np.pi, np.pi, n_dis)])
+    cur_desc = np.concatenate([desc[kept] ^ flips,
+                               rng.integers(0, 2 ** 32, (n_dis, 8),
+                                            dtype=np.uint32)])
+    order = rng.permutation(nf)
+    f32 = np.float32
+    cur = fast_orb.FrameFeatures(
+        xy=cur_xy[order].astype(f32), level=cur_level[order].astype(np.int32),
+        angle=cur_angle[order].astype(f32), response=np.zeros(nf, f32),
+        desc=cur_desc[order], valid=np.ones(nf, bool))
+    ref = fast_orb.FrameFeatures(
+        xy=xy.astype(f32), level=level, angle=angle,
+        response=np.zeros(n, f32), desc=desc, valid=valid)
+    return TwoViewScene(ref=ref, cur=cur, R=R.astype(f32), t=t.astype(f32))

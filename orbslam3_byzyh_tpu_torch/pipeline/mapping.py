@@ -4,9 +4,10 @@ Port of ``orbslam3_byzyh_tpu/pipeline/mapping.py`` (the stages of
 ``keyframe_bundle``): epipolar triangulation against the best covisible
 keyframes (CreateNewMapPoints), device-side landmark-slot allocation and
 the capacity valve, duplicate fusion (SearchInNeighbors / Fuse), the
-covisibility-windowed local BA, and landmark and keyframe culling. The full
-and global BA, and the inertial culling candidate, wait for loop closing and
-the inertial systems.
+covisibility-windowed local BA, landmark and keyframe culling, and the
+full-map BA the monocular initialisation runs (``local_ba``, with the
+scatter Schur assembly). The global BA and the inertial culling candidate
+wait for loop closing and the inertial systems.
 
 Every function returns a new state and writes into none of its inputs. The
 JAX package's drop-mode scatters write a padded spare row that is sliced
@@ -148,6 +149,49 @@ def triangulate_pair(Ra, ta, xy_a, level_a, desc_a, free_a,
         pos=X, kp_a=torch.arange(n, dtype=torch.int32, device=dev),
         kp_b=kp_b, desc=desc_a, normal=normal, min_dist=min_dist,
         max_dist=max_dist, good=good)
+
+
+def _full_ba_problem(state: ms.MapState, free_kf: torch.Tensor, cam_params,
+                     use_stereo: bool = False) -> ba.BAProblem:
+    """The whole-map BA problem, every keyframe and landmark slot, with only
+    the live ``free_kf`` (K,) poses free."""
+    if use_stereo:
+        raise NotImplementedError(_STEREO_WAITS)
+    kfs, lms, obs = state.kfs, state.lms, state.obs
+    kf_safe = obs.kf.clamp_min(0).long()
+    kp_safe = obs.kp.clamp_min(0).long()
+    return ba.BAProblem(
+        R=kfs.R, t=kfs.t, points=lms.pos, obs_kf=obs.kf,
+        obs_uv=kfs.kp_xy[kf_safe, kp_safe],
+        obs_w=_inv_sigma2_on(kfs.R.device)[
+            kfs.kp_level[kf_safe, kp_safe].long()],
+        obs_valid=obs.valid & (obs.kf >= 0), fixed=~(free_kf & kfs.valid),
+        lm_valid=lms.valid, cam_params=cam_params)
+
+
+def _apply_ba_result(state: ms.MapState, res: ba.BAResult) -> ms.MapState:
+    """Write a full-map BA result back: poses, positions, the inlier gating;
+    landmarks left with fewer than two observations die."""
+    obs = state.obs._replace(valid=state.obs.valid & res.obs_inlier)
+    n_obs = (obs.valid & (obs.kf >= 0)).sum(-1)
+    lms = state.lms._replace(pos=res.points,
+                             valid=state.lms.valid & (n_obs >= 2),
+                             n_obs=n_obs.to(torch.int32))
+    return ms.MapState(kfs=state.kfs._replace(R=res.R, t=res.t), lms=lms,
+                       obs=obs)
+
+
+def local_ba(state: ms.MapState, free_kf: torch.Tensor, cam_params,
+             model_id: int = cam.PINHOLE,
+             use_stereo: bool = False) -> ms.MapState:
+    """Bundle adjust the whole map with only ``free_kf`` poses free (stages
+    (5, 10)), by the scatter Schur assembly: the one-hot form's cost grows
+    with the number of keyframe slots squared. Returns the updated state,
+    with the observations' inlier gating applied."""
+    prob = _full_ba_problem(state, free_kf, cam_params, use_stereo)
+    res = ba.bundle_adjust(prob, model_id=model_id,
+                           assembly=ba.schur_pieces_scatter)
+    return _apply_ba_result(state, res)
 
 
 def windowed_local_ba(state: ms.MapState, kf_id, cam_params,

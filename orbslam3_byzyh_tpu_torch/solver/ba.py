@@ -8,12 +8,21 @@ Observations are landmark-major:
   * ``obs_valid (L, O) bool``
 
 Each landmark row is eliminated by its closed-form 3x3 inverse; its Schur
-contribution is summed into the dense reduced camera system (K, K, 6, 6)
-through a one-hot (L, O, K) keyframe indicator and matmuls, as the JAX
-package assembles it (kept for parity; a scatter-add form waits for a
-measurement on the card). The 6K x 6K solve is ``torch.linalg.solve_ex``,
-which reports failure in a tensor instead of reading it back to the host.
-The LM accept/reject decision is a ``torch.where`` on the device.
+contribution is summed into the dense reduced camera system (K, K, 6, 6) by
+one of two assemblies with the same results:
+
+  * ``schur_pieces``: a one-hot (L, O, K) keyframe indicator and matmuls, as
+    the JAX package assembles it for the TPU's matrix unit. Its cross term
+    is an (L, K, 6, 3) x (L, K, 6, 3) product: at K = 1024 and L = 65536
+    about 1.5e13 flop and 20 GB. The windowed BA (K = 32) uses it.
+  * ``schur_pieces_scatter``: ``index_add_`` of the observations' blocks
+    into their keyframes and of each landmark's observation-pair blocks
+    into their keyframe pair: O(L O^2) work, whatever K. The full-map BA
+    uses it.
+
+The 6K x 6K solve is ``torch.linalg.solve_ex``, which reports failure in a
+tensor instead of reading it back to the host. The LM accept/reject
+decision is a ``torch.where`` on the device.
 
 Robust kernel: Huber sqrt(5.991); outliers are re-classified between
 stages. Stereo rows (``obs_ur``) and the KB8 camera raise
@@ -131,6 +140,17 @@ def _build_system(p: BAProblem, R, t, points, inlier, model_id, robust,
                 cost=cost, chi2=chi2, mask=mask)
 
 
+def _landmark_inverses(Hll, lam):
+    """The damped landmark blocks' inverses Hll_inv (L, 3, 3), identity
+    where a landmark has no signal, and has_obs (L,)."""
+    diag_l = torch.diagonal(Hll, dim1=-2, dim2=-1)
+    Hll_d = Hll + torch.diag_embed(lam * diag_l.clamp_min(1e-9))
+    has_obs = diag_l.sum(-1) > 1e-12
+    eye = torch.eye(3, dtype=Hll.dtype, device=Hll.device).expand(Hll.shape)
+    Hll_d = torch.where(has_obs[:, None, None], Hll_d, eye)
+    return _inv3x3(Hll_d), has_obs
+
+
 def schur_pieces(obs_kf, sys: dict, lam, n_kf: int) -> dict:
     """The Schur contributions summed over landmarks: Hpp (K, 6, 6), bp
     (K, 6), cross (K, K, 6, 6), corr (K, 6); plus the per-landmark damped
@@ -139,12 +159,7 @@ def schur_pieces(obs_kf, sys: dict, lam, n_kf: int) -> dict:
     indicator E (L, O, K)."""
     kf = obs_kf.clamp_min(0)
     Hll = sys["Hll"]
-    diag_l = torch.diagonal(Hll, dim1=-2, dim2=-1)
-    Hll_d = Hll + torch.diag_embed(lam * diag_l.clamp_min(1e-9))
-    has_obs = diag_l.sum(-1) > 1e-12
-    eye = torch.eye(3, dtype=Hll.dtype, device=Hll.device).expand(Hll.shape)
-    Hll_d = torch.where(has_obs[:, None, None], Hll_d, eye)
-    Hll_inv = _inv3x3(Hll_d)
+    Hll_inv, has_obs = _landmark_inverses(Hll, lam)
 
     E = (kf[..., None] == torch.arange(n_kf, device=kf.device)).to(
         Hll.dtype)                                           # (L, O, K)
@@ -157,6 +172,55 @@ def schur_pieces(obs_kf, sys: dict, lam, n_kf: int) -> dict:
     cross = torch.einsum("lkim,lqjm->kqij", U, V)            # (K, K, 6, 6)
     corr_o = torch.einsum("loik,lk->loi", WHinv, sys["bl"])
     corr = torch.einsum("lok,loi->ki", E, corr_o)
+    return dict(Hpp=Hpp, bp=bp, cross=cross, corr=corr, Hll_inv=Hll_inv,
+                has_obs=has_obs)
+
+
+# Spare rows that take the scatter form's zero blocks, spread so that their
+# atomic adds do not queue on a few addresses.
+_SPARE_ROWS = 4096
+
+
+def _segment_sum(x: torch.Tensor, rows: torch.Tensor, n: int) -> torch.Tensor:
+    """Sum the rows of ``x`` (M, ...) into ``n`` rows at ``rows`` (M,),
+    where ``rows`` in [n, n + _SPARE_ROWS) is a spare row that is dropped."""
+    out = x.new_zeros((n + _SPARE_ROWS,) + x.shape[1:])
+    return out.index_add_(0, rows, x)[:n]
+
+
+def schur_pieces_scatter(obs_kf, sys: dict, lam, n_kf: int) -> dict:
+    """``schur_pieces`` by scatter-add: the same Hpp, bp, cross, corr,
+    Hll_inv and has_obs. Hpp, bp and corr add each observation's block into
+    its keyframe; cross adds, for every landmark and pair of its
+    observations (o1, o2), WHinv[o1] W[o2]^T into the cell (kf[o1],
+    kf[o2]): L O^2 blocks of 6x6 (1.36 GB at L = 65536, O = 12), however
+    many keyframes. An observation whose Hpp_o diagonal is zero carries no
+    weight and adds nothing; it and every pair it is part of go to spare
+    rows spread over ``_SPARE_ROWS`` (the one-hot form sends them to
+    keyframe 0, and millions of atomic adds of zero blocks would queue on
+    one cell)."""
+    L, O = obs_kf.shape
+    dev = obs_kf.device
+    Hll_inv, has_obs = _landmark_inverses(sys["Hll"], lam)
+    W = sys["W"]
+    WHinv = torch.einsum("loij,ljk->loik", W, Hll_inv)       # (L, O, 6, 3)
+    corr_o = torch.einsum("loik,lk->loi", WHinv, sys["bl"])
+
+    diag = torch.diagonal(sys["Hpp_o"], dim1=-2, dim2=-1).sum(-1)
+    live = (obs_kf >= 0) & (diag != 0)                        # (L, O)
+    kf = obs_kf.long()
+    spare = torch.arange(L * O, device=dev) % _SPARE_ROWS
+    rows = torch.where(live.reshape(-1), kf.reshape(-1), n_kf + spare)
+    Hpp = _segment_sum(sys["Hpp_o"].reshape(L * O, 6, 6), rows, n_kf)
+    bp = _segment_sum(sys["bp_o"].reshape(L * O, 6), rows, n_kf)
+    corr = _segment_sum(corr_o.reshape(L * O, 6), rows, n_kf)
+
+    pairs = torch.einsum("loim,lpjm->lopij", WHinv, W).reshape(-1, 6, 6)
+    pair_live = (live[:, :, None] & live[:, None, :]).reshape(-1)
+    cells = (kf[:, :, None] * n_kf + kf[:, None, :]).reshape(-1)
+    spare = torch.arange(L * O * O, device=dev) % _SPARE_ROWS
+    cells = torch.where(pair_live, cells, n_kf * n_kf + spare)
+    cross = _segment_sum(pairs, cells, n_kf * n_kf).reshape(n_kf, n_kf, 6, 6)
     return dict(Hpp=Hpp, bp=bp, cross=cross, corr=corr, Hll_inv=Hll_inv,
                 has_obs=has_obs)
 
@@ -188,9 +252,9 @@ def back_substitute(obs_kf, sys: dict, Hll_inv, has_obs, dp):
     return torch.where(has_obs[:, None], dl, torch.zeros_like(dl))
 
 
-def _schur_reduce(p: BAProblem, sys: dict, lam, n_kf: int):
+def _schur_reduce(p: BAProblem, sys: dict, lam, n_kf: int, assembly):
     """One Schur step: pieces, solve, back-substitute -> (dp, dl)."""
-    pieces = schur_pieces(p.obs_kf, sys, lam, n_kf)
+    pieces = assembly(p.obs_kf, sys, lam, n_kf)
     dp = schur_solve(pieces["Hpp"], pieces["bp"], pieces["cross"],
                      pieces["corr"], lam, p.fixed, n_kf)
     dl = back_substitute(p.obs_kf, sys, pieces["Hll_inv"],
@@ -217,10 +281,12 @@ _CARRIED = ("Hll", "bl", "W", "Hpp_o", "bp_o")
 
 
 def bundle_adjust(p: BAProblem, model_id: int = cam.PINHOLE,
-                  stages: tuple = (5, 10)) -> BAResult:
+                  stages: tuple = (5, 10),
+                  assembly=schur_pieces) -> BAResult:
     """Schur-complement LM bundle adjustment. ``stages``: LM iterations per
     stage; between stages the observations are re-classified (chi2 <= 5.991
-    and depth > 0.05), and the last stage drops the robust kernel. Every
+    and depth > 0.05), and the last stage drops the robust kernel.
+    ``assembly``: ``schur_pieces`` or ``schur_pieces_scatter``. Every
     decision stays on the device."""
     if p.obs_ur is not None:
         raise NotImplementedError(_STEREO_WAITS)
@@ -237,7 +303,7 @@ def bundle_adjust(p: BAProblem, model_id: int = cam.PINHOLE,
         cost = sys_cur["cost"]
         lam = torch.full((), 1e-4, dtype=torch.float32, device=R.device)
         for _ in range(n_iters):
-            dp, dl = _schur_reduce(p, sys_cur, lam, n_kf)
+            dp, dl = _schur_reduce(p, sys_cur, lam, n_kf, assembly)
             cand = _retract(*state, dp, dl, p.fixed)
             sys_cand = _build_system(p, *cand, inlier, model_id, robust,
                                      delta2)

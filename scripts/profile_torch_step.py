@@ -11,9 +11,19 @@ it. ``--entry keyframe``: ``graft.mono_keyframe_step`` on
 ``graft.euroc_mono_map`` (1024 keyframe and 65536 landmark slots, 200 live
 keyframes, normal case), every call from the same input map, ending in the
 caller's read of ``info``; its stages are the bundle's stage functions
-re-run on the inputs the step gave them. ``both`` runs tracking and mono,
-``all`` (the default) the three in turn. For each it reports, with the
-card's name and power limit:
+re-run on the inputs the step gave them. ``--entry init``:
+``graft.mono_initialize`` from the empty EuRoC-mono map (1024 keyframe and
+65536 landmark slots) against ``graft.euroc_mono_two_view``'s general case,
+every call with the same sample indices; its stages are timed inside the
+call, each function synchronised before and after it: the matching, the
+RANSAC, the decompositions and ``check_rt``, the map writes and
+``local_ba``, split into the problem's build, the Schur assembly, the solve,
+the back-substitution and the retraction. It then runs one ``schur_pieces``
+call in each form (one-hot and scatter) on the full-map problem at K = 1024,
+L = 65536, O = 12, and the scatter form on a problem with every slot live,
+with each call's time, peak memory and largest difference. ``both`` runs
+tracking and mono, ``all`` (the default) tracking, mono and keyframe in
+turn. For each it reports, with the card's name and power limit:
   * the step and its stages by host clock around synchronised calls,
     median over the frames (each a different noisy copy of the image),
     after 100 warm-up steps;
@@ -35,8 +45,8 @@ import time
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--entry", choices=("tracking", "mono", "keyframe", "both",
-                                        "all"), default="all")
+    ap.add_argument("--entry", choices=("tracking", "mono", "keyframe", "init",
+                                        "both", "all"), default="all")
     ap.add_argument("--frames", type=int, default=20)
     ap.add_argument("--out", default="build/profile")
     args = ap.parse_args()
@@ -68,11 +78,11 @@ def main() -> int:
         return [img + 0.5 * torch.randn(img.shape, device=dev, generator=gen)
                 for _ in range(args.frames)]
 
-    def report(label, frames, step, stages):
+    def report(label, frames, step, stages, warmup=100):
         """Warm up, time the stages and the step, then profile 5 steps.
         ``stages`` maps a stage name to fn(frame) -> time in ms."""
         # Steps right after start-up run slower than the steady state.
-        for i in range(100):
+        for i in range(warmup):
             step(frames[i % len(frames)])
         times = {name: [] for name in stages}
         times["step"] = []
@@ -86,7 +96,7 @@ def main() -> int:
               f"(median of {args.frames}; {card})")
 
         from torch.profiler import ProfilerActivity, profile
-        n_prof = 5
+        n_prof = min(5, len(frames))
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -123,7 +133,7 @@ def main() -> int:
             fh.write(f"{card}\n")
             fh.write(prof.key_averages().table(
                 sort_by="self_device_time_total", row_limit=60))
-        prof.export_chrome_trace(os.path.join(out, "trace.json"))
+        prof.export_chrome_trace(os.path.join(out, "trace.json.gz"))
 
     if args.entry in ("tracking", "both", "all"):
         img = convert.to_torch(graft.example_arrays()[0], dev)
@@ -215,7 +225,159 @@ def main() -> int:
         report("keyframe", [None] * args.frames,
                lambda _: graft.mono_keyframe_step(*kargs)[2].cpu(),
                {name: stage(name) for name in names})
+
+    if args.entry == "init":
+        profile_init(args, dev, card, timed, report)
     return 0
+
+
+def profile_init(args, dev, card, timed, report) -> None:
+    """The init step's stages inside the call, its profile, and the two
+    Schur assemblies at full capacity."""
+    import torch
+
+    from orbslam3_byzyh_tpu_torch import convert, graft
+    from orbslam3_byzyh_tpu_torch.models import map_state as ms
+    from orbslam3_byzyh_tpu_torch.ops import fast_orb, geometry
+    from orbslam3_byzyh_tpu_torch.pipeline import mapping, tracking
+    from orbslam3_byzyh_tpu_torch.solver import ba, lm
+
+    cfg = graft.EUROC_MONO
+    cam = convert.to_torch([cfg.fx, cfg.fy, cfg.cx, cfg.cy], dev)
+    img = convert.to_torch(graft.example_image(cfg.height, cfg.width), dev)
+    f = graft.mono_extract(img, cam, convert.to_torch(list(cfg.dist), dev),
+                           cfg)
+    scene = graft.euroc_mono_two_view(f, cfg, "general")
+    ref = fast_orb.FrameFeatures(*convert.tree_to_torch(scene.ref, dev))
+    cur = fast_orb.FrameFeatures(*convert.tree_to_torch(scene.cur, dev))
+    empty = ms.empty_map(cfg.max_kf, cfg.max_lm, cfg.max_obs, cfg.n_features,
+                         device=dev)
+    first = graft.mono_initialize(empty, ref, cur, 0.0, 0.05, cam,
+                                  generator=torch.Generator(dev).manual_seed(0),
+                                  cfg=cfg)
+    idx = first.info["idx"]
+
+    def step(_):
+        return graft.mono_initialize(empty, ref, cur, 0.0, 0.05, cam,
+                                     idx=idx, cfg=cfg).R.cpu()
+
+    # Stages inside the call: each function synchronised before and after.
+    stages = [
+        ("matching", tracking, "match_for_initialization"),
+        ("ransac", geometry, "ransac_two_models"),
+        ("decompose", geometry, "decompose_homography"),
+        ("decompose", geometry, "decompose_fundamental"),
+        ("check_rt", geometry, "check_rt"),
+        ("map writes", ms, "add_keyframe"),
+        ("map writes", ms, "add_landmarks"),
+        ("local_ba", mapping, "local_ba"),
+        ("ba build", mapping, "_full_ba_problem"),
+        ("ba build", ba, "_build_system"),
+        ("ba assembly", ba, "schur_pieces_scatter"),
+        ("ba solve", ba, "schur_solve"),
+        ("ba back-substitution", ba, "back_substitute"),
+        ("ba retraction", ba, "_retract"),
+    ]
+    spent = {}
+
+    def wrap(label, fn):
+        def timed_fn(*a, **kw):
+            out, ms_ = timed(lambda: fn(*a, **kw))
+            spent[label] = spent.get(label, 0.0) + ms_
+            return out
+        return timed_fn
+
+    originals = [(mod, name, getattr(mod, name)) for _, mod, name in stages]
+    per_call = []
+    for _ in range(args.frames):
+        for (label, _, _), (mod, name, fn) in zip(stages, originals):
+            setattr(mod, name, wrap(label, fn))
+        try:
+            spent.clear()
+            _, total = timed(lambda: step(None))
+        finally:
+            for mod, name, fn in originals:
+                setattr(mod, name, fn)
+        per_call.append(dict(spent, call=total))
+    med = {k: statistics.median(c[k] for c in per_call) for k in per_call[0]}
+    print(f"[init stages] mono_initialize {med.pop('call'):.3f} ms with each "
+          f"stage synchronised: " + ", ".join(f"{k} {v:.3f} ms"
+                                              for k, v in med.items())
+          + f" (median of {args.frames}; {card})")
+
+    report("init", [None] * args.frames, step, {}, warmup=3)
+
+    # One Schur assembly in each form on the full-map problem the init's BA
+    # solves, then the scatter form with every slot live.
+    pre = {}
+    local_ba = mapping.local_ba
+
+    def grab(state, *a, **kw):
+        pre["state"] = state
+        return local_ba(state, *a, **kw)
+
+    mapping.local_ba = grab
+    try:
+        step(None)
+    finally:
+        mapping.local_ba = local_ba
+    free = torch.arange(pre["state"].kfs.valid.shape[0], device=dev) == 1
+    prob = mapping._full_ba_problem(pre["state"], free, cam)
+    L, O = prob.obs_kf.shape
+    K = prob.R.shape[0]
+    lam = torch.full((), 1e-4, device=dev)
+
+    def system(p):
+        return ba._build_system(p, p.R, p.t, p.points,
+                                torch.ones_like(p.obs_valid), 0, True,
+                                lm.CHI2_MONO)
+
+    def one(form, p, sys_):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out, ms_ = timed(lambda: form(p.obs_kf, sys_, lam, K))
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        return out, ms_, peak
+
+    sys_ = system(prob)
+    scat, s_ms, s_gb = one(ba.schur_pieces_scatter, prob, sys_)
+    scat, s_ms, s_gb = one(ba.schur_pieces_scatter, prob, sys_)  # warm
+    # The one-hot form's largest tensors: E (L, O, K), U and V (L, K, 6, 3)
+    # and the cross einsum's permuted copies of U and V.
+    need = 4 * (L * O * K + 4 * L * K * 18)
+    free_b, total_b = torch.cuda.mem_get_info()
+    print(f"[init schur] K={K} L={L} O={O}, {int(prob.lm_valid.sum())} live "
+          f"landmarks: scatter {s_ms:.3f} ms, peak {s_gb:.3f} GiB above the "
+          f"inputs ({card})")
+    if need < free_b:
+        hot, h_ms, h_gb = one(ba.schur_pieces, prob, sys_)
+        diff = {k: float((hot[k].float() - scat[k].float()).abs().max()
+                         / hot[k].float().abs().max().clamp_min(1e-30))
+                for k in ("Hpp", "bp", "cross", "corr", "Hll_inv")}
+        print(f"[init schur] one-hot {h_ms:.3f} ms, peak {h_gb:.3f} GiB above "
+              f"the inputs; largest difference relative to the one-hot "
+              f"piece's largest entry {diff} ({card})")
+        del hot
+    else:
+        print(f"[init schur] one-hot skipped: its largest tensors need "
+              f"{need / 2 ** 30:.1f} GiB, {free_b / 2 ** 30:.1f} of "
+              f"{total_b / 2 ** 30:.1f} GiB free ({card})")
+    # Every slot live: each landmark seen by O distinct random keyframes.
+    g = torch.Generator(dev).manual_seed(0)
+    kf = torch.argsort(torch.rand((L, K), generator=g, device=dev), 1)[:, :O]
+    dense = prob._replace(
+        obs_kf=kf.to(torch.int32), obs_valid=torch.ones_like(prob.obs_valid),
+        lm_valid=torch.ones_like(prob.lm_valid),
+        points=torch.randn((L, 3), generator=g, device=dev) * 0.3
+        + torch.tensor([0.0, 0.0, 1.0], device=dev),
+        obs_uv=torch.rand((L, O, 2), generator=g, device=dev) * 400)
+    sys_d = system(dense)
+    one(ba.schur_pieces_scatter, dense, sys_d)
+    _, d_ms, d_gb = one(ba.schur_pieces_scatter, dense, sys_d)
+    print(f"[init schur] scatter with every slot live ({L * O} observations, "
+          f"{L * O * O} pairs): {d_ms:.3f} ms, peak {d_gb:.3f} GiB above the "
+          f"inputs ({card})")
 
 
 if __name__ == "__main__":

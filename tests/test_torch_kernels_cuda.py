@@ -372,3 +372,40 @@ def test_keyframe_step_on_the_card_matches_cpu(dev):
     nb_c, nb_g = int((b_c >= 0).sum()), int((b_g >= 0).sum())
     assert abs(nb_g - nb_c) <= max(1, 0.01 * nb_c)
     assert float((info_g.cpu()[3:] - info_c[3:]).abs().max()) <= 1e-3
+
+
+def test_mono_initialize_on_the_card_matches_cpu(dev):
+    """The two-view init (K2's window mode, the RANSAC, the full-map BA with
+    the scatter assembly) on the card against the plain versions on the CPU
+    with the indices the card drew, at EuRoC-mono's camera with 640
+    features and 16 keyframe / 1024 landmark slots: the same success and
+    model, the same landmarks (within 1 %) and bindings, R within 1e-3."""
+    from orbslam3_byzyh_tpu_torch.models import map_state
+
+    cfg = graft.EUROC_MONO._replace(n_features=640, max_kf=16, max_lm=1024,
+                                    max_obs=8, min_init_matches=60)
+    cam = np.array([cfg.fx, cfg.fy, cfg.cx, cfg.cy], np.float32)
+    img = _t(graft.example_image(cfg.height, cfg.width), dev)
+    f = graft.mono_extract(img, _t(cam, dev),
+                           _t(np.array(cfg.dist, np.float32), dev), cfg)
+    scene = graft.euroc_mono_two_view(f, cfg, "general")
+
+    def run(d, **kw):
+        return graft.mono_initialize(
+            map_state.empty_map(cfg.max_kf, cfg.max_lm, cfg.max_obs,
+                                cfg.n_features, device=d),
+            fast_orb.FrameFeatures(*convert.tree_to_torch(scene.ref, d)),
+            fast_orb.FrameFeatures(*convert.tree_to_torch(scene.cur, d)),
+            0.0, 0.05, _t(cam, d), cfg=cfg, **kw)
+
+    g = run(dev, generator=torch.Generator(dev).manual_seed(0))
+    c = run("cpu", idx=g.info["idx"].cpu())
+    assert g.success and c.success and not g.info["used_h"]
+    assert c.info["used_h"] == g.info["used_h"]
+    n_g = int(g.state.lms.valid.sum())
+    n_c = int(c.state.lms.valid.sum())
+    assert abs(n_g - n_c) <= 0.01 * n_c and n_c >= 50
+    if n_g == n_c:
+        assert torch.equal(g.bindings.cpu(), c.bindings)
+    assert float((g.R.cpu() - c.R).abs().max()) <= 1e-3
+    assert map_state.check_invariants(g.state, 2, cfg.max_lm) == []
