@@ -30,7 +30,21 @@ them:
     second frame, in its general case (F must win), planar case (H must
     win) and rotation case (it must fail and leave the map as it was); the
     CPU plain path with the indices the card drew must agree, and the
-    synchronisations and host reads are counted and printed.
+    synchronisations and host reads are counted and printed;
+  * the monocular system, ``pipeline.system.MonoSlam.track`` frame by frame
+    (phase "10 system"), on the golden frames (``graft.golden_frames()``,
+    the 45 frames of the golden regression run): (a) the frozen golden
+    config, held to the golden gate (at least 42 frames, Horn-scaled ATE
+    under 0.0149 m); (b) the EuRoC-mono capacity (1024 keyframe and 65536
+    landmark slots, 12 observations, the 20 + 4 keyframe / 4096 landmark
+    window) on the frames padded to 752x480, held to test_e2e_mono.py's
+    gate (more than 32 frames, ATE under 0.15 m), and once with EuRoC's
+    1200 features (reported); (c) 16 keyframe slots, where the forced
+    culling, the compaction and the trajectory rebase must fire while the
+    map stays consistent. Every kernel launch of the first sequence of (a)
+    and (b) is held against its plain version; (a) and (b) are then timed
+    as whole sequences (per frame kind: track()'s host-clock time, K1-K3
+    launches, synchronisations).
 
 Every kernel is held against its plain PyTorch version on the card: on
 synthetic inputs at both paths' shapes, and on the very inputs each path
@@ -60,6 +74,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -97,6 +112,23 @@ FLIP_MARGIN = 1e-5
 # The init step: timed calls after warm-up calls, each from the empty map.
 N_TIMED_INITS = 10
 N_WARMUP_INITS = 2
+# The monocular system: whole sequences timed after one warm-up sequence,
+# each with a fresh MonoSlam.
+N_TIMED_SEQUENCES = 3
+# The JAX system's reads of device values in each kind of frame
+# (orbslam3_byzyh_tpu/pipeline/system.py), beside the port's synchronisations.
+JAX_HOST_READS = {
+    "uninitialised": "n_valid (:342), then n_matches (:353) and success "
+                     "(:370) for an attempt",
+    "init": "n_valid (:342) and the init's n_matches, success, good and "
+            "points (:353-375), the new keyframe's pose (:307, :326)",
+    "tracked": "info (:504)",
+    "keyframe": "info (:504) and the previous bundle's info (:867)"}
+# The system's capacity run: keyframe slots few enough that the forced
+# culling, the compaction and the trajectory rebase fire, and a local BA
+# window of 24 keyframes (its fixed part must fit the slots).
+CAPACITY_MAX_KF = 16
+CAPACITY_BA_WINDOW = 24
 
 
 def phase(name: str, msg: str) -> None:
@@ -309,6 +341,49 @@ def spied(module, name: str, record):
         yield
     finally:
         setattr(module, name, fn)
+
+
+def spread(xs) -> dict:
+    """Count, median, p80, min and max of a list of times (ms)."""
+    xs = list(xs)
+    if not xs:
+        return {"n": 0}
+    p80 = statistics.quantiles(xs, n=5)[-1] if len(xs) > 1 else xs[0]
+    return {"n": len(xs), "median": statistics.median(xs), "p80": p80,
+            "min": min(xs), "max": max(xs)}
+
+
+def run_sequence(slam, frames, stamps, kernels, bundles, after=None):
+    """Drive ``slam.track`` over the frames, as a user's frame loop does.
+    Per frame: its kind ("uninitialised": no map yet and none made; "init":
+    the frame that makes the initial map; "keyframe": a tracked frame that
+    hosts a new keyframe; "tracked": the rest), the host-clock time of
+    ``track`` in ms (it returns after the system's own reads) and the
+    K1-K3 launches. ``bundles`` grows by one per keyframe dispatch.
+    ``after(i, kind)`` runs after each frame's timing. Returns (the frames'
+    records, the trajectory, the whole sequence in s, the trajectory read
+    included)."""
+    from orbslam3_byzyh_tpu_torch.pipeline.system import NOT_INITIALIZED
+    out = []
+    t_seq = time.perf_counter()
+    for i, (img, stamp) in enumerate(zip(frames, stamps)):
+        was_uninit = slam.status == NOT_INITIALIZED
+        n_b = len(bundles)
+        before = {n: k.launches for n, k in kernels.items()}
+        t0 = time.perf_counter()
+        slam.track(img, float(stamp))
+        ms = (time.perf_counter() - t0) * 1e3
+        if was_uninit:
+            kind = ("uninitialised" if slam.status == NOT_INITIALIZED
+                    else "init")
+        else:
+            kind = "keyframe" if len(bundles) > n_b else "tracked"
+        out.append({"kind": kind, "ms": ms, "launches": {
+            n: k.launches - before[n] for n, k in kernels.items()}})
+        if after is not None:
+            after(i, kind)
+    traj = slam.trajectory
+    return out, traj, time.perf_counter() - t_seq
 
 
 def require(cond: bool, what: str) -> None:
@@ -1349,6 +1424,298 @@ def main() -> int:
           f"{len(init['general']['host_reads'])} host reads "
           f"({', '.join(init['general']['host_reads'])}) per call ({card})")
 
+    # -- 10: the monocular system at the golden and EuRoC-mono capacity ----
+    from orbslam3_byzyh_tpu_torch.pipeline import system as system_mod
+    from orbslam3_byzyh_tpu_torch.utils import evaluate
+
+    gold = graft.golden_frames()
+    configs = {
+        "golden": (graft.golden_slam_config(), gold.frames),
+        "euroc": (graft.euroc_golden_config(), graft.pad_frames(gold.frames))}
+    bundles = []
+    keyframe_step = graft.mono_keyframe_step
+
+    def counted_bundle(*a, **kw):
+        bundles.append(kw.get("do_kf_cull"))
+        return keyframe_step(*a, **kw)
+
+    graft.mono_keyframe_step = counted_bundle
+
+    def centres_of(traj):
+        return (np.array([s for s, _, _ in traj]),
+                evaluate.camera_centers(np.stack([R for _, R, _ in traj]),
+                                        np.stack([t for _, _, t in traj])))
+
+    def gate(name, slam, traj):
+        """The run's gate, as the JAX package's tests hold it: the golden
+        run as test_golden.py (>= 42 frames, Horn-scaled ATE < 0.0149 m),
+        the EuRoC-capacity run as test_e2e_mono.py (> 32 frames, ATE by
+        stamp association < 0.15 m)."""
+        require(len(traj) > 0, f"system ({name}): no frame tracked")
+        stamps, est = centres_of(traj)
+        stamps = stamps + slam.t0
+        if name == "golden":
+            idx = np.searchsorted(gold.stamps, stamps - 1e-6)
+            _, _, _, ate = evaluate.horn_align(est, gold.centres[idx])
+            ok = (len(traj) >= graft.GOLDEN_N_FRAMES - 2
+                  and ate < graft.GOLDEN_ATE_GATE_M)
+            limit = (f">= {graft.GOLDEN_N_FRAMES - 2} frames, ATE < "
+                     f"{graft.GOLDEN_ATE_GATE_M:.4f} m")
+        else:
+            ate, n_assoc = evaluate.ate_rmse(stamps, est, gold.stamps,
+                                             gold.centres)
+            ok = len(traj) > 32 and n_assoc > 30 and ate < 0.15
+            limit = "> 32 frames, ATE < 0.15 m"
+        live = slam.state.kfs.valid.sum(), slam.state.lms.valid.sum()
+        out = {"frames": len(traj), "ate_m": float(ate),
+               "live_keyframes": int(live[0]), "live_landmarks": int(live[1]),
+               "keyframe_slots": slam.n_kf, "status": slam.status}
+        require(ok, f"system ({name}): {out} against {limit}")
+        return out
+
+    # Every kernel launch of the first sequence, held against its plain
+    # version right after it returns (K1, K2 bit-identical, K3 as k3_check).
+    sys_checked = {name: {n: {"calls": 0, "max_abs_err": 0.0, "shapes": {}}
+                          for n in kernels} for name in configs}
+    sys_calls = {n: [] for n in kernels}
+    guard = []
+    spies = {"K1": (cuda_brief, "brief_descriptors_kernel"),
+             "K2": (cuda_match, "hamming_best2_kernel"),
+             "K3": (cuda_pose_opt, "pose_optimization_kernel")}
+    originals = {n: getattr(m, f) for n, (m, f) in spies.items()}
+
+    def checking(name):
+        fn = originals[name]
+
+        def spy(*a, **kw):
+            out = fn(*a, **kw)
+            if guard:
+                return out
+            guard.append(name)
+            try:
+                err, b = check_call(name, a, kw)
+            finally:
+                guard.pop()
+            rec = sys_checked[seq_name[0]][name]
+            rec["calls"] += 1
+            rec["max_abs_err"] = max(rec["max_abs_err"], float(err))
+            shape = shape_of(name, a, kw)
+            key = json.dumps({"K1": {}, "K3": shape}.get(name, [
+                shape.get("N"), shape.get("M"), shape.get("mode")]))
+            rec["shapes"][key] = rec["shapes"].get(key, 0) + 1
+            if rec["shapes"][key] == 1:
+                sys_calls[name].append((seq_name[0], a, kw, err, b))
+            return out
+
+        return spy
+
+    seq_name = [None]
+    system = {}
+    for name, (cfg, frames) in configs.items():
+        seq_name[0] = name
+        for n_, (m, f) in spies.items():
+            setattr(m, f, checking(n_))
+        try:
+            slam = system_mod.MonoSlam(cfg)
+            recs, traj, _ = run_sequence(slam, frames, gold.stamps, kernels,
+                                         bundles)
+            torch.cuda.synchronize()
+        finally:
+            for n_, (m, f) in spies.items():
+                setattr(m, f, originals[n_])
+        warm = gate(name, slam, traj)
+        checked = sys_checked[name]
+        require(all(checked[n]["calls"] > 0 for n in kernels),
+                f"system ({name}): kernels launched {checked}")
+        phase("10 system", f"{name}: warm-up sequence, every launch held "
+              f"against its plain version: " + ", ".join(
+                  f"{n} {checked[n]['calls']} calls max err "
+                  f"{checked[n]['max_abs_err']:.2e}" for n in kernels)
+              + f"; {json.dumps(warm)}")
+        # The timed sequences.
+        frames_all, seqs = [], []
+        for _ in range(N_TIMED_SEQUENCES):
+            slam = system_mod.MonoSlam(cfg)
+            for k in kernels.values():
+                k.launches = 0
+            torch.cuda.synchronize()
+            recs, traj, sec = run_sequence(slam, frames, gold.stamps, kernels,
+                                           bundles)
+            res = gate(name, slam, traj)
+            res.update(seconds=sec, fps=len(frames) / sec,
+                       launches={n: k.launches for n, k in kernels.items()})
+            require(all(v > 0 for v in res["launches"].values()),
+                    f"system ({name}): launches {res['launches']}")
+            seqs.append(res)
+            frames_all += recs
+        kinds = {}
+        for kind in ("uninitialised", "init", "tracked", "keyframe"):
+            rs = [r for r in frames_all if r["kind"] == kind]
+            kinds[kind] = spread(r["ms"] for r in rs)
+            kinds[kind]["launches_per_frame"] = {
+                n: (sum(r["launches"][n] for r in rs) / len(rs) if rs
+                    else None) for n in kernels}
+        # The synchronisations per frame, by kind, on one more sequence.
+        slam = system_mod.MonoSlam(cfg)
+        syncs = []
+        for img, stamp in zip(frames, gold.stamps):
+            uninit = slam.status == system_mod.NOT_INITIALIZED
+            n_b = len(bundles)
+            with counted_syncs() as where:
+                slam.track(img, float(stamp))
+            if uninit:
+                kind = ("uninitialised"
+                        if slam.status == system_mod.NOT_INITIALIZED
+                        else "init")
+            else:
+                kind = "keyframe" if len(bundles) > n_b else "tracked"
+            syncs.append((kind, where))
+        for kind in kinds:
+            ws = [w for k, w in syncs if k == kind]
+            kinds[kind]["syncs_per_frame"] = (
+                sum(len(w) for w in ws) / len(ws) if ws else None)
+            sites = {}
+            for w in ws:
+                for site in w:
+                    sites[site] = sites.get(site, 0) + 1
+            kinds[kind]["sync_sites"] = {k: v / len(ws)
+                                         for k, v in sorted(sites.items())}
+            kinds[kind]["jax_host_reads"] = JAX_HOST_READS[kind]
+        fps = [r["fps"] for r in seqs]
+        system[name] = {"config": {k: v for k, v in dataclasses.asdict(
+            cfg).items() if not isinstance(v, np.ndarray)},
+            "warmup": warm, "sequences": seqs, "frame_kinds": kinds,
+            "fps": spread(fps)}
+        for kind, st in kinds.items():
+            if st["n"]:
+                phase("10 system", f"{name}: {kind} frames ({st['n']} over "
+                      f"{N_TIMED_SEQUENCES} sequences): track() median "
+                      f"{st['median']:.3f} ms, p80 {st['p80']:.3f} ms (min "
+                      f"{st['min']:.3f}, max {st['max']:.3f}); K1-K3 launches "
+                      f"per frame {st['launches_per_frame']}; "
+                      f"{st['syncs_per_frame']} synchronisations per frame "
+                      f"{st['sync_sites']}; the JAX system reads "
+                      f"{JAX_HOST_READS[kind]} ({card})")
+        secs = ", ".join(f"{r['seconds']:.3f}" for r in seqs)
+        rates = ", ".join(f"{f:.2f}" for f in fps)
+        phase("10 system", f"{name}: {len(gold.frames)} frames in {secs} s "
+              f"= {rates} frames/s; trajectory "
+              f"{[r['frames'] for r in seqs]} frames, ATE "
+              f"{[round(r['ate_m'], 5) for r in seqs]} m, live keyframes "
+              f"{[r['live_keyframes'] for r in seqs]} and landmarks "
+              f"{[r['live_landmarks'] for r in seqs]}"
+              + (f" (the JAX golden run: {graft.GOLDEN_N_KF_LIVE} and "
+                 f"{graft.GOLDEN_N_LM_LIVE}, ATE {graft.GOLDEN_ATE_M} m)"
+                 if name == "golden" else "") + f" ({card})")
+
+    # EuRoC-mono's own 1200 features on the same frames: reported, not
+    # gated (the synthetic world needs 1536, see graft.euroc_golden_config).
+    attempts = []
+    init_fn = graft.mono_initialize
+
+    def logged_init(*a, **kw):
+        r = init_fn(*a, **kw)
+        attempts.append((r.info["n_matches"], r.info["reason"]))
+        return r
+
+    graft.mono_initialize = logged_init
+    try:
+        slam = system_mod.MonoSlam(graft.euroc_golden_config(
+            n_features=eu.n_features))
+        _, traj, _ = run_sequence(slam, configs["euroc"][1], gold.stamps,
+                                  kernels, bundles)
+    finally:
+        graft.mono_initialize = init_fn
+    system["euroc_1200_features"] = {"frames": len(traj),
+                                     "init_attempts": attempts}
+    phase("10 system", f"euroc with {eu.n_features} features: {len(traj)} "
+          f"frames tracked; init attempts (matches, reason) {attempts}")
+
+    # The capacity run: the golden frames into 12 keyframe slots.
+    cfg = graft.golden_slam_config(max_kf=CAPACITY_MAX_KF,
+                                   ba_window=CAPACITY_BA_WINDOW)
+    slam = system_mod.MonoSlam(cfg)
+    fired = {"force_cull_calls": 0, "force_culled": 0, "compactions": 0,
+             "rebases": 0}
+    force = slam._force_cull_keyframes
+    compact = map_state.compact_keyframes
+    rebase = slam._traj.rebase
+    compacted = []
+
+    def forced(n):
+        fired["force_cull_calls"] += 1
+        got = force(n)
+        fired["force_culled"] += got
+        return got
+
+    def compacting(*a, **kw):
+        fired["compactions"] += 1
+        out = compact(*a, **kw)
+        compacted.append(out[2])
+        return out
+
+    def rebasing(*a, **kw):
+        fired["rebases"] += 1
+        return rebase(*a, **kw)
+
+    drain = slam._drain_pending
+    drains = []
+
+    def draining():
+        # The lazy read of a bundle moves the frame records off the
+        # keyframes it culled: none may stay on a dead slot.
+        drain()
+        live = convert.to_numpy(slam.state.kfs.valid)
+        dead_refs = [r for r in slam._traj.refs if r >= 0 and not live[r]]
+        require(not dead_refs, f"capacity: after a keyframe read, frame "
+                f"records on dead keyframe slots {dead_refs}")
+        drains.append(len(slam._traj.refs))
+
+    def capacity_checks(i, kind):
+        if compacted:
+            inv = map_state.check_invariants(slam.state, slam.n_kf,
+                                             cfg.max_lm)
+            require(inv == [], f"capacity: frame {i}: invariants {inv}")
+            compacted.clear()
+
+    slam._drain_pending = draining
+    slam._force_cull_keyframes = forced
+    slam._traj.rebase = rebasing
+    map_state.compact_keyframes = compacting
+    try:
+        _, traj, _ = run_sequence(slam, gold.frames, gold.stamps, kernels,
+                                  bundles, after=capacity_checks)
+    finally:
+        map_state.compact_keyframes = compact
+    require(len(traj) > 32 and all(v > 0 for v in fired.values()),
+            f"capacity: {len(traj)} frames, fired {fired}")
+    system["capacity"] = dict(fired, frames=len(traj), drains=len(drains),
+                              keyframe_slots=slam.n_kf,
+                              live_keyframes=int(slam.state.kfs.valid.sum()))
+    phase("10 system", f"capacity (max_kf {CAPACITY_MAX_KF}, ba_window "
+          f"{CAPACITY_BA_WINDOW}): "
+          f"{json.dumps(system['capacity'])}; invariants empty after every "
+          f"compaction, no frame record on a dead slot after any keyframe "
+          f"read")
+    graft.mono_keyframe_step = keyframe_step
+
+    # Each kernel on a call of each shape the system gave it.
+    for name, calls in sys_calls.items():
+        timed_calls = []
+        for where, a, kw, err, (b_ms, b_by, b_txt) in calls:
+            entry = {"call": f"system {where}",
+                     "shape": shape_of(name, a, kw), "max_abs_err": err,
+                     "bound_ms": b_ms, "bound_by": b_by, "bound": b_txt}
+            entry.update(timed(name, a, kw,
+                               plain_reps=5 if name == "K3" else 20))
+            timed_calls.append(entry)
+            phase("10 system", f"{name} {entry['call']} {entry['shape']}: "
+                  f"launch alone {entry['ms']:.4f} ms, wrapper "
+                  f"{entry['wrapper_ms']:.4f} ms, plain "
+                  f"{entry['plain_ms']:.4f} ms, bound {b_ms:.5f} ms by "
+                  f"{b_by} ({card})")
+        sys_calls[name] = timed_calls
+
     sources = {"K1": ("steered-BRIEF sampler", "csrc/brief.cu",
                       "orbslam3_byzyh_tpu/ops/pallas_brief.py:161",
                       "none: no single PyTorch call gathers rotated sample "
@@ -1376,7 +1743,17 @@ def main() -> int:
          "launches_keyframe_step": launches_ks[n],
          "keyframe_step_calls": ks_calls[n],
          "launches_init_step": launches_init[n],
-         "init_step_calls": init_calls[n]}
+         "init_step_calls": init_calls[n],
+         "launches_system": {k: v["sequences"][0]["launches"][n]
+                             for k, v in system.items() if "sequences" in v},
+         "launches_system_per_frame_kind": {
+             k: {kind: st["launches_per_frame"][n]
+                 for kind, st in v["frame_kinds"].items()}
+             for k, v in system.items() if "frame_kinds" in v},
+         "system_checked": {
+             k: {"calls": v[n]["calls"], "max_abs_err": v[n]["max_abs_err"]}
+             for k, v in sys_checked.items()},
+         "system_calls": sys_calls[n]}
         for n in kernels], "k2_sass_tensor_instructions": tensor_ops,
         "step_ms": step_med, "step_p80_ms": step_p80,
         "mono_frame_step_ms": mono_med, "mono_frame_step_p80_ms": mono_p80,
@@ -1387,7 +1764,7 @@ def main() -> int:
         "keyframe_step_device_ms_per_call": kf_busy_ms,
         "keyframe_step": keyframe, "init_step_ms": init_med,
         "init_step_p80_ms": init_p80, "init_step_per_call": init_per_call,
-        "init_step": init, "card": card}))
+        "init_step": init, "system": system, "card": card}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -25,3 +26,26 @@ def resolve(device=None) -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def upload(a, device: torch.device) -> torch.Tensor:
+    """A numpy array -> a tensor of its own on ``device``, in one copy. On
+    CUDA the copy goes from page-locked memory and does not wait for the
+    stream (a copy from pageable memory synchronises); the caching host
+    allocator keeps the page-locked block until the copy has run."""
+    t = torch.from_numpy(np.array(a, order="C"))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def read(*xs: torch.Tensor, dtype=torch.float32) -> list:
+    """Each tensor's values as a numpy array of ``dtype`` (float32 holds the
+    whole numbers of a map's ids and counts exactly), in one read from the
+    device: the one synchronisation of the caller."""
+    flat = torch.cat([x.reshape(-1).to(dtype) for x in xs]).cpu().numpy()
+    out, i = [], 0
+    for x in xs:
+        out.append(flat[i:i + x.numel()].reshape(tuple(x.shape)))
+        i += x.numel()
+    return out

@@ -25,6 +25,8 @@ second frame for it from the reference frame's own features.
 
 from __future__ import annotations
 
+import dataclasses
+from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
@@ -130,10 +132,12 @@ def tracking_step(img, R, t, lm_pos, lm_desc, lm_normal, lm_min_d, lm_max_d,
 
 
 def mono_extract(img, cam_params, dist, cfg: MonoConfig = EUROC_MONO):
-    """``MonoSlam._extract`` for a pinhole + radtan camera: ORB features
-    with their keypoints undistorted onto the pinhole."""
+    """``MonoSlam._extract``: ORB features, their keypoints undistorted onto
+    the pinhole when ``dist`` (radtan k1, k2, p1, p2) is given."""
     feats = fast_orb.extract(img, n_features=cfg.n_features,
                              n_levels=cfg.n_levels, scale=cfg.scale)
+    if dist is None:                   # a pinhole camera
+        return feats
     return feats._replace(xy=cam.undistort_pixels(cam_params, dist,
                                                   feats.xy))
 
@@ -379,13 +383,15 @@ def euroc_mono_scene(feats_xy, feats_level, feats_desc, feats_angle,
 # --- The keyframe step ------------------------------------------------------
 
 def mono_keyframe_step(state, kf_id, R, t, stamp, feats, bindings,
-                       cam_params, n_lm_hwm, cfg: MonoConfig = EUROC_MONO):
+                       cam_params, n_lm_hwm, cfg: MonoConfig = EUROC_MONO,
+                       do_kf_cull: bool = True):
     """What ``MonoSlam._create_keyframe`` runs on the device for a new
     keyframe: ``mapping.keyframe_bundle`` at ``cfg``'s windows, monocular
-    (``ur`` all -1), with the local BA and keyframe culling on. ``state`` is
-    a ``map_state.MapState``; ``feats`` the frame's features (``xy``,
-    ``level``, ``angle``, ``desc``, ``valid``); ``bindings`` (N,) int32
-    the tracked landmark of each keypoint. Returns (state', bindings',
+    (``ur`` all -1), with the local BA on and keyframe culling when
+    ``do_kf_cull`` (the system culls once the map holds 8 keyframes).
+    ``state`` is a ``map_state.MapState``; ``feats`` the frame's features
+    (``xy``, ``level``, ``angle``, ``desc``, ``valid``); ``bindings`` (N,)
+    int32 the tracked landmark of each keypoint. Returns (state', bindings',
     info, culled) as the JAX package's ``keyframe_bundle`` does."""
     ur = torch.full((cfg.n_features,), -1.0, device=feats.xy.device)
     return mapping.keyframe_bundle(
@@ -393,7 +399,8 @@ def mono_keyframe_step(state, kf_id, R, t, stamp, feats, bindings,
         n_lm_hwm, float(cfg.width), float(cfg.height),
         n_neighbors=cfg.triangulation_neighbors,
         n_free=cfg.local_window + 1, n_window=cfg.ba_window,
-        n_lm_window=cfg.ba_lm_window, do_kf_cull=True, do_local_ba=True)
+        n_lm_window=cfg.ba_lm_window, do_kf_cull=do_kf_cull,
+        do_local_ba=True)
 
 
 class MonoMap(NamedTuple):
@@ -726,7 +733,8 @@ INIT_HOST_READS = ("n_matches", "success", "good and points")
 
 def mono_initialize(state, ref, cur, ref_stamp: float, cur_stamp: float,
                     cam_params, generator: torch.Generator = None,
-                    idx=None, cfg: MonoConfig = EUROC_MONO) -> InitResult:
+                    idx=None, cfg: MonoConfig = EUROC_MONO,
+                    draw=None) -> InitResult:
     """The device half of ``MonoSlam._try_initialize`` against the reference
     frame ``ref``: ``match_for_initialization`` (K2's window mode), the
     two-view solve, the median-depth scale, keyframes 0 (identity) and 1,
@@ -734,8 +742,9 @@ def mono_initialize(state, ref, cur, ref_stamp: float, cur_stamp: float,
     and the current frame's bindings. ``ref`` and ``cur`` are the frames'
     features (``xy``, ``level``, ``angle``, ``desc``, ``valid``); ``state``
     the (empty) map. The RANSAC's (200, 8) sample indices are ``idx``, or
-    are drawn from ``generator`` (a generator of the tensors' device) over
-    the matched rows.
+    ``draw(matched)`` of the (N,) matched mask, or are drawn from
+    ``generator`` (a generator of the tensors' device) over the matched
+    rows.
 
     The host reads ``INIT_HOST_READS``, as the JAX system does. ``info``
     names the reads it made and holds ``n_matches``, ``used_h``, ``n_good``
@@ -756,6 +765,8 @@ def mono_initialize(state, ref, cur, ref_stamp: float, cur_stamp: float,
     if info["n_matches"] < cfg.min_init_matches:
         return failed("matches")
 
+    if idx is None and draw is not None:
+        idx = draw(matched)
     if idx is None:
         if generator is None:
             raise ValueError("mono_initialize: give the RANSAC's indices "
@@ -921,3 +932,109 @@ def euroc_mono_two_view(feats, cfg: MonoConfig = EUROC_MONO,
         xy=xy.astype(f32), level=level, angle=angle,
         response=np.zeros(n, f32), desc=desc, valid=valid)
     return TwoViewScene(ref=ref, cur=cur, R=R.astype(f32), t=t.astype(f32))
+
+
+# --- The monocular system ---------------------------------------------------
+
+def mono_slam_config(cfg) -> MonoConfig:
+    """The :class:`MonoConfig` of a ``pipeline.system.SlamConfig``: the
+    constants the entry points take, from the system's configuration (the
+    ORB pyramid stays at 8 levels of 1.2, as the system's extraction)."""
+    return MonoConfig(
+        width=int(cfg.width), height=int(cfg.height), fx=float(cfg.fx),
+        fy=float(cfg.fy), cx=float(cfg.cx), cy=float(cfg.cy),
+        dist=(None if cfg.dist is None
+              else tuple(float(d) for d in np.asarray(cfg.dist))),
+        n_features=cfg.n_features, max_kf=cfg.max_kf, max_lm=cfg.max_lm,
+        max_obs=cfg.max_obs, n_local_kf=cfg.local_kf_window,
+        n_local_lm=cfg.local_lm_window, recent_kf=cfg.recent_kf_window,
+        kf_ref_min_obs=cfg.kf_ref_min_obs, local_window=cfg.local_window,
+        ba_window=cfg.ba_window, ba_lm_window=cfg.ba_lm_window,
+        triangulation_neighbors=cfg.triangulation_neighbors,
+        min_init_matches=cfg.min_init_matches)
+
+
+GOLDEN_FRAMES = (Path(__file__).resolve().parents[1] / "tests" / "golden"
+                 / "frames_golden_mono.npz")
+
+
+class GoldenFrames(NamedTuple):
+    """The golden regression run's input: ``SynthWorld(seed=3)`` rendered at
+    t = 0.0, 0.1, ..., 4.4 s (``scripts/make_torch_golden_frames.py``)."""
+
+    frames: np.ndarray       # (45, 480, 640) uint8
+    stamps: np.ndarray       # (45,) float64 s
+    R: np.ndarray            # (45, 3, 3) true world->camera poses
+    t: np.ndarray            # (45, 3)
+    centres: np.ndarray      # (45, 3) float64 true camera centres
+    camera: np.ndarray       # fx, fy, cx, cy, width, height
+
+
+def golden_frames(path=GOLDEN_FRAMES) -> GoldenFrames:
+    """Load the golden frames fixture."""
+    with np.load(path) as z:
+        return GoldenFrames(**{k: z[k] for k in GoldenFrames._fields})
+
+
+# The golden run's recorded result (tests/golden/golden_mono.json) and its
+# gate (tests/test_golden.py): at least 44 - 2 frames in the trajectory and
+# a Horn-scaled ATE below 1.5 x 0.0086 + 0.002 m.
+GOLDEN_N_FRAMES = 44
+GOLDEN_ATE_M = 0.0086
+GOLDEN_ATE_GATE_M = 1.5 * GOLDEN_ATE_M + 0.002
+GOLDEN_N_KF_LIVE = 29
+GOLDEN_N_LM_LIVE = 1902
+
+
+def golden_slam_config(**changes):
+    """The frozen golden config (``tests/test_golden.py``): the world's
+    640x480 pinhole (fx = fy = 400), 1536 features, 48 keyframe and 4096
+    landmark slots, 8 observations, 10 fps, the 60-match init gate and
+    TrackedMapPoints(1) (the synthetic world's dense keyframe cadence).
+    ``changes`` replace fields."""
+    from .pipeline.system import SlamConfig
+    cfg = SlamConfig(fx=400.0, fy=400.0, cx=320.0, cy=240.0, width=640,
+                     height=480, n_features=1536, max_kf=48, max_lm=4096,
+                     max_obs=8, fps=10, min_init_matches=60,
+                     kf_ref_min_obs=1)
+    return dataclasses.replace(cfg, **changes)
+
+
+# The EuRoC-mono run's frames: the golden frames padded on the right to
+# EuRoC's 752 columns with the world's background value.
+EUROC_PAD_VALUE = 30
+
+
+def euroc_golden_config(**changes):
+    """The golden frames at the EuRoC-mono capacity (:data:`EUROC_MONO`: 8
+    ORB levels of 1.2, 1024 keyframe and 65536 landmark slots, 12
+    observations, a window of 20 + 4 keyframes and 4096 landmarks, the
+    bundle's windows) on 752x480 frames, with the synthetic world's
+    settings: its pinhole camera (no radtan), 10 fps, the 60-match init
+    gate, TrackedMapPoints(1) and 1536 features. With EuRoC's 1200 features
+    the world's frames never initialise: adjacent frames keep about 120
+    level-0 matches but too little parallax, frames 0.2 s apart about 55,
+    under the gate, so the reference frame keeps moving on. ``changes``
+    replace fields."""
+    from .pipeline.system import SlamConfig
+    e = EUROC_MONO
+    cfg = SlamConfig(fx=400.0, fy=400.0, cx=320.0, cy=240.0, width=e.width,
+                     height=e.height, n_features=1536,
+                     max_kf=e.max_kf, max_lm=e.max_lm, max_obs=e.max_obs,
+                     fps=10, local_window=e.local_window,
+                     ba_window=e.ba_window, ba_lm_window=e.ba_lm_window,
+                     local_kf_window=e.n_local_kf,
+                     local_lm_window=e.n_local_lm,
+                     recent_kf_window=e.recent_kf, min_init_matches=60,
+                     kf_ref_min_obs=1)
+    return dataclasses.replace(cfg, **changes)
+
+
+def pad_frames(frames: np.ndarray, width: int = EUROC_MONO.width,
+               value: int = EUROC_PAD_VALUE) -> np.ndarray:
+    """(F, H, W) frames padded on the right to ``width`` columns of
+    ``value``."""
+    f, h, w = frames.shape
+    out = np.full((f, h, width), value, frames.dtype)
+    out[:, :, :w] = frames
+    return out

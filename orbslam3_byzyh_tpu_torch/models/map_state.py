@@ -1,7 +1,7 @@
 """Functional map state: fixed-capacity NamedTuples of tensors.
 
 Port of ``orbslam3_byzyh_tpu/models/map_state.py`` (the parts the
-per-keyframe mapping bundle uses). Keyframes, landmarks and the
+monocular system uses). Keyframes, landmarks and the
 landmark-major (L, O) observation table are tensors with liveness masks;
 "deletion" clears a mask. Every function returns a new state and never
 writes into the tensors it was given, as the JAX package's functions do.
@@ -18,6 +18,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from .. import device as device_mod
 
 
 class KeyFrames(NamedTuple):
@@ -103,9 +105,10 @@ def scatter_cells(x: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
 
 def empty_map(max_kf: int, max_lm: int, max_obs: int, n_feat: int,
               device=None) -> MapState:
-    """An empty map of the given capacities on ``device``."""
+    """An empty map of the given capacities on ``device`` (``None``: the
+    card; raises without one, see :func:`device.resolve`)."""
     f32, i32 = torch.float32, torch.int32
-    kw = dict(device=device)
+    kw = dict(device=device_mod.resolve(device))
     kfs = KeyFrames(
         R=torch.eye(3, dtype=f32, **kw).repeat(max_kf, 1, 1),
         t=torch.zeros((max_kf, 3), dtype=f32, **kw),
@@ -250,6 +253,85 @@ def landmarks_seen_by(state: MapState, kf_id):
     slot = first_true(hit)
     kp = state.obs.kp.gather(1, slot[:, None])[:, 0]
     return seen, torch.where(seen, kp, -1)
+
+
+def compact_keyframes(state: MapState, n_kf: int):
+    """Renumber the live keyframes down to slots [0, n_valid), in id (=
+    temporal) order, and remap every keyframe reference in the state: the
+    slot recycling of a fixed-capacity map whose culling only clears masks.
+    One host read (the keyframes' liveness and the landmarks' creating
+    keyframe) and one upload; the keyframe rows move by gathers only.
+
+    Returns ``(state', old2new (K,) int32 numpy array, n_valid)``; dead old
+    ids map to -1."""
+    kfs, lms, obs = state.kfs, state.lms, state.obs
+    dev = kfs.valid.device
+    max_kf, max_lm = kfs.valid.shape[0], lms.valid.shape[0]
+    kf_valid, first_old = device_mod.read(kfs.valid, lms.first_kf,
+                                          dtype=torch.int64)
+    old_ids = np.flatnonzero(kf_valid)          # ascending == temporal
+    m = len(old_ids)
+    old2new = np.full(max_kf, -1, np.int32)
+    old2new[old_ids] = np.arange(m, dtype=np.int32)
+    gather = np.zeros(max_kf, np.int64)
+    gather[:m] = old_ids
+    # first_kf may name a culled keyframe (its creator died, the landmark
+    # lives): it moves to the nearest surviving predecessor.
+    first_new = np.clip(np.searchsorted(old_ids, first_old, "right") - 1, 0,
+                        None)
+    g, o2n, first_kf = torch.split(device_mod.upload(np.concatenate(
+        [gather, old2new, first_new]), dev), [max_kf, max_kf, max_lm])
+    live = torch.arange(max_kf, device=dev) < m
+
+    def rows(x):
+        return x.index_select(0, g)
+
+    kfs = KeyFrames(
+        R=rows(kfs.R), t=rows(kfs.t), stamp=rows(kfs.stamp),
+        kp_xy=rows(kfs.kp_xy), kp_level=rows(kfs.kp_level),
+        kp_angle=rows(kfs.kp_angle), kp_desc=rows(kfs.kp_desc),
+        kp_valid=rows(kfs.kp_valid) & live[:, None], kp_ur=rows(kfs.kp_ur),
+        valid=rows(kfs.valid) & live)
+    okf_new = torch.where(obs.kf >= 0,
+                          o2n.to(torch.int32)[obs.kf.clamp_min(0).long()], -1)
+    oval = obs.valid & (okf_new >= 0)
+    obs = Observations(kf=torch.where(oval, okf_new, -1),
+                       kp=torch.where(oval, obs.kp, -1), valid=oval)
+    lms = lms._replace(first_kf=first_kf.to(torch.int32),
+                       n_obs=oval.sum(-1).to(torch.int32))
+    return MapState(kfs=kfs, lms=lms, obs=obs), old2new, m
+
+
+def compact_landmarks(state: MapState, n_lm: int):
+    """Renumber the live landmarks down to [0, n_valid), in creation order,
+    so culled landmark slots are recycled; the observation table is
+    landmark-major, so this is a row gather. One host read and one upload.
+    Returns ``(state', old2new (L,) int32 numpy array, n_valid)``."""
+    lms, obs = state.lms, state.obs
+    dev = lms.valid.device
+    max_lm = lms.valid.shape[0]
+    old_ids = np.flatnonzero(device_mod.read(lms.valid)[0])
+    m = len(old_ids)
+    old2new = np.full(max_lm, -1, np.int32)
+    old2new[old_ids] = np.arange(m, dtype=np.int32)
+    gather = np.zeros(max_lm, np.int64)
+    gather[:m] = old_ids
+    g = device_mod.upload(gather, dev)
+    live = torch.arange(max_lm, device=dev) < m
+
+    def rows(x):
+        return x.index_select(0, g)
+
+    lms = Landmarks(
+        pos=rows(lms.pos), desc=rows(lms.desc), normal=rows(lms.normal),
+        min_dist=rows(lms.min_dist), max_dist=rows(lms.max_dist),
+        n_obs=rows(lms.n_obs), n_found=rows(lms.n_found),
+        n_visible=rows(lms.n_visible), first_kf=rows(lms.first_kf),
+        valid=rows(lms.valid) & live)
+    obs = Observations(kf=torch.where(live[:, None], rows(obs.kf), -1),
+                       kp=torch.where(live[:, None], rows(obs.kp), -1),
+                       valid=rows(obs.valid) & live[:, None])
+    return state._replace(lms=lms, obs=obs), old2new, m
 
 
 def check_invariants(state: MapState, n_kf: int, n_lm: int) -> list:

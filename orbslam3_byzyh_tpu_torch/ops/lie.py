@@ -1,4 +1,4 @@
-"""Batched SO(3) / SE(3) operations (the subset the tracking step uses).
+"""Batched SO(3) / SE(3) operations (the subset the port's paths use).
 
 Port of ``orbslam3_byzyh_tpu/ops/lie.py``: rotations are 3x3 matrices,
 poses are (R, t) pairs, and every function takes arbitrary leading batch
@@ -76,3 +76,40 @@ def se3_exp(xi: torch.Tensor):
     V = so3_right_jacobian(-phi)    # left Jacobian of phi
     t = (V @ rho[..., None])[..., 0]
     return R, t
+
+
+def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> quaternion (..., 4) in (qx, qy, qz, qw) order, the
+    TUM trajectory convention. Branch-free Shepperd's method: all four
+    candidates are computed and the largest pivot's is selected."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def pivot(x):
+        return torch.sqrt(torch.clamp_min(x, 1e-12)) * 0.5
+
+    qw0 = pivot(1.0 + tr)
+    s0 = 0.25 / qw0
+    c0 = torch.stack([(m21 - m12) * s0, (m02 - m20) * s0, (m10 - m01) * s0,
+                      qw0], -1)
+    qx1 = pivot(1.0 + m00 - m11 - m22)
+    s1 = 0.25 / qx1
+    c1 = torch.stack([qx1, (m01 + m10) * s1, (m02 + m20) * s1,
+                      (m21 - m12) * s1], -1)
+    qy2 = pivot(1.0 - m00 + m11 - m22)
+    s2 = 0.25 / qy2
+    c2 = torch.stack([(m01 + m10) * s2, qy2, (m12 + m21) * s2,
+                      (m02 - m20) * s2], -1)
+    qz3 = pivot(1.0 - m00 - m11 + m22)
+    s3 = 0.25 / qz3
+    c3 = torch.stack([(m02 + m20) * s3, (m12 + m21) * s3, qz3,
+                      (m10 - m01) * s3], -1)
+
+    cond0 = (tr > 0.0)[..., None]
+    cond1 = ((m00 > m11) & (m00 > m22))[..., None]
+    cond2 = (m11 > m22)[..., None]
+    q = torch.where(cond0, c0, torch.where(cond1, c1,
+                                           torch.where(cond2, c2, c3)))
+    return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)

@@ -6,8 +6,9 @@ keyframes (CreateNewMapPoints), device-side landmark-slot allocation and
 the capacity valve, duplicate fusion (SearchInNeighbors / Fuse), the
 covisibility-windowed local BA, landmark and keyframe culling, and the
 full-map BA the monocular initialisation runs (``local_ba``, with the
-scatter Schur assembly). The global BA and the inertial culling candidate
-wait for loop closing and the inertial systems.
+scatter Schur assembly), and the redundancy-cull candidate the system's
+forced culling ranks by (``cull_candidate``). The global BA waits for loop
+closing.
 
 Every function returns a new state and writes into none of its inputs. The
 JAX package's drop-mode scatters write a padded spare row that is sliced
@@ -426,6 +427,18 @@ def cull_keyframes(state: ms.MapState, kf_id, redundancy: float = 0.9,
     # score[c] is the maximum; indexing by a device tensor would read it
     # back to the host.
     return drop_keyframe(state, c, score.amax() >= redundancy)
+
+
+def cull_candidate(state: ms.MapState, eligible: torch.Tensor,
+                   min_seen: int = 30) -> torch.Tensor:
+    """The best redundancy-cull candidate among the ``eligible`` keyframes,
+    as the (2,) float32 ``[best_id, best_frac]`` (``best_frac`` -1 when no
+    live eligible keyframe has ``min_seen`` observations): one small read
+    for the caller instead of the whole redundancy table."""
+    frac, seen = redundancy_stats(state)
+    score = torch.where(eligible & state.kfs.valid & (seen >= min_seen),
+                        frac, -1.0)
+    return torch.stack([torch.argmax(score).to(torch.float32), score.amax()])
 
 
 def cull_landmarks(state: ms.MapState, current_kf,

@@ -1,0 +1,711 @@
+"""The monocular SLAM system: the host frame loop over the port's device
+steps.
+
+Port of the JAX package's ``pipeline/system.py`` ``MonoSlam`` (ORB-SLAM3's
+``System::TrackMonocular`` with the state machine of ``Tracking``:
+NOT_INITIALIZED -> OK -> RECENTLY_LOST -> a new map), with loop closing,
+relocalization, the background global BA and the chessboard world frame
+off, as they are in the JAX system without a vocabulary. Each frame runs
+the port's entry points:
+
+  * ``graft.mono_extract`` (K1) on every frame;
+  * ``graft.mono_initialize`` (K2) until the initial map is made;
+  * ``tracking.frame_step`` (K2, K3) on every later frame, and the
+    reference-keyframe fallback (K2, K3) when it keeps fewer than 15
+    inliers;
+  * ``graft.mono_keyframe_step`` (K2) for each new keyframe, read back
+    lazily at the next keyframe.
+
+The map lives on the device. The host keeps the counters, the spanning
+tree, the trajectory log, the last tracked pose and the velocity as numpy.
+The reads of device values are the JAX system's: the number of valid
+features of an uninitialised frame and the initialisation's three, one
+packed read a tracked frame (``frame_step``'s ``info`` with the last pose),
+and one packed read of the previous keyframe bundle's outputs at the next
+keyframe. Each frame's uploads (the image; the predicted and last poses)
+come from page-locked memory and do not wait for the device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import device as device_mod
+from .. import graft
+from ..models import atlas as atlas_mod
+from ..models import map_state as ms
+from ..ops import geometry
+from ..utils import verbose
+from . import mapping, tracking, trajectory_log
+
+NOT_INITIALIZED = 0
+OK = 1
+RECENTLY_LOST = 2
+LOST = 3
+
+
+@dataclasses.dataclass
+class SlamConfig:
+    fx: float
+    fy: float
+    cx: float
+    cy: float
+    width: int
+    height: int
+    dist: Optional[np.ndarray] = None      # [k1,k2,p1,p2,(k3)] or None
+    kb8: Optional[np.ndarray] = None       # [k0..k3] Kannala-Brandt fisheye
+    n_features: int = 1024
+    max_kf: int = 256
+    max_lm: int = 16384
+    max_obs: int = 12
+    fps: float = 20.0
+    min_frames: int = 0                    # KF policy (Tracking.cc:4388)
+    max_frames: Optional[int] = None       # defaults to fps
+    local_window: int = 8                  # covisible neighbours free in local BA
+    ba_window: int = 32                    # total KFs (free + fixed) in local BA
+    ba_lm_window: int = 4096               # landmark rows gathered for local BA
+    # Bounded per-frame local map (UpdateLocalKeyFrames/Points,
+    # Tracking.cc:4851-4895): the landmarks of the top `local_kf_window`
+    # covisible KFs (+ the `recent_kf_window` newest), truncated at
+    # `local_lm_window` rows.
+    local_kf_window: int = 20
+    local_lm_window: int = 4096
+    recent_kf_window: int = 4
+    # Min observations for a ref-KF landmark to count in the c2 keyframe
+    # ratio (TrackedMapPoints(nMinObs), Tracking.cc:4407-4412; reference
+    # default 3). Synthetic worlds with frame-to-frame descriptor churn may
+    # need 1.
+    kf_ref_min_obs: int = 3
+    min_init_matches: int = 100            # two-view init gate (Tracking.cc:3620)
+    triangulation_neighbors: int = 3
+    # The options below belong to loop closing, relocalization and the
+    # chessboard world frame, which the port does not run yet: a
+    # vocabulary or a chessboard raises, and the rest are kept so that a
+    # configuration reads the same in both packages.
+    background_gba: bool = True
+    vocabulary: Optional[object] = None    # ops.bow.Vocabulary for reloc/loops
+    use_loop_closing: bool = True
+    device_mesh: Optional[object] = None
+    min_reloc_inliers: int = 30            # Relocalization gate (~:5230)
+    cross_map_reloc: bool = True
+    lost_grace_frames: Optional[int] = None  # RECENTLY_LOST budget (~fps)
+    chessboard: Optional[object] = None    # utils.chessboard.ChessboardConfig
+
+    def cam_params(self):
+        return np.array([self.fx, self.fy, self.cx, self.cy], np.float32)
+
+
+class MonoSlam:
+    """Monocular SLAM engine (System::TrackMonocular) on ``device``
+    (``None``: the card; raises without one)."""
+
+    def __init__(self, config: SlamConfig, device=None):
+        if config.vocabulary is not None:
+            raise NotImplementedError(
+                "relocalization and loop closing (a vocabulary) wait for "
+                "ROADMAP item 12")
+        if config.chessboard is not None:
+            raise NotImplementedError(
+                "the chessboard world frame waits for ROADMAP item 13")
+        if config.kb8 is not None:
+            raise NotImplementedError(
+                "the Kannala-Brandt camera waits for ROADMAP item 10")
+        self.cfg = config
+        self.device = device_mod.resolve(device)
+        self.mcfg = graft.mono_slam_config(config)
+        dev = self.device
+        self.cam_params = torch.tensor(config.cam_params(), device=dev)
+        self.dist = (None if config.dist is None else torch.tensor(
+            np.asarray(config.dist, np.float32)[:4], device=dev))
+        self.atlas = atlas_mod.Atlas(config.max_kf, config.max_lm,
+                                     config.max_obs, config.n_features,
+                                     device=dev)
+        self.status = NOT_INITIALIZED
+        self.max_frames = config.max_frames or int(config.fps)
+        self.lost_grace = config.lost_grace_frames or int(config.fps)
+        self.lost_frames = 0
+        # Localization-only mode (System::ActivateLocalizationMode): track
+        # against the frozen map, no keyframe insertion.
+        self.localization_only = False
+        # The RANSAC's generator (the JAX system's rng_key).
+        self.generator = torch.Generator(dev).manual_seed(0)
+
+        # Reference frame for initialization.
+        self._init_feats = None
+        self._init_stamp = None
+        # Last tracked frame: dict(feats, bindings, R, t, stamp). R and t are
+        # numpy after a tracked frame, device tensors after a keyframe (the
+        # keyframe's pose after its bundle, read with the next frame's info).
+        self._last = None
+        self._vel = None            # host (R_v, t_v): T_cur = vel * T_last
+        self.frames_since_kf = 0
+        self.last_kf_id = -1
+        # Frame-trajectory log: poses relative to their reference keyframe,
+        # replayed against the current keyframe poses on read. Stamps are
+        # relative to the first frame (self.t0), as float32 keyframe stamps
+        # could not hold absolute dataset stamps.
+        self._traj = trajectory_log.TrajectoryLog()
+        # (ref_kf_id, R_rw, t_rw) host cache of the reference keyframe's pose.
+        self._ref_cache = None
+        # Bumped by each refresh of the cache: the lazy keyframe read only
+        # restores its bundle-time pose if nothing refreshed the cache since.
+        self._ref_cache_gen = 0
+        # The last keyframe bundle's outputs, read at the next keyframe.
+        self._pending_kf = None
+        self._kf_host_pending = False
+        self._t0 = None
+        n = config.n_features
+        self._no_ur = torch.full((n,), -1.0, device=dev)
+        self._zero = torch.zeros((), device=dev)
+
+    # ------------------------------------------------------------------
+    @property
+    def t0(self) -> float:
+        """Absolute timestamp of the first tracked frame (0.0 if none)."""
+        return self._t0 or 0.0
+
+    def _rel_stamp(self, stamp: float) -> float:
+        if self._t0 is None:
+            self._t0 = float(stamp)
+        return float(stamp) - self._t0
+
+    @property
+    def state(self) -> ms.MapState:
+        return self.atlas.state
+
+    @state.setter
+    def state(self, s: ms.MapState):
+        self.atlas.state = s
+
+    @property
+    def n_kf(self) -> int:
+        return self.atlas.counts().n_kf
+
+    @n_kf.setter
+    def n_kf(self, v: int):
+        self.atlas.counts().n_kf = v
+
+    @property
+    def n_lm(self) -> int:
+        return self.atlas.counts().n_lm
+
+    @n_lm.setter
+    def n_lm(self, v: int):
+        self.atlas.counts().n_lm = v
+
+    @property
+    def kf_parent(self) -> np.ndarray:
+        """Spanning-tree parent per keyframe slot (-1 = root), per map."""
+        meta = self.atlas.counts()
+        if meta.kf_parent is None:
+            meta.kf_parent = np.full(self.cfg.max_kf, -1, np.int32)
+        return meta.kf_parent
+
+    def _host_poses(self):
+        """The keyframe poses (R, t) as numpy, in one read."""
+        return device_mod.read(self.state.kfs.R, self.state.kfs.t)
+
+    # ------------------------------------------------------------------
+    def _extract(self, img: np.ndarray):
+        """ORB features of a frame, undistorted onto the pinhole when the
+        camera has radtan coefficients. The image goes up as it is (uint8
+        stays uint8) and becomes float32 on the device."""
+        x = device_mod.upload(np.asarray(img), self.device)
+        return graft.mono_extract(x.to(torch.float32), self.cam_params,
+                                  self.dist, self.mcfg)
+
+    def track(self, img: np.ndarray, stamp: float):
+        """Process one frame; returns Tcw (R, t) as numpy, or None while
+        initializing."""
+        stamp = self._rel_stamp(stamp)
+        self._kf_host_pending = False
+        if self._check_timestamp_jump(stamp):
+            return None
+        feats = self._extract(img)
+        if self.status == NOT_INITIALIZED:
+            pose = self._try_initialize(feats, stamp)
+        else:
+            pose = self._track_frame(feats, stamp)
+        if pose is not None:
+            self._log_frame(stamp, pose)
+        return pose
+
+    # ------------------------------------------------------------------
+    @property
+    def trajectory(self):
+        """Per-frame (stamp, R_cw, t_cw) list, replayed against the current
+        keyframe poses so map corrections apply retroactively."""
+        self._drain_pending()
+        return self._traj.replay(*self._host_poses())
+
+    def _log_frame(self, stamp: float, pose):
+        """Record one tracked frame relative to its reference keyframe. A
+        frame that hosts a new keyframe is logged as that keyframe with the
+        identity relative pose, so it follows every later correction."""
+        R_cw, t_cw = pose
+        if self._kf_host_pending and self.last_kf_id >= 0:
+            self._kf_host_pending = False
+            self._traj.log(stamp, R_cw, t_cw, self.last_kf_id, R_cw, t_cw)
+        elif self._ref_cache is None:
+            self._traj.log(stamp, R_cw, t_cw, -1)
+        else:
+            ref, R_rw, t_rw = self._ref_cache
+            self._traj.log(stamp, R_cw, t_cw, ref, R_rw, t_rw)
+
+    def _set_ref_cache(self, k: int, R=None, t=None):
+        self._ref_cache_gen += 1
+        self._ref_cache = None if k < 0 else (k, R, t)
+
+    def _refresh_ref_cache(self):
+        """Re-read the reference keyframe's pose after anything moved it."""
+        k = self.last_kf_id
+        if k < 0:
+            self._set_ref_cache(k)
+        else:
+            self._set_ref_cache(k, *device_mod.read(self.state.kfs.R[k],
+                                                    self.state.kfs.t[k]))
+
+    # ------------------------------------------------------------------
+    # Initialization (MonocularInitialization + CreateInitialMap)
+    # ------------------------------------------------------------------
+    def _ransac_indices(self, matched: torch.Tensor) -> torch.Tensor:
+        """The two-view RANSAC's (200, 8) sample indices over the matched
+        rows, drawn from the system's generator."""
+        return geometry.sample_indices(
+            self.generator, geometry.N_ITERS, geometry.SAMPLE_SIZE,
+            matched.to(torch.float32) + 1e-9)
+
+    def _try_initialize(self, feats, stamp):
+        n_valid = int(feats.valid.sum())
+        if self._init_feats is None:
+            if n_valid >= 100:
+                self._init_feats, self._init_stamp = feats, stamp
+            return None
+        res = graft.mono_initialize(
+            self.state, self._init_feats, feats, self._init_stamp, stamp,
+            self.cam_params, cfg=self.mcfg, draw=self._ransac_indices)
+        if not res.success:
+            # Too few matches: the newer frame becomes the reference
+            # (Tracking.cc:3620).
+            if res.info["reason"] == "matches" and n_valid >= 100:
+                self._init_feats, self._init_stamp = feats, stamp
+            return None
+        self.state = res.state
+        self.n_kf = 2
+        self.n_lm = res.info["n_good"]
+        R_cur, t_cur = device_mod.read(res.R, res.t)
+        self._last = dict(feats=feats, bindings=res.bindings, R=R_cur,
+                          t=t_cur, stamp=stamp)
+        self._vel = None
+        self.status = OK
+        self.last_kf_id = 1
+        self.frames_since_kf = 0
+        self.kf_parent[1] = 0
+        # Keyframe 0's pose, logged retroactively against itself.
+        eye, zero = np.eye(3, dtype=np.float32), np.zeros(3, np.float32)
+        self._traj.log(self._init_stamp, eye, zero, 0, eye, zero)
+        self._set_ref_cache(1, R_cur, t_cur)
+        return (R_cur, t_cur)
+
+    # ------------------------------------------------------------------
+    # Per-frame tracking (Track, the OK-state path)
+    # ------------------------------------------------------------------
+    def _window_kwargs(self) -> dict:
+        return dict(max_kf=self.cfg.max_kf,
+                    n_local_kf=self.cfg.local_kf_window,
+                    n_local_lm=self.cfg.local_lm_window,
+                    recent_kf=self.cfg.recent_kf_window)
+
+    def _track_local_map(self, res, feats):
+        """Local-map tracking and the final pose optimization against the
+        bounded local window."""
+        lms, obs = self.state.lms, self.state.obs
+        return tracking.track_local_map_windowed(
+            res.R, res.t, res.bindings, lms.pos, lms.desc, lms.normal,
+            lms.min_dist, lms.max_dist, lms.valid, obs.kf, obs.valid,
+            self.n_kf, feats.xy, feats.level, feats.desc, feats.valid, None,
+            None, self.cam_params, self.cfg.width, self.cfg.height,
+            **self._window_kwargs())
+
+    def _motion_prior(self):
+        """(R_pred, t_pred, R_last, t_last) on the device: the velocity times
+        the last pose. Host values go up in one copy."""
+        last = self._last
+        R_l, t_l = last["R"], last["t"]
+        if isinstance(R_l, torch.Tensor):           # a keyframe's pose
+            if self._vel is None:
+                return R_l, t_l, R_l, t_l
+            Rv, tv = (x.reshape(s) for x, s in zip(torch.split(
+                device_mod.upload(np.concatenate([self._vel[0].ravel(),
+                                                  self._vel[1]]),
+                                  self.device), [9, 3]), [(3, 3), (3,)]))
+            return Rv @ R_l, Rv @ t_l + tv, R_l, t_l
+        if self._vel is not None:
+            Rv, tv = self._vel
+            R_p, t_p = Rv @ R_l, Rv @ t_l + tv
+        else:
+            R_p, t_p = R_l, t_l
+        flat = device_mod.upload(np.concatenate(
+            [R_p.ravel(), t_p, R_l.ravel(), t_l]).astype(np.float32),
+            self.device)
+        R_p, t_p, R_l, t_l = torch.split(flat, [9, 3, 9, 3])
+        return R_p.reshape(3, 3), t_p, R_l.reshape(3, 3), t_l
+
+    def _track_frame(self, feats, stamp):
+        last = self._last
+        R_pred, t_pred, R_last, t_last = self._motion_prior()
+        # One fused device step (motion model with its widened retry, the
+        # local-map track, the counters, the reference-KF count) and one
+        # read: its info with the last pose.
+        lms, obs = self.state.lms, self.state.obs
+        res, info, n_found, n_visible = tracking.frame_step(
+            R_pred, t_pred, R_last, t_last, lms.pos, lms.desc, lms.normal,
+            lms.min_dist, lms.max_dist, lms.valid, last["bindings"],
+            last["feats"].desc, last["feats"].angle, feats.xy, feats.level,
+            feats.desc, feats.valid, feats.angle, self._no_ur, self._zero,
+            self._zero, obs.kf, obs.valid, self.last_kf_id,
+            self.cfg.kf_ref_min_obs, self.n_kf, lms.n_found, lms.n_visible,
+            self.cam_params, self.cfg.width, self.cfg.height,
+            **self._window_kwargs())
+        info_np, R_lw, t_lw = device_mod.read(info, R_last, t_last)
+        n_inliers = int(info_np[0])
+        ref_matches = max(int(info_np[1]), 1)
+        R_np = info_np[4:13].reshape(3, 3)
+        t_np = info_np[13:16]
+
+        if n_inliers < 15 and self.last_kf_id >= 0:
+            # TrackReferenceKeyFrame fallback (Tracking.cc:3931): match
+            # against the reference keyframe by descriptor, from the last
+            # pose. Rare path.
+            fb = self._track_reference_keyframe(R_last, t_last, feats)
+            fb = self._track_local_map(fb, feats)
+            n_fb, R_fb, t_fb = device_mod.read(fb.n_inliers, fb.R, fb.t)
+            if int(n_fb) >= 15:
+                res = fb
+                n_inliers = int(n_fb)
+                R_np, t_np = R_fb, t_fb
+                # frame_step skipped the counter update (its n_inliers < 15).
+                bound = res.bindings
+                add = ms.scatter_rows(
+                    torch.zeros(self.cfg.max_lm, dtype=torch.int32,
+                                device=self.device),
+                    torch.where(bound >= 0, bound, self.cfg.max_lm), 1,
+                    accumulate=True)
+                n_found = lms.n_found + add
+                n_visible = lms.n_visible + add
+
+        if n_inliers < 15:
+            # RECENTLY_LOST (Tracking.cc:2925-2947): dead-reckon for a grace
+            # period (relocalization needs a vocabulary), then give the map
+            # up.
+            self.status = RECENTLY_LOST
+            self.lost_frames += 1
+            if self.lost_frames > self.lost_grace:
+                self._handle_lost(feats, stamp)
+                return None
+            return (R_np, t_np)
+        self.status = OK
+        self.lost_frames = 0
+        self.state = self.state._replace(lms=self.state.lms._replace(
+            n_found=n_found, n_visible=n_visible))
+
+        # Motion model update (host floats).
+        Rv_new = R_np @ R_lw.T
+        tv_new = t_np - Rv_new @ t_lw
+        self._vel = (Rv_new, tv_new)
+        self._last = dict(feats=feats, bindings=res.bindings, R=R_np,
+                          t=t_np, stamp=stamp)
+        self.frames_since_kf += 1
+        if (not self.localization_only
+                and self._need_new_keyframe(n_inliers, ref_matches)):
+            self._create_keyframe(feats, res, stamp, R_np, t_np)
+        return (R_np, t_np)
+
+    def _track_reference_keyframe(self, R_last, t_last, feats):
+        """The reference keyframe's keypoint -> landmark table and the
+        descriptor-only fallback matcher (TrackReferenceKeyFrame)."""
+        kf = self.last_kf_id
+        kfs, lms = self.state.kfs, self.state.lms
+        seen, kp_of = ms.landmarks_seen_by(self.state, kf)
+        n_feat = self.cfg.n_features
+        ref_lm = ms.scatter_rows(
+            torch.full((n_feat,), -1, dtype=torch.int32, device=self.device),
+            torch.where(seen, kp_of, n_feat),
+            torch.where(seen, torch.arange(self.cfg.max_lm,
+                                           device=self.device), -1))
+        return tracking.track_reference_keyframe(
+            R_last, t_last, kfs.kp_desc[kf], kfs.kp_angle[kf],
+            kfs.kp_valid[kf], ref_lm, lms.pos, lms.valid, feats.xy,
+            feats.level, feats.desc, feats.valid, feats.angle,
+            self.cam_params)
+
+    # ------------------------------------------------------------------
+    def change_dataset(self):
+        """The boundary between two sequences (System::ChangeDataset):
+        keep the atlas, close the current map and start the next sequence in
+        a fresh one."""
+        self._handle_lost(None, None)
+
+    def activate_localization_mode(self):
+        """Freeze the map; keep tracking against it."""
+        self.localization_only = True
+
+    def deactivate_localization_mode(self):
+        self.localization_only = False
+
+    # ------------------------------------------------------------------
+    def _need_new_keyframe(self, n_inliers: int,
+                           ref_matches: int | None = None) -> bool:
+        """NeedNewKeyFrame (:4388), the monocular rules. ``ref_matches``
+        comes from the frame step when available."""
+        if not self._kf_slot_available():
+            return False
+        if ref_matches is None:
+            ref_matches = self._ref_kf_matches()
+        c1a = self.frames_since_kf >= self.max_frames
+        c1b = self.frames_since_kf >= self.cfg.min_frames
+        c2 = (n_inliers < ref_matches * 0.9) and n_inliers > 15
+        return (c1a or (c1b and c2)) and c2
+
+    def _ref_kf_matches(self) -> int:
+        """Reference-KF tracked-point count (TrackedMapPoints)."""
+        n = int(tracking.ref_kf_matches(
+            self.state.obs.kf, self.state.obs.valid, self.last_kf_id,
+            self.cfg.kf_ref_min_obs))
+        return max(n, 1)
+
+    # ------------------------------------------------------------------
+    # Capacity: culled keyframe slots are recycled by an order-preserving
+    # compaction when the fixed-capacity arrays fill up.
+    # ------------------------------------------------------------------
+    def _kf_slot_available(self) -> bool:
+        if self.n_kf < self.cfg.max_kf - 1:
+            return True
+        self._drain_pending()
+        # If (almost) every slot is live, force-cull the most redundant
+        # keyframes, so a long run degrades to sliding-window culling.
+        n_live = int(self.state.kfs.valid.sum())
+        if n_live >= self.cfg.max_kf - 1:
+            n_freed = self._force_cull_keyframes(
+                max(self.cfg.max_kf // 8, 2))
+            verbose.print_mess(
+                f"map at capacity max_kf={self.cfg.max_kf}: force-culled "
+                f"{n_freed} most-redundant keyframes")
+        state, old2new, n_valid = ms.compact_keyframes(self.state, self.n_kf)
+        if n_valid >= self.cfg.max_kf - 1:
+            verbose.print_mess(
+                f"map full: {n_valid} live keyframes at capacity "
+                f"max_kf={self.cfg.max_kf}; KF insertion suspended — raise "
+                "SlamConfig.max_kf or loosen culling")
+            return False
+        verbose.print_mess(
+            f"compacted keyframes: {self.n_kf} slots -> {n_valid} live",
+            verbose.VERBOSE)
+        # Frame records still on a dead slot move to the nearest earlier
+        # live keyframe before the ids change.
+        dead = old2new < 0
+        if any(r >= 0 and dead[r] for r in self._traj.refs):
+            self._traj.rebase(dead, self._nearest_live_parent(~dead),
+                              *self._host_poses())
+        self._traj.remap(old2new)
+        # The spanning tree follows the renumbering.
+        par = self.kf_parent
+        resolved = self._resolve_dead_parents(par, ~dead)
+        new_par = np.full_like(par, -1)
+        for old in np.flatnonzero(~dead):
+            p = resolved[old]
+            new_par[old2new[old]] = old2new[p] if p >= 0 else -1
+        par[:] = new_par
+        self.state = state
+        self.n_kf = n_valid
+        self.last_kf_id = int(old2new[self.last_kf_id])
+        self._refresh_ref_cache()
+        return True
+
+    def _force_cull_keyframes(self, n: int) -> int:
+        """Drop up to ``n`` keyframes in redundancy order, ignoring the 0.9
+        redundancy gate. Keyframe 0 and the 8 newest are protected."""
+        count = 0
+        valid = self.state.kfs.valid.cpu().numpy()
+        protect = np.zeros_like(valid)
+        protect[np.flatnonzero(valid)[-8:]] = True
+        protect[0] = True
+        for _ in range(n):
+            eligible = valid & ~protect
+            if not eligible.any():
+                break
+            out = device_mod.read(mapping.cull_candidate(
+                self.state, device_mod.upload(eligible, self.device),
+                min_seen=0))[0]
+            best = int(out[0])
+            if out[1] < 0 or not eligible[best]:
+                break
+            self.state = mapping.drop_keyframe(self.state, best)
+            after = valid.copy()
+            after[best] = False
+            self._rebase_culled(valid, after)
+            valid = after
+            count += 1
+        return count
+
+    @staticmethod
+    def _resolve_dead_parents(parent: np.ndarray,
+                              live: np.ndarray) -> np.ndarray:
+        """``parent`` with dead intermediate parents walked through (the
+        children of a culled keyframe reattach to its parent)."""
+        out = parent.copy()
+        for k in range(len(out)):
+            p = out[k]
+            hops = 0
+            while p >= 0 and not live[p] and hops < len(out):
+                p = parent[p]
+                hops += 1
+            out[k] = p if p >= 0 else -1
+        return out
+
+    @staticmethod
+    def _nearest_live_parent(live: np.ndarray) -> np.ndarray:
+        """parent_of[k] = the nearest earlier live slot (slot order is
+        insertion order)."""
+        parent = np.full(len(live), -1, np.int64)
+        last = -1
+        for k in range(len(live)):
+            parent[k] = last
+            if live[k]:
+                last = k
+        return parent
+
+    def _rebase_culled(self, valid_before: np.ndarray,
+                       valid_after: np.ndarray):
+        """Move the frame records of freshly culled keyframes onto a
+        surviving earlier keyframe, and reattach their children."""
+        dead = valid_before & ~valid_after
+        if not dead.any():
+            return
+        par = self.kf_parent
+        par[:] = self._resolve_dead_parents(par, valid_after)
+        if not any(r >= 0 and dead[r] for r in self._traj.refs):
+            return
+        self._traj.rebase(dead, self._nearest_live_parent(valid_after),
+                          *self._host_poses())
+
+    # ------------------------------------------------------------------
+    # The per-keyframe mapping work: one device dispatch, read lazily.
+    # ------------------------------------------------------------------
+    def _create_keyframe(self, feats, track_res, stamp, R_np, t_np):
+        """CreateNewKeyFrame and the LocalMapping work for this keyframe:
+        one dispatch of ``graft.mono_keyframe_step``, its outputs read at
+        the next keyframe (the previous bundle's first)."""
+        self._drain_pending()
+        if self.n_kf >= self.cfg.max_kf - 1 and not self._kf_slot_available():
+            return
+        kf_id = self.n_kf
+        state, bindings, info, culled = graft.mono_keyframe_step(
+            self.state, kf_id, track_res.R, track_res.t, stamp, feats,
+            track_res.bindings, self.cam_params, self.n_lm, cfg=self.mcfg,
+            do_kf_cull=self.n_kf >= 8)
+        self.state = state
+        self.n_kf = kf_id + 1
+        self.frames_since_kf = 0
+        self.last_kf_id = kf_id
+        self._last["bindings"] = bindings
+        self._last["R"] = state.kfs.R[kf_id]
+        self._last["t"] = state.kfs.t[kf_id]
+        # The reference pose cache holds the tracked pose until the
+        # bundle's is read.
+        self._ref_cache = (kf_id, R_np, t_np)
+        self._pending_kf = dict(
+            kf_id=kf_id, ref_gen=self._ref_cache_gen,
+            out=torch.cat([info, culled.to(torch.float32),
+                           state.kfs.valid.to(torch.float32)]))
+        # The hosting frame's trajectory record is this keyframe.
+        self._kf_host_pending = True
+
+    def _drain_pending(self):
+        """Read the last keyframe bundle's outputs: the spanning-tree
+        parent, the landmark high-water mark, the keyframe's pose after the
+        BA, the culled keyframes (their frame records rebased)."""
+        pend = self._pending_kf
+        if pend is None:
+            return
+        self._pending_kf = None
+        kf_id = pend["kf_id"]
+        out = device_mod.read(pend["out"])[0]
+        n = self.cfg.max_kf
+        info_np, culled, valid = out[:15], out[15:15 + n] > 0, out[15 + n:] > 0
+        parent, parent_cnt = int(info_np[0]), int(info_np[1])
+        self.kf_parent[kf_id] = (
+            parent if parent_cnt > 0 else (kf_id - 1 if kf_id > 0 else -1))
+        self.n_lm = max(self.n_lm, int(info_np[2]))
+        if (self.last_kf_id == kf_id
+                and pend["ref_gen"] == self._ref_cache_gen):
+            self._ref_cache = (kf_id, info_np[3:12].reshape(3, 3).copy(),
+                               info_np[12:15].copy())
+        if culled.any():
+            # No keyframe liveness changes between the bundle and this
+            # read, so the bundle's is the current one.
+            par = self.kf_parent
+            par[:] = self._resolve_dead_parents(par, valid)
+            if any(r >= 0 and culled[r] for r in self._traj.refs):
+                self._traj.rebase(culled, self._nearest_live_parent(valid),
+                                  *self._host_poses())
+
+    # ------------------------------------------------------------------
+    # Map lifecycle (Atlas flow)
+    # ------------------------------------------------------------------
+    def _check_timestamp_jump(self, stamp: float) -> bool:
+        """Timestamp discontinuity guard (Tracking.cc:2704-2765): a gap over
+        1 s or a backwards stamp while tracking resets the machinery (small
+        map discarded, mature map kept in the atlas). Returns True if a
+        reset happened; the frame is then dropped."""
+        if self._last is None or self.status == NOT_INITIALIZED:
+            return False
+        dt = stamp - self._last["stamp"]
+        if -1e-6 <= dt <= 1.0:
+            return False
+        verbose.print_mess(
+            f"timestamp jump of {dt:.2f}s detected: "
+            + ("starting new map" if self.n_kf >= 10 else "resetting map"))
+        self._handle_lost(None, stamp)
+        return True
+
+    def _handle_lost(self, feats, stamp):
+        """LOST: a small map is reset; a mature one is kept and a new map
+        started (Tracking.cc:3349-3378 + CreateMapInAtlas)."""
+        self._drain_pending()
+        # The map's keyframe slots are about to be reused: its frame records
+        # are replayed once and stored absolute, tagged with the map's atlas
+        # index if it is kept.
+        keep_map = self.n_kf >= 10
+        self._traj.freeze_all(*self._host_poses(),
+                              map_tag=(self.atlas.current if keep_map
+                                       else -1))
+        self._ref_cache = None
+        if keep_map:
+            self.atlas.create_new_map()
+        else:
+            self.atlas.reset_active_map()
+        self.status = NOT_INITIALIZED
+        self.lost_frames = 0
+        self._init_feats = None
+        self._init_stamp = None
+        self._last = None
+        self._vel = None
+        self.last_kf_id = -1
+        self.frames_since_kf = 0
+
+    # ------------------------------------------------------------------
+    def keyframe_trajectory(self):
+        """(stamps, Rcw, tcw) arrays of the live keyframes (absolute
+        stamps)."""
+        self._drain_pending()
+        kfs = self.state.kfs
+        valid, stamp, R, t = device_mod.read(kfs.valid, kfs.stamp, kfs.R,
+                                             kfs.t)
+        valid = valid > 0
+        return (stamp.astype(np.float64)[valid] + self.t0, R[valid],
+                t[valid])

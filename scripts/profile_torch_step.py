@@ -21,7 +21,16 @@ RANSAC, the decompositions and ``check_rt``, the map writes and
 the back-substitution and the retraction. It then runs one ``schur_pieces``
 call in each form (one-hot and scatter) on the full-map problem at K = 1024,
 L = 65536, O = 12, and the scatter form on a problem with every slot live,
-with each call's time, peak memory and largest difference. ``both`` runs
+with each call's time, peak memory and largest difference. ``--entry
+system``: ``MonoSlam.track`` over the golden frames at the EuRoC-mono
+capacity (``graft.euroc_golden_config()``, the frames padded to 752x480),
+one warm-up sequence, then per frame kind (uninitialised, init, tracked,
+keyframe) the mean host-clock time of ``track`` and of its stages, each
+stage function synchronised before and after it (extraction, the frame
+step, the fallback, the init, the keyframe bundle, the previous bundle's
+read, the rest of ``track``), over ``--sequences`` sequences; then one
+sequence under the profiler (device busy share, launches per frame, K1-K3
+by name; the table goes to ``--out``, no trace). ``both`` runs
 tracking and mono, ``all`` (the default) tracking, mono and keyframe in
 turn. For each it reports, with the card's name and power limit:
   * the step and its stages by host clock around synchronised calls,
@@ -46,7 +55,9 @@ import time
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--entry", choices=("tracking", "mono", "keyframe", "init",
-                                        "both", "all"), default="all")
+                                        "system", "both", "all"),
+                    default="all")
+    ap.add_argument("--sequences", type=int, default=2)
     ap.add_argument("--frames", type=int, default=20)
     ap.add_argument("--out", default="build/profile")
     args = ap.parse_args()
@@ -228,7 +239,123 @@ def main() -> int:
 
     if args.entry == "init":
         profile_init(args, dev, card, timed, report)
+    if args.entry == "system":
+        profile_system(args, dev, card, timed)
     return 0
+
+
+def profile_system(args, dev, card, timed) -> None:
+    """The monocular system's frames by kind: stage times and a profile."""
+    import torch
+
+    from orbslam3_byzyh_tpu_torch import graft
+    from orbslam3_byzyh_tpu_torch.pipeline import system, tracking
+
+    gold = graft.golden_frames()
+    frames = graft.pad_frames(gold.frames)
+    cfg = graft.euroc_golden_config()
+    stages = [("extract", graft, "mono_extract"),
+              ("frame step", tracking, "frame_step"),
+              ("fallback", tracking, "track_reference_keyframe"),
+              ("init", graft, "mono_initialize"),
+              ("keyframe bundle", graft, "mono_keyframe_step"),
+              ("bundle read", system.MonoSlam, "_drain_pending")]
+    spent = {}
+
+    def wrap(label, fn):
+        def timed_fn(*a, **kw):
+            out, ms_ = timed(lambda: fn(*a, **kw))
+            spent[label] = spent.get(label, 0.0) + ms_
+            return out
+        return timed_fn
+
+    def sequence(staged):
+        """One sequence: per frame (kind, track ms, stage ms)."""
+        slam = system.MonoSlam(cfg, device=dev)
+        originals = [(o, n, getattr(o, n)) for _, o, n in stages]
+        if staged:
+            for (label, _, _), (o, n, fn) in zip(stages, originals):
+                setattr(o, n, wrap(label, fn))
+        bundles = []
+        step = graft.mono_keyframe_step
+        graft.mono_keyframe_step = lambda *a, **kw: (bundles.append(1),
+                                                     step(*a, **kw))[1]
+        out = []
+        try:
+            for img, stamp in zip(frames, gold.stamps):
+                uninit = slam.status == system.NOT_INITIALIZED
+                n_b = len(bundles)
+                spent.clear()
+                _, total = timed(lambda: slam.track(img, float(stamp)))
+                if uninit:
+                    kind = ("uninitialised"
+                            if slam.status == system.NOT_INITIALIZED
+                            else "init")
+                else:
+                    kind = "keyframe" if len(bundles) > n_b else "tracked"
+                out.append((kind, total, dict(spent)))
+            slam.trajectory
+        finally:
+            graft.mono_keyframe_step = step
+            for o, n, fn in originals:
+                setattr(o, n, fn)
+        return out
+
+    sequence(False)
+    rows = []
+    for _ in range(args.sequences):
+        rows += sequence(True)
+    for kind in ("uninitialised", "init", "tracked", "keyframe"):
+        rs = [r for r in rows if r[0] == kind]
+        if not rs:
+            continue
+        mean = statistics.fmean(r[1] for r in rs)
+        parts = {label: statistics.fmean(r[2].get(label, 0.0) for r in rs)
+                 for label, _, _ in stages}
+        parts = {k: v for k, v in parts.items() if v > 0}
+        rest = mean - sum(parts.values())
+        text = " + ".join(f"{k} {v:.3f} ms" for k, v in parts.items())
+        print(f"[system stages] {kind} ({len(rs)} frames): track() "
+              f"{mean:.3f} ms = {text} + rest {rest:.3f} ms (means, each "
+              f"stage synchronised; median track() "
+              f"{statistics.median(r[1] for r in rs):.3f} ms; {card})")
+
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        kinds = [r[0] for r in sequence(False)]
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in events)
+    launches = sum(e.count for e in events)
+    n = len(kinds)
+    print(f"[system profile] one sequence of {n} frames ("
+          f"{', '.join(f'{k} {kinds.count(k)}' for k in sorted(set(kinds)))}"
+          f"): wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} "
+          f"ms ({100 * busy_us / wall_us:.1f}% busy, "
+          f"{100 - 100 * busy_us / wall_us:.1f}% idle), "
+          f"{launches / n:.0f} device operations/frame ({card})")
+    events.sort(key=lambda e: -e.self_device_time_total)
+    for e in events[:15]:
+        print(f"[system profile] {e.self_device_time_total / n:9.1f} "
+              f"us/frame x{e.count:6d}  {e.key[:90]}")
+    for kname, name in (("K1", "brief_kernel"), ("K2", "match_kernel"),
+                        ("K3", "pose_opt_kernel")):
+        mine = [e for e in events if name in e.key]
+        us = sum(e.self_device_time_total for e in mine)
+        count = sum(e.count for e in mine)
+        print(f"[system kernel] {kname} {name}: {us / n:.1f} us/frame device "
+              f"time, {count} launches in the sequence ({card})")
+    out = os.path.join(args.out, "system")
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, "key_averages.txt"), "w") as fh:
+        fh.write(f"{card}\n")
+        fh.write(prof.key_averages().table(sort_by="self_device_time_total",
+                                           row_limit=60))
 
 
 def profile_init(args, dev, card, timed, report) -> None:
