@@ -46,9 +46,26 @@ them:
     as whole sequences (per frame kind: track()'s host-clock time, K1-K3
     launches, synchronisations).
 
+  * phase "11 stereo": K3s (K3's stereo launcher) against its plain version
+    at KITTI's 2000 points; ``graft.stereo_frame_step`` at the KITTI stereo
+    configuration (1241x376, bf 386.1, 2000 features, 65536 landmark and
+    1024 keyframe slots) on ``graft.kitti_stereo_pair`` (a 32 px shift)
+    against ``graft.kitti_stereo_scene``, in both cases: the disparities,
+    one K3 and one K3s launch with the stereo rows, the pose, no
+    synchronisation, the CPU plain path, 50 timed calls; then the systems
+    on the committed stereo frames (``graft.stereo_frames()``): (a)
+    ``StereoSlam`` at tests/test_stereo_system.py's config and its gate,
+    (b) ``StereoSlam`` at KITTI's size and capacity, (c) ``RgbdSlam`` at
+    TUM1's settings against the JAX RgbdSlam's recorded run; every launch
+    of each first sequence held against its plain version, two timed
+    sequences each, per frame kind as phase 10.
+
 Every kernel is held against its plain PyTorch version on the card: on
 synthetic inputs at both paths' shapes, and on the very inputs each path
-gave it (its wrapper's calls are recorded and replayed). Each path runs
+gave it (its wrapper's calls are recorded and replayed). K3 and K3s are
+held against their plain version run in float64 (within 1e-4): on the
+stereo world's ill-conditioned problems the float32 plain version strays
+further from it than the kernel does (phase 11 prints by how much). Each path runs
 with the launch counts set to 0 just before and read just after; each must
 have launched every kernel it uses. Any failed check raises and the script
 exits non-zero. The last line of standard output is
@@ -124,6 +141,23 @@ JAX_HOST_READS = {
             "points (:353-375), the new keyframe's pose (:307, :326)",
     "tracked": "info (:504)",
     "keyframe": "info (:504) and the previous bundle's info (:867)"}
+# The stereo frame step: timed calls after warm-up calls; the stereo and
+# RGB-D systems: timed sequences after one warm-up sequence.
+N_WARMUP_STEREO = 20
+N_TIMED_STEREO_SEQUENCES = 2
+# The JAX stereo and RGB-D systems' reads of device values in each kind of
+# frame (orbslam3_byzyh_tpu/pipeline/stereo_system.py and system.py).
+JAX_STEREO_READS = {
+    "uninitialised": "the depth and the features' validity "
+                     "(stereo_system.py:138-139)",
+    "init": "the depth and validity (:138-139), the new landmarks' count "
+            "(:174) and slot high-water mark (:203), the reference "
+            "keyframe's pose (system.py:326-327)",
+    "tracked": "info (system.py:504)",
+    "keyframe": "info (system.py:504), the keyframe liveness before the "
+                "bundle (:825), the previous bundle's info (:867), the depth "
+                "landmarks' count (stereo_system.py:174) and high-water mark "
+                "(:203), both after the bundle"}
 # The system's capacity run: keyframe slots few enough that the forced
 # culling, the compaction and the trajectory rebase fire, and a local BA
 # window of 24 keyframes (its fixed part must fit the slots).
@@ -163,11 +197,32 @@ def event_ms(fn, reps: int = N_TIMED_LAUNCHES, primed: bool = False) -> float:
     return statistics.median(times)
 
 
+class Launcher:
+    """One exported launcher of a kernel library with its own launch count:
+    K3 and K3s are one source (``csrc/pose_opt.cu``) with two launchers.
+    Every other attribute is the library's."""
+
+    def __init__(self, kernel, fn: str):
+        self.kernel, self.fn = kernel, fn
+
+    @property
+    def launches(self) -> int:
+        return self.kernel.fn_launches[self.fn]
+
+    @launches.setter
+    def launches(self, v: int) -> None:
+        self.kernel.fn_launches[self.fn] = v
+
+    def __getattr__(self, name):
+        return getattr(self.kernel, name)
+
+
 def captured_launch(kernel, call):
     """Run ``call()`` once and return (its result, a function that repeats
     its kernel's launch alone: the exported C function called with the same
     prepared arguments). Keep the result alive while the launch is repeated:
     it owns the output buffers. Repeats do not count as launches."""
+    kernel = getattr(kernel, "kernel", kernel)
     seen = []
     launch = kernel.launch
 
@@ -360,9 +415,10 @@ def run_sequence(slam, frames, stamps, kernels, bundles, after=None):
     hosts a new keyframe; "tracked": the rest), the host-clock time of
     ``track`` in ms (it returns after the system's own reads) and the
     K1-K3 launches. ``bundles`` grows by one per keyframe dispatch.
-    ``after(i, kind)`` runs after each frame's timing. Returns (the frames'
-    records, the trajectory, the whole sequence in s, the trajectory read
-    included)."""
+    ``after(i, kind)`` runs after each frame's timing. A frame that is a
+    tuple (a stereo pair, an image and its depth) goes to ``track`` as its
+    first arguments. Returns (the frames' records, the trajectory, the whole
+    sequence in s, the trajectory read included)."""
     from orbslam3_byzyh_tpu_torch.pipeline.system import NOT_INITIALIZED
     out = []
     t_seq = time.perf_counter()
@@ -371,7 +427,7 @@ def run_sequence(slam, frames, stamps, kernels, bundles, after=None):
         n_b = len(bundles)
         before = {n: k.launches for n, k in kernels.items()}
         t0 = time.perf_counter()
-        slam.track(img, float(stamp))
+        slam.track(*(img if isinstance(img, tuple) else (img,)), float(stamp))
         ms = (time.perf_counter() - t0) * 1e3
         if was_uninit:
             kind = ("uninitialised" if slam.status == NOT_INITIALIZED
@@ -399,7 +455,7 @@ def main() -> int:
     from orbslam3_byzyh_tpu_torch import convert, graft
     from orbslam3_byzyh_tpu_torch import device as device_mod
     from orbslam3_byzyh_tpu_torch.ops import cuda_brief, cuda_match, fast_orb
-    from orbslam3_byzyh_tpu_torch.ops import matching
+    from orbslam3_byzyh_tpu_torch.ops import lie, matching
     from orbslam3_byzyh_tpu_torch.pipeline import tracking
     from orbslam3_byzyh_tpu_torch.solver import cuda_pose_opt
 
@@ -410,7 +466,9 @@ def main() -> int:
 
     # -- 1: build, one nvcc per source, all started together ----------------
     kernels = {"K1": cuda_brief.KERNEL, "K2": cuda_match.KERNEL,
-               "K3": cuda_pose_opt.KERNEL}
+               "K3": Launcher(cuda_pose_opt.KERNEL, cuda_pose_opt.MONO_FN)}
+    # K3s, K3's stereo launcher: built with K3's source, counted apart.
+    k3s = Launcher(cuda_pose_opt.KERNEL, cuda_pose_opt.STEREO_FN)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
         for f in [pool.submit(k.build) for k in kernels.values()]:
@@ -516,9 +574,34 @@ def main() -> int:
                         f"{n_valid_pairs} valid pairs over "
                         f"{INT8_OPS / 1e12} TOP/s")
 
+    # K3's and K3s's oracle is their plain version run in float64 on the
+    # same inputs: on the stereo world's ill-conditioned problems the
+    # float32 plain version (SVD re-orthonormalisation and a general solve,
+    # as the JAX package's XLA path) strays from it further than the
+    # kernel does. While ``plain32_err["on"]`` (the stereo cell's warm-up
+    # sequence) the float32 plain version runs too, and its largest
+    # distance from the oracle is kept and printed.
+    plain32_err = {"K3": 0.0, "K3s": 0.0, "on": False}
+
+    def f64(x):
+        return (x.double() if isinstance(x, torch.Tensor)
+                and x.is_floating_point() else x)
+
+    def plain_pair(name, plain, p, kwargs):
+        """(the float64 plain result, the float32 plain result's distance
+        from it) of one problem."""
+        R6, t6, c6 = plain(*(f64(a) for a in p), **kwargs)
+        if plain32_err["on"]:
+            R3, t3, _ = plain(*p, **kwargs)
+            plain32_err[name] = max(plain32_err[name],
+                                    float((R3.double() - R6).abs().max()),
+                                    float((t3.double() - t6).abs().max()))
+        return R6, t6, c6
+
     def k3_check(args):
-        """Kernel against plain (per problem of a batch) within 1e-4 and
-        inliers within 2; a batch's rows bit-equal to their single runs."""
+        """Kernel against plain at float64 (per problem of a batch) within
+        1e-4 and inliers within 2; a batch's rows bit-equal to their single
+        runs."""
         Rk, tk, ck = cuda_pose_opt.pose_optimization_kernel(*args)
         batched = args[0].dim() == 3
         probs = ([tuple(a[i] for a in args[:6]) + (args[6],)
@@ -533,10 +616,11 @@ def main() -> int:
                 require(torch.equal(R1, Rs) and torch.equal(t1, ts)
                         and torch.equal(c1, cs),
                         f"K3 batch row {i} differs from its single run")
-            Rp, tp, cp = cuda_pose_opt.pose_optimization_plain(*p)
+            Rp, tp, cp = plain_pair(
+                "K3", cuda_pose_opt.pose_optimization_plain, p, {})
             torch.cuda.synchronize()
-            err = max(err, float((Rs - Rp).abs().max()),
-                      float((ts - tp).abs().max()))
+            err = max(err, float((Rs.double() - Rp).abs().max()),
+                      float((ts.double() - tp).abs().max()))
             n_k = int(((cs <= cuda_pose_opt.CHI2_MONO) & p[5]).sum())
             n_p = int(((cp <= cuda_pose_opt.CHI2_MONO) & p[5]).sum())
             require(abs(n_k - n_p) <= 2, f"K3 inliers {n_k} vs plain {n_p}")
@@ -567,17 +651,76 @@ def main() -> int:
                         f"over the valid points and final inliers) over "
                         f"{F32_FLOPS / 1e12} TFLOP/s")
 
+    def k3s_check(args, kwargs):
+        """K3s against its plain version at float64 (per problem of a batch)
+        within 1e-4, inliers (per-row gates 5.991 / 7.815) within 2; a
+        batch's rows bit-equal to their single runs. Returns (error,
+        inliers, stereo inliers) per problem."""
+        Rk, tk, ck = cuda_pose_opt.pose_optimization_stereo_kernel(*args,
+                                                                   **kwargs)
+        Rp, tp, cp = plain_pair(
+            "K3s", cuda_pose_opt.pose_optimization_stereo_plain, args, kwargs)
+        torch.cuda.synchronize()
+        err = max(float((Rk.double() - Rp).abs().max()),
+                  float((tk.double() - tp).abs().max()))
+        ur, valid = args[4], args[7]
+        gate = torch.where(ur >= 0, cuda_pose_opt.CHI2_STEREO,
+                           cuda_pose_opt.CHI2_MONO)
+        in_k = ((ck <= gate) & valid).reshape(-1, valid.shape[-1])
+        in_p = ((cp <= gate) & valid).reshape(-1, valid.shape[-1])
+        for a, b in zip(in_k.sum(-1).tolist(), in_p.sum(-1).tolist()):
+            require(abs(a - b) <= 2, f"K3s inliers {a} vs plain {b}")
+        if args[0].dim() == 3:
+            for i in range(args[0].shape[0]):
+                one = ([a[i].contiguous() for a in args[:5]] + [args[5]]
+                       + [a[i].contiguous() for a in args[6:8]] + [args[8]])
+                R1, t1, c1 = cuda_pose_opt.pose_optimization_stereo_kernel(
+                    *one, **kwargs)
+                require(torch.equal(R1, Rk[i]) and torch.equal(t1, tk[i])
+                        and torch.equal(c1, ck[i]),
+                        f"K3s batch row {i} differs from its single run")
+        require(err <= 1e-4, f"K3s pose differs from plain by {err}")
+        stereo = (in_k & (ur >= 0).reshape(in_k.shape)).sum(-1).tolist()
+        return err, in_k.sum(-1).tolist(), stereo
+
+    def k3s_bound(args, inliers, stereo_inliers):
+        # Per problem: 29 B per point in (xyz, uv, u_r, 1/sigma^2, valid)
+        # and 4 B out. Operations as K3's, 45 passes (11 over the valid
+        # points, 34 over the final inliers), per point and pass: a mono row
+        # 31 flops of residual and chi2 and 159 more in the mask (190); a
+        # stereo row 36 and 219 (255): the third residual, its Jacobian row
+        # (e = bf / z^2), and its terms in the 21 H and 6 g sums.
+        ur = args[4].reshape(-1, args[4].shape[-1])
+        valid = args[7].reshape(ur.shape)
+        npt = ur.shape[1]
+        flops, nbytes = 0, 0
+        for u, v, n_in, n_in_s in zip(ur, valid, inliers, stereo_inliers):
+            vs = int((v & (u >= 0)).sum())
+            vm = int(v.sum()) - vs
+            n_in_m = n_in - n_in_s
+            flops += ((11 * vm + 34 * n_in_m) * 190 + 4 * vm * 31
+                      + (11 * vs + 34 * n_in_s) * 255 + 4 * vs * 36)
+            nbytes += npt * (29 + 4) + 2 * 48 + 16
+        ms, by = bound(nbytes, {F32_FLOPS: flops})
+        return ms, by, (f"B={ur.shape[0]} x N={npt} x 33 B over "
+                        f"{HBM_BPS / 1e12} TB/s; {flops} f32 flops (45 passes "
+                        f"over the valid points and final inliers, 3 rows on "
+                        f"the stereo ones) over {F32_FLOPS / 1e12} TFLOP/s")
+
     wrappers = {"K1": cuda_brief.brief_descriptors_kernel,
                 "K2": cuda_match.hamming_best2_kernel,
-                "K3": cuda_pose_opt.pose_optimization_kernel}
+                "K3": cuda_pose_opt.pose_optimization_kernel,
+                "K3s": cuda_pose_opt.pose_optimization_stereo_kernel}
     plains = {"K1": cuda_brief.brief_descriptors_plain,
               "K2": cuda_match.hamming_best2_plain,
-              "K3": cuda_pose_opt.pose_optimization_plain}
+              "K3": cuda_pose_opt.pose_optimization_plain,
+              "K3s": cuda_pose_opt.pose_optimization_stereo_plain}
 
     def timed(name, args, kwargs, plain_reps=N_TIMED_LAUNCHES):
         """Launch alone, wrapper and plain times of one call's inputs."""
         wrap = wrappers[name]
-        out, again = captured_launch(kernels[name],
+        out, again = captured_launch(cuda_pose_opt.KERNEL if name == "K3s"
+                                     else kernels[name],
                                      lambda: wrap(*args, **kwargs))
         t = {"ms": event_ms(again, primed=True),
              "wrapper_ms": event_ms(lambda: wrap(*args, **kwargs))}
@@ -602,8 +745,11 @@ def main() -> int:
             return {"N": args[0].shape[0], "M": args[1].shape[0],
                     "mode": mode, "level_window": kwargs.get("level_window"),
                     "valid_rows": int(args[2].sum())}
-        return {"B": args[0].shape[0] if args[0].dim() == 3 else 1,
-                "N": args[2].shape[-2]}
+        out = {"B": args[0].shape[0] if args[0].dim() == 3 else 1,
+               "N": args[2].shape[-2]}
+        if name == "K3s":
+            out["stereo_rows"] = int(((args[4] >= 0) & args[7]).sum())
+        return out
 
     def check_call(name, args, kwargs):
         """Hold one recorded call against the plain version; return its
@@ -614,6 +760,9 @@ def main() -> int:
         elif name == "K2":
             err, _ = k2_check(args, kwargs)
             b = k2_bound(args, kwargs)
+        elif name == "K3s":
+            err, inl, inl_s = k3s_check(args, kwargs)
+            b = k3s_bound(args, inl, inl_s)
         else:
             err, inl = k3_check(args)
             b = k3_bound(args, inl)
@@ -1716,6 +1865,373 @@ def main() -> int:
                   f"{b_by} ({card})")
         sys_calls[name] = timed_calls
 
+    # -- 11: rectified stereo and RGB-D ---------------------------------------
+    from orbslam3_byzyh_tpu_torch.pipeline import stereo_system
+
+    rig = graft.KITTI_STEREO
+    km = rig.mono
+    sk = dict(kernels, K3s=k3s)          # the stereo paths' launch counts
+
+    # K3s against its plain version on a mixed problem at KITTI's 2000
+    # points: 60 % stereo rows, outliers in both coordinates.
+    npt = km.n_features
+    pts = np.stack([rng.uniform(-6, 6, npt), rng.uniform(-2, 2, npt),
+                    rng.uniform(4, 30, npt)], -1)
+    xi = torch.tensor([0.2, -0.1, 0.3, 0.02, -0.03, 0.01], dtype=torch.float64)
+    R_gt, t_gt = (x.numpy() for x in lie.se3_exp(xi))
+    pc = pts @ R_gt.T + t_gt
+    uv = np.stack([km.fx * pc[:, 0] / pc[:, 2] + km.cx,
+                   km.fy * pc[:, 1] / pc[:, 2] + km.cy], -1)
+    uv += rng.normal(0, 0.5, uv.shape)
+    ur = uv[:, 0] - rig.bf / pc[:, 2] + rng.normal(0, 0.5, npt)
+    bad = rng.choice(npt, 100, replace=False)
+    uv[bad[:50]] += rng.uniform(20, 80, (50, 2))
+    ur[bad[50:]] += rng.uniform(10, 40, 50)
+    ur = np.where(rng.random(npt) < 0.6, ur, -1.0)
+    R0_s, t0_s = (x.numpy() for x in lie.se3_exp(
+        xi + torch.tensor([0.05, -0.03, 0.08, 0.01, -0.01, 0.005],
+                          dtype=torch.float64)))
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    k3s_args = (f32(R0_s), f32(t0_s), f32(pts), f32(uv), f32(ur),
+                float(rig.bf),
+                f32(1.0 / 1.2 ** (2.0 * rng.integers(0, 8, npt))),
+                torch.from_numpy(rng.random(npt) > 0.03).to(dev),
+                f32([km.fx, km.fy, km.cx, km.cy]))
+    err, inl, inl_s = k3s_check(k3s_args, {})
+    results["K3s"] = {"max_abs_err": err}
+    (results["K3s"]["bound_ms"], results["K3s"]["bound_by"],
+     results["K3s"]["bound"]) = k3s_bound(k3s_args, inl, inl_s)
+    results["K3s"].update(timed("K3s", k3s_args, {}, plain_reps=10))
+    require(cuda_pose_opt.pose_max_points_stereo() >= npt,
+            f"K3s holds {cuda_pose_opt.pose_max_points_stereo()} points")
+    phase("11 stereo", f"K3s N={npt} ({int((k3s_args[4] >= 0).sum())} "
+          f"stereo rows): max |dR|,|dt| {err:.2e}; inliers {inl[0]} "
+          f"({inl_s[0]} stereo); launch alone {results['K3s']['ms']:.4f} ms, "
+          f"wrapper {results['K3s']['wrapper_ms']:.4f} ms, plain "
+          f"{results['K3s']['plain_ms']:.4f} ms, bound "
+          f"{results['K3s']['bound_ms']:.5f} ms by "
+          f"{results['K3s']['bound_by']}; at most "
+          f"{cuda_pose_opt.pose_max_points_stereo()} points a problem "
+          f"({card})")
+
+    # The KITTI stereo frame step on the shifted pair.
+    cam_k = f32([km.fx, km.fy, km.cx, km.cy])
+    left, right = (torch.from_numpy(a).to(dev)
+                   for a in graft.kitti_stereo_pair(rig))
+    f_k, _, m_k = graft.stereo_extract(left, right, cam_k, None, rig)
+    disp = f_k.xy[:, 0] - m_k.u_right
+    lvl0 = m_k.valid & (f_k.level == 0)
+    n_match, n_lvl0 = int(m_k.valid.sum()), int(lvl0.sum())
+    d0 = float((disp[lvl0] - graft.KITTI_PAIR_SHIFT).abs().max())
+    d_all = float((disp[m_k.valid] - graft.KITTI_PAIR_SHIFT).abs().max())
+    d_med = float(disp[m_k.valid].median())
+    # Level-0 keypoints sit on whole pixels: the parabola moves them by at
+    # most 0.5 px. A higher level's keypoint is scaled up to a fraction of
+    # a pixel, and the SAD window sits at its rounded position (0.5 more);
+    # where the SAD's minimum falls on the search's edge the parabola is
+    # skipped (1 more), and near the image's edge the windows are clamped.
+    d_share = float(((disp[m_k.valid] - graft.KITTI_PAIR_SHIFT).abs()
+                     <= 1.0).float().mean())
+    require(n_match >= 0.25 * km.n_features and n_lvl0 > 0
+            and d0 <= 0.5 and d_all <= 1.5 and d_share >= 0.95
+            and abs(d_med - graft.KITTI_PAIR_SHIFT) <= 0.1,
+            f"stereo match: {n_match} matches ({n_lvl0} at level 0), "
+            f"disparity {d_med} (level 0 within {d0}, all within {d_all}, "
+            f"{d_share:.1%} within 1 px) against {graft.KITTI_PAIR_SHIFT}")
+    phase("11 stereo", f"stereo_extract {km.width}x{km.height}: "
+          f"{int(f_k.valid.sum())} features, {n_match} stereo matches, "
+          f"disparity median {d_med:.4f} px (level 0: {n_lvl0} within "
+          f"{d0:.4f} px of {graft.KITTI_PAIR_SHIFT}; all within {d_all:.4f}, "
+          f"{d_share:.1%} within 1 px)")
+    feats_k = [convert.to_numpy(a) for a in (f_k.xy, f_k.level, f_k.desc,
+                                             f_k.angle, f_k.valid)]
+    depth_k = convert.to_numpy(m_k.depth)
+    stereo = {"disparity": {"matches": n_match, "level0": n_lvl0,
+                            "median": d_med, "level0_max_err": d0,
+                            "max_err": d_all, "within_1px": d_share}}
+    st_recorded = {n: [] for n in sk}
+    launches_st = None
+    for case in ("normal", "retry"):
+        args = graft.StereoFrameArgs(*convert.tree_to_torch(
+            graft.kitti_stereo_scene(*feats_k, depth_k, case=case, rig=rig),
+            dev))
+        # A first call makes the step's cached constants (one upload of
+        # the search radii per row count), then the counted, checked call.
+        graft.stereo_frame_step(*args)
+        for k in sk.values():
+            k.launches = 0
+        with recorded(cuda_brief, "brief_descriptors_kernel") as c1, \
+                recorded(cuda_match, "hamming_best2_kernel") as c2, \
+                recorded(cuda_pose_opt, "pose_optimization_kernel") as c3, \
+                recorded(cuda_pose_opt,
+                         "pose_optimization_stereo_kernel") as c3s:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                res, info, n_found, _, _ = graft.stereo_frame_step(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+        got = {n: k.launches for n, k in sk.items()}
+        require(got == {"K1": 2, "K2": 2, "K3": 1, "K3s": 1},
+                f"stereo frame step ({case}) launches {got}, expected K1 2, "
+                f"K2 2, K3 1, K3s 1")
+        info_np = convert.to_numpy(info)
+        n_gpu, n_valid = int(info_np[0]), int(f_k.valid.sum())
+        r_err = float((res.R - eye).abs().max())
+        t_err = float(res.t.abs().max())
+        ur_c, valid_c = c3s[0][0][4], c3s[0][0][7]
+        rows = int(((ur_c >= 0) & valid_c).sum())
+        require(bool(torch.isfinite(info).all()), "non-finite stereo info")
+        require(n_gpu >= 0.9 * n_valid,
+                f"stereo frame step ({case}): {n_gpu} inliers of {n_valid}")
+        require(r_err <= 1e-3 and t_err <= 1e-3,
+                f"stereo frame step ({case}) pose error R {r_err} t {t_err}")
+        require(rows >= 0.9 * n_match,
+                f"stereo frame step ({case}): {rows} stereo rows in K3s of "
+                f"{n_match} matches")
+        first = tracking.track_motion_model(
+            args.R_pred, args.t_pred, args.lm_pos, args.lm_valid,
+            args.last_bind, args.last_desc, f_k.xy, f_k.level, f_k.desc,
+            f_k.valid, args.cam_params, last_angle=args.last_angle,
+            feats_angle=f_k.angle)
+        took_retry = int(first.n_inliers) < tracking.RETRY_BELOW
+        require(took_retry == (case == "retry"),
+                f"stereo frame step ({case}): the motion model keeps "
+                f"{int(first.n_inliers)} inliers")
+        _, info_cpu, _, _, _ = graft.stereo_frame_step(*(
+            None if a is None else a.cpu() for a in args))
+        n_cpu = int(info_cpu[0])
+        require(abs(n_cpu - n_gpu) <= 0.01 * n_gpu,
+                f"stereo frame step ({case}): CPU {n_cpu} vs card {n_gpu}")
+        if case == "normal":
+            launches_st = got
+            for name, calls in (("K1", c1), ("K2", c2), ("K3", c3),
+                                ("K3s", c3s)):
+                st_recorded[name] += [(a, kw) for a, kw in calls]
+        stereo[case] = {"n_inliers": n_gpu, "n_valid": n_valid,
+                        "n_inliers_cpu": n_cpu, "stereo_rows": rows,
+                        "close": info_np[2:4].tolist(), "R_err": r_err,
+                        "t_err": t_err}
+        phase("11 stereo", f"{case}: stereo_frame_step {km.width}x"
+              f"{km.height}, {km.n_features} features, {km.max_lm} landmark "
+              f"slots: n_inliers {n_gpu} of {n_valid} valid (CPU plain "
+              f"versions {n_cpu}); {rows} stereo rows in K3s; close points "
+              f"tracked / untracked {info_np[2:4].tolist()}; "
+              f"{'retry' if took_retry else 'first try'}; |R-I| "
+              f"{r_err:.2e} |t| {t_err:.2e}; launches {got}; no "
+              f"synchronisation inside the step")
+    st_calls = {n: [] for n in sk}
+    for name, calls in st_recorded.items():
+        for a, kw in calls:
+            err, (b_ms, b_by, b_txt) = check_call(name, a, kw)
+            entry = {"call": "stereo frame step",
+                     "shape": shape_of(name, a, kw), "max_abs_err": err,
+                     "bound_ms": b_ms, "bound_by": b_by, "bound": b_txt}
+            entry.update(timed(name, a, kw, plain_reps=5 if name in (
+                "K3", "K3s") else 20))
+            st_calls[name].append(entry)
+            phase("11 stereo", f"{name} stereo frame step {entry['shape']}: "
+                  f"held against plain (max err {err:.2e}); launch alone "
+                  f"{entry['ms']:.4f} ms, wrapper {entry['wrapper_ms']:.4f} "
+                  f"ms, plain {entry['plain_ms']:.4f} ms, bound {b_ms:.5f} ms "
+                  f"by {b_by} ({card})")
+    args = graft.StereoFrameArgs(*convert.tree_to_torch(
+        graft.kitti_stereo_scene(*feats_k, depth_k, rig=rig), dev))
+    st_ms = []
+    for i in range(N_WARMUP_STEREO + N_TIMED_FRAMES):
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        _, info, _, _, _ = graft.stereo_frame_step(*args)
+        info.cpu()                 # the caller's one read of the frame
+        if i >= N_WARMUP_STEREO:
+            st_ms.append((time.perf_counter() - t_start) * 1e3)
+    stereo["step_ms"] = spread(st_ms)
+    phase("11 stereo", f"stereo_frame_step (KITTI, normal case) median "
+          f"{stereo['step_ms']['median']:.3f} ms, p80 "
+          f"{stereo['step_ms']['p80']:.3f} ms over {N_TIMED_FRAMES} calls "
+          f"(min {stereo['step_ms']['min']:.3f}, max "
+          f"{stereo['step_ms']['max']:.3f}), after {N_WARMUP_STEREO} warm-up "
+          f"calls, the read of info included ({card})")
+
+    # The systems: (a) the stereo golden config, (b) KITTI capacity, (c)
+    # RGB-D at TUM1's settings, on the committed stereo frames.
+    sf = graft.stereo_frames()
+    cells = {
+        "stereo": (stereo_system.StereoSlam, graft.stereo_golden_config(),
+                   list(zip(sf.left, sf.right))),
+        "kitti": (stereo_system.StereoSlam, graft.kitti_golden_config(),
+                  list(zip(graft.kitti_frames(sf.left),
+                           graft.kitti_frames(sf.right)))),
+        "rgbd": (stereo_system.RgbdSlam, graft.tum_rgbd_golden_config(),
+                 list(zip(sf.left, sf.depth)))}
+    bundles = []
+    graft.mono_keyframe_step = counted_bundle
+
+    def stereo_gate(name, slam, traj):
+        """(a), (b): test_stereo_system.py's gate (more than 20 frames, the
+        ATE without scale alignment under 0.12 m, the path length within
+        5 %); (c): the JAX RgbdSlam's run on the same frames (its frame
+        count +-1, ATE under 1.5 x its own + 0.002 m)."""
+        require(len(traj) > 0, f"system ({name}): no frame tracked")
+        stamps, est = centres_of(traj)
+        stamps = stamps + slam.t0
+        ate, n_assoc = evaluate.ate_rmse(stamps, est, sf.stamps, sf.centres,
+                                         with_scale=False)
+        idx = np.searchsorted(sf.stamps, stamps - 1e-6)
+        length = float(np.linalg.norm(np.diff(est, axis=0), axis=-1).sum())
+        true_len = float(np.linalg.norm(np.diff(sf.centres[idx], axis=0),
+                                        axis=-1).sum())
+        path_err = abs(length - true_len) / true_len
+        if name == "rgbd":
+            limit_m = 1.5 * graft.RGBD_JAX_ATE_M + 0.002
+            ok = (abs(len(traj) - graft.RGBD_JAX_FRAMES) <= 1
+                  and ate < limit_m)
+            limit = (f"{graft.RGBD_JAX_FRAMES} +- 1 frames, ATE < "
+                     f"{limit_m:.5f} m")
+        else:
+            ok = (n_assoc > graft.STEREO_MIN_FRAMES
+                  and ate < graft.STEREO_ATE_GATE_M
+                  and path_err < graft.STEREO_PATH_TOL)
+            limit = (f"> {graft.STEREO_MIN_FRAMES} frames, ATE < "
+                     f"{graft.STEREO_ATE_GATE_M} m, path within "
+                     f"{graft.STEREO_PATH_TOL:.0%}")
+        live = slam.state.kfs.valid.sum(), slam.state.lms.valid.sum()
+        out = {"frames": len(traj), "ate_m": float(ate), "path_m": length,
+               "true_path_m": true_len, "path_err": path_err,
+               "live_keyframes": int(live[0]),
+               "live_landmarks": int(live[1]), "keyframe_slots": slam.n_kf,
+               "status": slam.status}
+        require(ok, f"system ({name}): {out} against {limit}")
+        return out
+
+    spies["K3s"] = (cuda_pose_opt, "pose_optimization_stereo_kernel")
+    originals["K3s"] = cuda_pose_opt.pose_optimization_stereo_kernel
+    st_checked = {name: {n: {"calls": 0, "max_abs_err": 0.0, "shapes": {}}
+                         for n in sk} for name in cells}
+    sys_checked.update(st_checked)
+    sys_calls["K3s"] = []
+    st_sys_calls = {n: [] for n in sk}
+    phase10_calls = {n: list(v) for n, v in sys_calls.items()}
+    stereo_sys = {}
+    for name, (cls, cfg, frames) in cells.items():
+        seq_name[0] = name
+        n_calls = {n: len(sys_calls[n]) for n in sk}
+        for n_, (m, f) in spies.items():
+            setattr(m, f, checking(n_))
+        plain32_err["on"] = name == "stereo"
+        try:
+            slam = cls(cfg)
+            _, traj, _ = run_sequence(slam, frames, sf.stamps, sk, bundles)
+            torch.cuda.synchronize()
+        finally:
+            plain32_err["on"] = False
+            for n_, (m, f) in spies.items():
+                setattr(m, f, originals[n_])
+        warm = stereo_gate(name, slam, traj)
+        checked = sys_checked[name]
+        require(all(checked[n]["calls"] > 0 for n in sk),
+                f"system ({name}): kernels launched {checked}")
+        for n in sk:
+            st_sys_calls[n] += sys_calls[n][n_calls[n]:]
+        phase("11 stereo", f"{name}: warm-up sequence, every launch held "
+              f"against its plain version: " + ", ".join(
+                  f"{n} {checked[n]['calls']} calls max err "
+                  f"{checked[n]['max_abs_err']:.2e}" for n in sk)
+              + f"; {json.dumps(warm)}")
+        frames_all, seqs = [], []
+        for _ in range(N_TIMED_STEREO_SEQUENCES):
+            slam = cls(cfg)
+            for k in sk.values():
+                k.launches = 0
+            torch.cuda.synchronize()
+            recs, traj, sec = run_sequence(slam, frames, sf.stamps, sk,
+                                           bundles)
+            res = stereo_gate(name, slam, traj)
+            res.update(seconds=sec, fps=len(frames) / sec,
+                       launches={n: k.launches for n, k in sk.items()})
+            require(all(v > 0 for v in res["launches"].values()),
+                    f"system ({name}): launches {res['launches']}")
+            seqs.append(res)
+            frames_all += recs
+        kinds = {}
+        for kind in ("uninitialised", "init", "tracked", "keyframe"):
+            rs = [r for r in frames_all if r["kind"] == kind]
+            kinds[kind] = spread(r["ms"] for r in rs)
+            kinds[kind]["launches_per_frame"] = {
+                n: (sum(r["launches"][n] for r in rs) / len(rs) if rs
+                    else None) for n in sk}
+        slam = cls(cfg)
+        syncs = []
+        for fr, stamp in zip(frames, sf.stamps):
+            uninit = slam.status == system_mod.NOT_INITIALIZED
+            n_b = len(bundles)
+            with counted_syncs() as where:
+                slam.track(*fr, float(stamp))
+            if uninit:
+                kind = ("uninitialised"
+                        if slam.status == system_mod.NOT_INITIALIZED
+                        else "init")
+            else:
+                kind = "keyframe" if len(bundles) > n_b else "tracked"
+            syncs.append((kind, where))
+        for kind in kinds:
+            ws = [w for k, w in syncs if k == kind]
+            kinds[kind]["syncs_per_frame"] = (
+                sum(len(w) for w in ws) / len(ws) if ws else None)
+            sites = {}
+            for w in ws:
+                for site in w:
+                    sites[site] = sites.get(site, 0) + 1
+            kinds[kind]["sync_sites"] = {k: v / len(ws)
+                                         for k, v in sorted(sites.items())}
+            kinds[kind]["jax_host_reads"] = JAX_STEREO_READS[kind]
+        fps = [r["fps"] for r in seqs]
+        stereo_sys[name] = {"config": {k: v for k, v in dataclasses.asdict(
+            cfg).items() if not isinstance(v, np.ndarray)},
+            "warmup": warm, "sequences": seqs, "frame_kinds": kinds,
+            "fps": spread(fps)}
+        for kind, st in kinds.items():
+            if st["n"]:
+                phase("11 stereo", f"{name}: {kind} frames ({st['n']} over "
+                      f"{N_TIMED_STEREO_SEQUENCES} sequences): track() median "
+                      f"{st['median']:.3f} ms, p80 {st['p80']:.3f} ms (min "
+                      f"{st['min']:.3f}, max {st['max']:.3f}); launches per "
+                      f"frame {st['launches_per_frame']}; "
+                      f"{st['syncs_per_frame']} synchronisations per frame "
+                      f"{st['sync_sites']}; the JAX system reads "
+                      f"{JAX_STEREO_READS[kind]} ({card})")
+        phase("11 stereo", f"{name}: {len(frames)} frames in "
+              + ", ".join(f"{r['seconds']:.3f}" for r in seqs) + " s = "
+              + ", ".join(f"{f:.2f}" for f in fps) + " frames/s; trajectory "
+              f"{[r['frames'] for r in seqs]} frames, ATE "
+              f"{[round(r['ate_m'], 5) for r in seqs]} m, path error "
+              f"{[round(r['path_err'], 4) for r in seqs]}, live keyframes "
+              f"{[r['live_keyframes'] for r in seqs]} and landmarks "
+              f"{[r['live_landmarks'] for r in seqs]} ({card})")
+    graft.mono_keyframe_step = keyframe_step
+    for n in sk:                     # phase 10's timed calls stay its own
+        sys_calls[n] = phase10_calls.get(n, [])
+    for name, calls in st_sys_calls.items():
+        timed_calls = []
+        for where, a, kw, err, (b_ms, b_by, b_txt) in calls:
+            entry = {"call": f"system {where}",
+                     "shape": shape_of(name, a, kw), "max_abs_err": err,
+                     "bound_ms": b_ms, "bound_by": b_by, "bound": b_txt}
+            entry.update(timed(name, a, kw, plain_reps=5 if name in (
+                "K3", "K3s") else 20))
+            timed_calls.append(entry)
+            phase("11 stereo", f"{name} {entry['call']} {entry['shape']}: "
+                  f"launch alone {entry['ms']:.4f} ms, wrapper "
+                  f"{entry['wrapper_ms']:.4f} ms, plain "
+                  f"{entry['plain_ms']:.4f} ms, bound {b_ms:.5f} ms by "
+                  f"{b_by} ({card})")
+        st_sys_calls[name] = timed_calls
+    stereo["system"] = stereo_sys
+    phase("11 stereo", "the float32 plain versions' largest distance from "
+          f"the float64 oracle over the stereo cell's checked calls: K3 "
+          f"{plain32_err['K3']:.2e}, K3s {plain32_err['K3s']:.2e}")
+
     sources = {"K1": ("steered-BRIEF sampler", "csrc/brief.cu",
                       "orbslam3_byzyh_tpu/ops/pallas_brief.py:161",
                       "none: no single PyTorch call gathers rotated sample "
@@ -1727,6 +2243,41 @@ def main() -> int:
                "K3": ("fused pose optimization", "csrc/pose_opt.cu",
                       "orbslam3_byzyh_tpu/solver/pallas_pose_opt.py:297",
                       "none: torch has no fused Levenberg-Marquardt solver")}
+
+    def stereo_keys(n):
+        """A kernel's launches and held calls on phase 11's paths."""
+        return {
+            "launches_stereo_frame_step": launches_st[n],
+            "stereo_frame_step_calls": st_calls[n],
+            "launches_stereo_system": {
+                k: v["sequences"][0]["launches"][n]
+                for k, v in stereo_sys.items()},
+            "launches_stereo_system_per_frame_kind": {
+                k: {kind: st["launches_per_frame"][n]
+                    for kind, st in v["frame_kinds"].items()}
+                for k, v in stereo_sys.items()},
+            "stereo_system_calls": st_sys_calls[n]}
+
+    # K3s: no Pallas kernel; it ports the JAX package's XLA function.
+    k3s_entry = {
+        "name": "K3s stereo pose optimization", "route": "cuda",
+        "source": "orbslam3_byzyh_tpu_torch/csrc/pose_opt.cu",
+        "replaces": "orbslam3_byzyh_tpu/solver/pose_opt.py:163",
+        "replaces_note": "pose_optimization_stereo, which the JAX package "
+                         "runs through XLA (no pallas_call): a port kernel "
+                         "for a JAX function outside Pallas",
+        "launches": launches_st["K3s"],
+        "max_abs_err": results["K3s"]["max_abs_err"],
+        "ms": results["K3s"]["ms"], "plain_ms": results["K3s"]["plain_ms"],
+        "bound_ms": results["K3s"]["bound_ms"],
+        "bound_by": results["K3s"]["bound_by"], "library_ms": None,
+        "library": "none: torch has no fused Levenberg-Marquardt solver",
+        "wrapper_ms": results["K3s"]["wrapper_ms"],
+        "bound": results["K3s"]["bound"], "ptxas": ptxas["K3"],
+        "system_checked": {
+            k: {"calls": v["K3s"]["calls"],
+                "max_abs_err": v["K3s"]["max_abs_err"]}
+            for k, v in st_checked.items()}, **stereo_keys("K3s")}
     print(json.dumps({"kernels": [
         {"name": f"{n} {sources[n][0]}", "route": "cuda",
          "source": f"orbslam3_byzyh_tpu_torch/{sources[n][1]}",
@@ -1753,8 +2304,9 @@ def main() -> int:
          "system_checked": {
              k: {"calls": v[n]["calls"], "max_abs_err": v[n]["max_abs_err"]}
              for k, v in sys_checked.items()},
-         "system_calls": sys_calls[n]}
-        for n in kernels], "k2_sass_tensor_instructions": tensor_ops,
+         "system_calls": sys_calls[n], **stereo_keys(n)}
+        for n in kernels] + [k3s_entry], "k2_sass_tensor_instructions":
+        tensor_ops,
         "step_ms": step_med, "step_p80_ms": step_p80,
         "mono_frame_step_ms": mono_med, "mono_frame_step_p80_ms": mono_p80,
         "mono_frame_step": mono, "keyframe_step_ms": kf_med,
@@ -1764,7 +2316,8 @@ def main() -> int:
         "keyframe_step_device_ms_per_call": kf_busy_ms,
         "keyframe_step": keyframe, "init_step_ms": init_med,
         "init_step_p80_ms": init_p80, "init_step_per_call": init_per_call,
-        "init_step": init, "system": system, "card": card}))
+        "init_step": init, "system": system, "stereo": stereo,
+        "plain32_err": plain32_err, "card": card}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

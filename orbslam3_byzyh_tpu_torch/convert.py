@@ -39,9 +39,9 @@ def to_torch(x, device=None) -> torch.Tensor:
 
 def tree_to_torch(args, device=None) -> tuple:
     """A tuple of arrays (e.g. the tracking-step arguments) -> tensors on
-    ``device`` (``None``: the card)."""
+    ``device`` (``None``: the card); a None stays None."""
     dev = device_mod.resolve(device)
-    return tuple(to_torch(a, dev) for a in args)
+    return tuple(None if a is None else to_torch(a, dev) for a in args)
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:

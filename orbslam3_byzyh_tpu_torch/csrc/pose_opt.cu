@@ -10,6 +10,15 @@
 // (lam * 10), and inliers re-marked between rounds (chi2 <= 5.991 with
 // depth > 0.05).
 //
+// K3s, the stereo variant (template flag STEREO, the same kernel): the
+// mixed mono/stereo schedule of orbslam3_byzyh_tpu/solver/pose_opt.py::
+// pose_optimization_stereo (EdgeStereoSE3ProjectXYZOnlyPose), which the
+// JAX package runs through XLA, not Pallas. Each point also carries the
+// right-image coordinate u_r (< 0 for a mono row); a stereo row adds the
+// residual u_r - (u - bf / z) with Jacobian row J_u - (0, 0, e, e y, -e x,
+// 0), e = bf / z^2, its chi2 sums three rows, and its Huber delta^2 and
+// inlier gate are 7.815 instead of 5.991.
+//
 // What bounds it on this card: the chain of dependent steps, not bytes or
 // flops. One problem is ~1k points (~30 KB, ~10 MFLOP for the schedule);
 // every LM iteration needs the previous one's pose, so the time is the
@@ -26,7 +35,7 @@
 //    on it first re-marks each point's inlier flag at the same pose, and the
 //    last pass writes chi2. 45 passes: 1 + 40 + 3 + 1.
 //  * The points and their flags live in shared memory for the whole
-//    schedule (25 B a point); each point is owned by one thread of warps
+//    schedule (25 B a point, 29 B with u_r); each point is owned by one thread of warps
 //    1.., which alone reads and writes its flag. The pass is branch-free: a
 //    point outside the mask adds zeros.
 //  * The 27 H/g sums and the cost are reduced by a warp transpose-reduce:
@@ -50,7 +59,8 @@ namespace {
 constexpr int kThreads = 384;  // warp 0 solves, warps 1-11 sweep the points
 constexpr int kWarps = kThreads / 32;
 constexpr int kWorkers = kThreads - 32;  // warps 1.. sweep the points
-constexpr float kDelta2 = 5.991f;
+constexpr float kDelta2 = 5.991f;         // chi2 gate, 2 rows
+constexpr float kDelta2Stereo = 7.815f;   // chi2 gate, 3 rows
 constexpr float kFar = 1e9f;             // chi2 of a point behind the camera
 constexpr unsigned char kValid = 1, kInlier = 2;
 constexpr unsigned kFull = 0xffffffffu;
@@ -59,11 +69,17 @@ struct Cam {
   float fx, fy, cx, cy;
 };
 
-// The point arrays in dynamic shared memory.
+// The point arrays in dynamic shared memory (ur: the stereo variant's).
 struct Points {
-  float *x, *y, *z, *u, *v, *iv2;
+  float *x, *y, *z, *u, *v, *iv2, *ur;
   unsigned char* flag;
 };
+
+// Bytes a point takes in shared memory.
+template <bool STEREO>
+constexpr int point_bytes() {
+  return STEREO ? 29 : 25;
+}
 
 // LM state, written by warp 0 only.
 struct State {
@@ -75,13 +91,14 @@ struct State {
 };
 
 struct Terms {
-  float pcx, pcy, pcz, iz, ru, rv, chi2;
-  bool depth_ok;
+  float pcx, pcy, pcz, iz, ru, rv, rr, chi2, delta2;
+  bool depth_ok, has_ur;
 };
 
+template <bool STEREO>
 __device__ __forceinline__ Terms point_terms(const float (&pose)[12],
                                              const Cam& c, const Points& s,
-                                             int i) {
+                                             int i, float bf) {
   const float X = s.x[i], Y = s.y[i], Z = s.z[i];
   Terms t;
   t.pcx = pose[0] * X + pose[1] * Y + pose[2] * Z + pose[9];
@@ -89,9 +106,19 @@ __device__ __forceinline__ Terms point_terms(const float (&pose)[12],
   t.pcz = pose[6] * X + pose[7] * Y + pose[8] * Z + pose[11];
   t.depth_ok = t.pcz > 0.05f;
   t.iz = 1.0f / (t.depth_ok ? t.pcz : 1.0f);
-  t.ru = s.u[i] - (c.fx * t.pcx * t.iz + c.cx);
+  const float uhat = c.fx * t.pcx * t.iz + c.cx;
+  t.ru = s.u[i] - uhat;
   t.rv = s.v[i] - (c.fy * t.pcy * t.iz + c.cy);
-  t.chi2 = (t.ru * t.ru + t.rv * t.rv) * s.iv2[i];
+  float sq = t.ru * t.ru + t.rv * t.rv;
+  t.has_ur = false;
+  t.rr = 0.0f;
+  if (STEREO) {
+    t.has_ur = s.ur[i] >= 0.0f;
+    t.rr = t.has_ur ? s.ur[i] - (uhat - bf * t.iz) : 0.0f;
+    sq += t.rr * t.rr;
+  }
+  t.chi2 = sq * s.iv2[i];
+  t.delta2 = t.has_ur ? kDelta2Stereo : kDelta2;
   return t;
 }
 
@@ -99,9 +126,9 @@ __device__ __forceinline__ Terms point_terms(const float (&pose)[12],
 // points' 21 H and 6 g terms and Huber cost, summed into v[0..27] per
 // thread (warp 0 adds nothing). REMARK first re-marks each point's inlier
 // flag from its chi2 at this pose.
-template <bool REMARK>
+template <bool REMARK, bool STEREO>
 __device__ __forceinline__ void normal_pass(const float* pose_s, const Cam& cam,
-                                            const Points& s, int n,
+                                            const Points& s, int n, float bf,
                                             bool robust, float (&v)[32]) {
   float pose[12];
 #pragma unroll
@@ -111,19 +138,21 @@ __device__ __forceinline__ void normal_pass(const float* pose_s, const Cam& cam,
   if (threadIdx.x < 32) return;
 #pragma unroll 2
   for (int i = threadIdx.x - 32; i < n; i += kWorkers) {
-    const Terms t = point_terms(pose, cam, s, i);
+    const Terms t = point_terms<STEREO>(pose, cam, s, i, bf);
     unsigned char f = s.flag[i];
     if (REMARK) {
       const float chi2 = t.depth_ok ? t.chi2 : kFar;
-      f = (f & kValid) && chi2 <= kDelta2 ? (kValid | kInlier) : (f & kValid);
+      f = (f & kValid) && chi2 <= t.delta2 ? (kValid | kInlier)
+                                           : (f & kValid);
       s.flag[i] = f;
     }
     const bool use = (f & kInlier) && t.depth_ok;   // inlier implies valid
     float w = 1.0f, rho = t.chi2;
-    if (robust && t.chi2 > kDelta2) {
+    if (robust && t.chi2 > t.delta2) {
       const float sq = sqrtf(t.chi2);
-      w = sqrtf(kDelta2) / sq;
-      rho = 2.0f * sqrtf(kDelta2) * sq - kDelta2;
+      const float delta = sqrtf(t.delta2);
+      w = delta / sq;
+      rho = 2.0f * delta * sq - t.delta2;
     }
     // A point outside the mask adds zeros (selected, so that no inf or NaN
     // of an unused point reaches the sums).
@@ -140,13 +169,33 @@ __device__ __forceinline__ void normal_pass(const float* pose_s, const Cam& cam,
     const float ju[6] = {-a, 0.0f, -b, -(b * py), -(a * pz - b * px), a * py};
     const float jv[6] = {0.0f, -c, -d, -(-c * pz + d * py), d * px, -c * px};
     int k = 0;
+    if (STEREO) {
+      // The third row, J_u - (0, 0, e, e y, -e x, 0) with e = bf / z^2;
+      // zeros for a mono row.
+      const bool third = use && t.has_ur;
+      const float e = third ? bf * iz * iz : 0.0f;
+      const float on = third ? 1.0f : 0.0f;
+      const float rr = third ? t.rr : 0.0f;
+      const float jr[6] = {on * ju[0], on * ju[1], on * ju[2] - e,
+                           on * ju[3] - e * py, on * ju[4] + e * px,
+                           on * ju[5]};
 #pragma unroll
-    for (int r = 0; r < 6; ++r)
+      for (int r = 0; r < 6; ++r)
 #pragma unroll
-      for (int q = r; q < 6; ++q)
-        v[k++] += w * (ju[r] * ju[q] + jv[r] * jv[q]);
+        for (int q = r; q < 6; ++q)
+          v[k++] += w * (ju[r] * ju[q] + jv[r] * jv[q] + jr[r] * jr[q]);
 #pragma unroll
-    for (int r = 0; r < 6; ++r) v[21 + r] += w * (ju[r] * ru + jv[r] * rv);
+      for (int r = 0; r < 6; ++r)
+        v[21 + r] += w * (ju[r] * ru + jv[r] * rv + jr[r] * rr);
+    } else {
+#pragma unroll
+      for (int r = 0; r < 6; ++r)
+#pragma unroll
+        for (int q = r; q < 6; ++q)
+          v[k++] += w * (ju[r] * ju[q] + jv[r] * jv[q]);
+#pragma unroll
+      for (int r = 0; r < 6; ++r) v[21 + r] += w * (ju[r] * ru + jv[r] * rv);
+    }
     v[27] += rho;
   }
 }
@@ -325,10 +374,12 @@ __device__ __forceinline__ void propose(const State& st, float lam,
   }
 }
 
+template <bool STEREO>
 __global__ void __launch_bounds__(kThreads)
 pose_opt_kernel(const float* __restrict__ R0, const float* __restrict__ t0,
                 const float* __restrict__ cam_params,
                 const float* __restrict__ pts, const float* __restrict__ obs,
+                const float* __restrict__ obs_ur, float bf,
                 const float* __restrict__ inv_s2,
                 const bool* __restrict__ valid, int n, int n_rounds,
                 int n_iters, float* __restrict__ R_out,
@@ -341,15 +392,17 @@ pose_opt_kernel(const float* __restrict__ R0, const float* __restrict__ t0,
   const int lane = tid & 31;
   const bool warp0 = tid < 32;
   const size_t b = blockIdx.x;
+  const int n_arrays = STEREO ? 7 : 6;
   const Points s = {s_dyn, s_dyn + n, s_dyn + 2 * n, s_dyn + 3 * n,
-                    s_dyn + 4 * n, s_dyn + 5 * n,
-                    reinterpret_cast<unsigned char*>(s_dyn + 6 * n)};
+                    s_dyn + 4 * n, s_dyn + 5 * n, s_dyn + 6 * n,
+                    reinterpret_cast<unsigned char*>(s_dyn + n_arrays * n)};
   const Cam cam = {cam_params[0], cam_params[1], cam_params[2],
                    cam_params[3]};
   pts += b * n * 3;
   obs += b * n * 2;
   inv_s2 += b * n;
   valid += b * n;
+  if (STEREO) obs_ur += b * n;
   for (int i = tid; i < n; i += kThreads) {
     s.x[i] = pts[3 * i];
     s.y[i] = pts[3 * i + 1];
@@ -357,6 +410,7 @@ pose_opt_kernel(const float* __restrict__ R0, const float* __restrict__ t0,
     s.u[i] = obs[2 * i];
     s.v[i] = obs[2 * i + 1];
     s.iv2[i] = inv_s2[i];
+    if (STEREO) s.ur[i] = obs_ur[i];
     s.flag[i] = valid[i] ? (kValid | kInlier) : 0;
   }
   if (tid < 9) st.P[tid] = R0[b * 9 + tid];
@@ -369,9 +423,9 @@ pose_opt_kernel(const float* __restrict__ R0, const float* __restrict__ t0,
     // The round's first pass, at the accepted pose: cost0, H and g. From
     // round 1 on it first re-marks the inliers at that pose.
     if (rnd == 0)
-      normal_pass<false>(st.P, cam, s, n, robust, v);
+      normal_pass<false, STEREO>(st.P, cam, s, n, bf, robust, v);
     else
-      normal_pass<true>(st.P, cam, s, n, robust, v);
+      normal_pass<true, STEREO>(st.P, cam, s, n, bf, robust, v);
     block_partials(v, s_warp);
     if (warp0) {
       const float x = block_total(s_warp);
@@ -388,7 +442,7 @@ pose_opt_kernel(const float* __restrict__ R0, const float* __restrict__ t0,
       // The candidate's pass; meanwhile warp 0 solves for the step that
       // follows a rejection.
       if (warp0 && more) propose(st, st.lam * 10.0f, st.R);
-      normal_pass<false>(st.C, cam, s, n, robust, v);
+      normal_pass<false, STEREO>(st.C, cam, s, n, bf, robust, v);
       block_partials(v, s_warp);
       if (warp0) {
         const float x = block_total(s_warp);
@@ -416,20 +470,49 @@ pose_opt_kernel(const float* __restrict__ R0, const float* __restrict__ t0,
 #pragma unroll
   for (int q = 0; q < 12; ++q) pose[q] = st.P[q];
   for (int i = tid; i < n; i += kThreads) {
-    const Terms t = point_terms(pose, cam, s, i);
+    const Terms t = point_terms<STEREO>(pose, cam, s, i, bf);
     chi2_out[i] = t.depth_ok ? t.chi2 : kFar;
   }
   if (tid < 9) R_out[b * 9 + tid] = st.P[tid];
   if (tid < 3) t_out[b * 3 + tid] = st.P[9 + tid];
 }
 
+// Shared memory beside the points: the warp partials and the LM state.
+constexpr int kStaticSmem = (int)(sizeof(float) * kWarps * 32 + sizeof(State));
+
+template <bool STEREO>
+int max_points() {
+  return (232448 - kStaticSmem) / point_bytes<STEREO>();
+}
+
+template <bool STEREO>
+int launch(const float* R0, const float* t0, const float* cam_params,
+           const float* pts, const float* obs, const float* obs_ur, float bf,
+           const float* inv_s2, const bool* valid, int b, int n,
+           int n_rounds, int n_iters, float* R_out, float* t_out,
+           float* chi2_out, cudaStream_t stream) {
+  if (b <= 0) return (int)cudaSuccess;
+  if (n < 0 || n > max_points<STEREO>()) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)n * point_bytes<STEREO>();
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        pose_opt_kernel<STEREO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  pose_opt_kernel<STEREO><<<b, kThreads, smem, stream>>>(
+      R0, t0, cam_params, pts, obs, obs_ur, bf, inv_s2, valid, n, n_rounds,
+      n_iters, R_out, t_out, chi2_out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Points held in shared memory: 25 bytes each, within the 227 KB a block
-// may use beside its static shared memory.
-extern "C" int pose_max_points() {
-  return (232448 - (int)(sizeof(float) * kWarps * 32 + sizeof(State))) / 25;
-}
+// Points held in shared memory: 25 bytes each (29 with u_r), within the
+// 227 KB a block may use beside its static shared memory.
+extern "C" int pose_max_points() { return max_points<false>(); }
+
+extern "C" int pose_max_points_stereo() { return max_points<true>(); }
 
 extern "C" int pose_optimization(const float* R0, const float* t0,
                                  const float* cam_params, const float* pts,
@@ -437,19 +520,20 @@ extern "C" int pose_optimization(const float* R0, const float* t0,
                                  const bool* valid, int b, int n, int n_rounds,
                                  int n_iters, float* R_out, float* t_out,
                                  float* chi2_out, cudaStream_t stream) {
-  if (b <= 0) return (int)cudaSuccess;
-  if (n < 0 || n > pose_max_points()) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)n * 25;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        pose_opt_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  pose_opt_kernel<<<b, kThreads, smem, stream>>>(
-      R0, t0, cam_params, pts, obs, inv_s2, valid, n, n_rounds, n_iters,
-      R_out, t_out, chi2_out);
-  return (int)cudaGetLastError();
+  return launch<false>(R0, t0, cam_params, pts, obs, nullptr, 0.0f, inv_s2,
+                       valid, b, n, n_rounds, n_iters, R_out, t_out, chi2_out,
+                       stream);
+}
+
+extern "C" int pose_optimization_stereo(
+    const float* R0, const float* t0, const float* cam_params,
+    const float* pts, const float* obs, const float* obs_ur, float bf,
+    const float* inv_s2, const bool* valid, int b, int n, int n_rounds,
+    int n_iters, float* R_out, float* t_out, float* chi2_out,
+    cudaStream_t stream) {
+  return launch<true>(R0, t0, cam_params, pts, obs, obs_ur, bf, inv_s2,
+                      valid, b, n, n_rounds, n_iters, R_out, t_out, chi2_out,
+                      stream);
 }
 
 extern "C" const char* kernel_error_string(int err) {

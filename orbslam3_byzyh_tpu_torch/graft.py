@@ -21,6 +21,15 @@ builds the initial map from a reference frame and the current frame
 (two-view H/F RANSAC, the two first keyframes and their landmarks at
 median-depth scale, the full-map BA). ``euroc_mono_two_view`` builds the
 second frame for it from the reference frame's own features.
+
+``stereo_frame_step`` is what the stereo system runs on every tracked
+frame (``stereo_extract``: the ORB features of both images and the stereo
+match; then ``tracking.frame_step`` with the stereo rows) at the KITTI
+stereo configuration (``KITTI_STEREO``); ``kitti_stereo_pair`` and
+``kitti_stereo_scene`` build its example pair and a map that tracks. The
+stereo and RGB-D systems' configurations and frames for the card's runs
+(``stereo_frames``, ``stereo_golden_config``, ``kitti_golden_config``,
+``tum_rgbd_golden_config``) close the file.
 """
 
 from __future__ import annotations
@@ -112,7 +121,7 @@ class MonoFrameArgs(NamedTuple):
     n_found: object      # (L,) int32
     n_visible: object    # (L,) int32
     cam_params: object   # (4,) fx, fy, cx, cy
-    dist: object         # (4,) k1, k2, p1, p2
+    dist: object         # (4,) k1, k2, p1, p2; None for a pinhole camera
 
 
 def tracking_step(img, R, t, lm_pos, lm_desc, lm_normal, lm_min_d, lm_max_d,
@@ -283,7 +292,7 @@ def _observe(rng, obs_kf, obs_valid, rows, pool, lo: int, hi: int):
 def euroc_mono_scene(feats_xy, feats_level, feats_desc, feats_angle,
                      feats_valid, cfg: MonoConfig = EUROC_MONO,
                      case: str = "normal", n_live_kf: int = 200,
-                     seed: int = 0) -> MonoFrameArgs:
+                     seed: int = 0, depth=None) -> MonoFrameArgs:
     """A map at ``cfg``'s full capacity that the example frame tracks
     against (numpy in and out; the true pose is the identity).
 
@@ -303,7 +312,9 @@ def euroc_mono_scene(feats_xy, feats_level, feats_desc, feats_angle,
     the motion model's 15 px window. "retry": it is exp(RETRY_PRED_XI), so
     the motion model keeps fewer than 10 inliers and the retry from the
     last pose (exp(LAST_POSE_XI) in both cases) with its 30 px window
-    tracks. Returns :class:`MonoFrameArgs`.
+    tracks. ``depth`` (N,), when given, replaces the drawn depths (the
+    stereo scene lifts each feature to its stereo depth). Returns
+    :class:`MonoFrameArgs`.
     """
     if case not in ("normal", "retry"):
         raise ValueError(f"case: 'normal' or 'retry', got {case!r}")
@@ -317,7 +328,8 @@ def euroc_mono_scene(feats_xy, feats_level, feats_desc, feats_angle,
     valid = np.asarray(feats_valid, bool)
     n = xy.shape[0]
 
-    depth = rng.uniform(3, 12, n)
+    drawn = rng.uniform(3, 12, n)
+    depth = drawn if depth is None else np.asarray(depth, np.float64)
     ray = np.stack([(xy[:, 0] - cfg.cx) / cfg.fx,
                     (xy[:, 1] - cfg.cy) / cfg.fy, np.ones(n)], -1)
     pos = ray * depth[:, None]
@@ -377,26 +389,31 @@ def euroc_mono_scene(feats_xy, feats_level, feats_desc, feats_angle,
         ref_kf=np.int32(n_kf - 1), n_kf=np.int32(n_kf),
         n_found=n_found.astype(np.int32), n_visible=n_visible.astype(np.int32),
         cam_params=np.array([cfg.fx, cfg.fy, cfg.cx, cfg.cy], f32),
-        dist=np.array(cfg.dist, f32))
+        dist=None if cfg.dist is None else np.array(cfg.dist, f32))
 
 
 # --- The keyframe step ------------------------------------------------------
 
 def mono_keyframe_step(state, kf_id, R, t, stamp, feats, bindings,
                        cam_params, n_lm_hwm, cfg: MonoConfig = EUROC_MONO,
-                       do_kf_cull: bool = True):
+                       do_kf_cull: bool = True, ur=None, bf=None):
     """What ``MonoSlam._create_keyframe`` runs on the device for a new
     keyframe: ``mapping.keyframe_bundle`` at ``cfg``'s windows, monocular
     (``ur`` all -1), with the local BA on and keyframe culling when
     ``do_kf_cull`` (the system culls once the map holds 8 keyframes).
     ``state`` is a ``map_state.MapState``; ``feats`` the frame's features
     (``xy``, ``level``, ``angle``, ``desc``, ``valid``); ``bindings`` (N,)
-    int32 the tracked landmark of each keypoint. Returns (state', bindings',
-    info, culled) as the JAX package's ``keyframe_bundle`` does."""
-    ur = torch.full((cfg.n_features,), -1.0, device=feats.xy.device)
+    int32 the tracked landmark of each keypoint. A stereo or RGB-D system
+    passes the keypoints' right-image u as ``ur`` and its baseline x fx as
+    ``bf`` (a Python float): the bundle then runs its stereo rows. Returns
+    (state', bindings', info, culled) as the JAX package's
+    ``keyframe_bundle`` does."""
+    if ur is None:
+        ur = torch.full((cfg.n_features,), -1.0, device=feats.xy.device)
     return mapping.keyframe_bundle(
         state, kf_id, R, t, stamp, feats, ur, bindings, cam_params,
         n_lm_hwm, float(cfg.width), float(cfg.height),
+        use_stereo=bf is not None, bf=0.0 if bf is None else float(bf),
         n_neighbors=cfg.triangulation_neighbors,
         n_free=cfg.local_window + 1, n_window=cfg.ba_window,
         n_lm_window=cfg.ba_lm_window, do_kf_cull=do_kf_cull,
@@ -1038,3 +1055,239 @@ def pad_frames(frames: np.ndarray, width: int = EUROC_MONO.width,
     out = np.full((f, h, width), value, frames.dtype)
     out[:, :, :w] = frames
     return out
+
+
+# --- Rectified stereo and RGB-D ---------------------------------------------
+
+class RigConfig(NamedTuple):
+    """A rectified stereo (or RGB-D) deployment: the left camera's
+    :class:`MonoConfig` and the rig's constants (the port's own copy)."""
+
+    mono: MonoConfig
+    bf: float              # baseline x fx (Camera.bf)
+    th_depth: float = 35.0  # Stereo.ThDepth
+    min_z: float = 0.3     # the closest depth the stereo search admits
+
+    @property
+    def depth_threshold(self) -> float:
+        """The close-point depth: bf / fx x ThDepth."""
+        return self.bf / self.mono.fx * self.th_depth
+
+
+# KITTI odometry 00-02 as ``scripts/run_kitti.py --stereo --no-vocabulary``
+# runs it (``configs/KITTI00-02.yaml``): the rectified 1241x376 pair with no
+# distortion, bf = 0.53716 x 718.856, ThDepth 35 (close points within
+# 18.80 m), 2000 features over 8 levels at 1.2, the runner's 1024 keyframe
+# and 65536 landmark slots, and the system's windows.
+KITTI_STEREO = RigConfig(
+    mono=MonoConfig(width=1241, height=376, fx=718.856, fy=718.856,
+                    cx=607.1928, cy=185.2157, dist=None, n_features=2000),
+    bf=0.53716 * 718.856, th_depth=35.0)
+# The example pair's right image is the left one shifted this many pixels
+# left: a fronto-parallel plane at bf / 32 (12.07 m at KITTI's bf).
+KITTI_PAIR_SHIFT = 32
+
+
+class StereoFrameArgs(NamedTuple):
+    """``stereo_frame_step``'s arguments: the rectified pair, then
+    :class:`MonoFrameArgs`' fields after its image."""
+
+    img_l: object
+    img_r: object
+    R_pred: object
+    t_pred: object
+    R_last: object
+    t_last: object
+    lm_pos: object
+    lm_desc: object
+    lm_normal: object
+    lm_min_d: object
+    lm_max_d: object
+    lm_valid: object
+    last_bind: object
+    last_desc: object
+    last_angle: object
+    obs_kf: object
+    obs_valid: object
+    ref_kf: object
+    n_kf: object
+    n_found: object
+    n_visible: object
+    cam_params: object
+    dist: object
+
+
+def stereo_extract(img_l, img_r, cam_params, dist,
+                   rig: RigConfig = KITTI_STEREO):
+    """``StereoSlam``'s extraction: the ORB features of each image (K1 once
+    each), then ``stereo.stereo_match`` of the left keypoints into the right
+    image (plain PyTorch). img_l / img_r: (H, W) float32. Returns (left
+    features, right features, StereoMatchResult)."""
+    from .ops import stereo
+    f_l = mono_extract(img_l, cam_params, dist, rig.mono)
+    f_r = mono_extract(img_r, cam_params, dist, rig.mono)
+    m = stereo.stereo_match(f_l.xy, f_l.level, f_l.desc, f_l.valid, f_r.xy,
+                            f_r.level, f_r.desc, f_r.valid, img_l, img_r,
+                            rig.bf, rig.min_z)
+    return f_l, f_r, m
+
+
+def stereo_frame_step(img_l, img_r, R_pred, t_pred, R_last, t_last,
+                      lm_pos, lm_desc, lm_normal, lm_min_d, lm_max_d,
+                      lm_valid, last_bind, last_desc, last_angle, obs_kf,
+                      obs_valid, ref_kf, n_kf, n_found, n_visible,
+                      cam_params, dist, rig: RigConfig = KITTI_STEREO):
+    """One stereo tracking frame, as ``StereoSlam.track`` runs it:
+    ``stereo_extract``, then ``tracking.frame_step(use_stereo=True)`` (the
+    mono motion model, the local window, the final pose optimization with
+    the stereo rows on K3s, the close-point counters). Arguments as
+    :class:`StereoFrameArgs`. Returns (TrackResult, info, n_found,
+    n_visible, StereoMatchResult)."""
+    f, _, m = stereo_extract(img_l, img_r, cam_params, dist, rig)
+    cfg = rig.mono
+    res, info, n_found, n_visible = tracking.frame_step(
+        R_pred, t_pred, R_last, t_last,
+        lm_pos, lm_desc, lm_normal, lm_min_d, lm_max_d, lm_valid,
+        last_bind, last_desc, last_angle,
+        f.xy, f.level, f.desc, f.valid, f.angle, m.u_right,
+        float(rig.bf), float(rig.depth_threshold),
+        obs_kf, obs_valid, ref_kf, cfg.kf_ref_min_obs, n_kf,
+        n_found, n_visible, cam_params, cfg.width, cfg.height,
+        use_stereo=True, **_mono_window(cfg))
+    return res, info, n_found, n_visible, m
+
+
+def kitti_stereo_pair(rig: RigConfig = KITTI_STEREO):
+    """The example pair at the rig's size: ``example_image`` and the same
+    image shifted ``KITTI_PAIR_SHIFT`` px left (wrapped round), a
+    fronto-parallel plane at bf / 32. float32 numpy (left, right)."""
+    left = example_image(rig.mono.height, rig.mono.width)
+    return left, np.roll(left, -KITTI_PAIR_SHIFT, axis=1)
+
+
+def kitti_stereo_scene(feats_xy, feats_level, feats_desc, feats_angle,
+                       feats_valid, depth, case: str = "normal",
+                       rig: RigConfig = KITTI_STEREO,
+                       seed: int = 0) -> StereoFrameArgs:
+    """A map at the rig's full capacity that the example pair tracks
+    against (numpy in and out; the true pose is the identity), built as
+    :func:`euroc_mono_scene` builds it, with each of the left frame's own
+    features lifted to its stereo depth (``depth`` (N,), as
+    ``stereo_extract`` gave it; the plane's bf / 32 where there is none)."""
+    depth = np.asarray(depth, np.float64)
+    plane = rig.bf / KITTI_PAIR_SHIFT
+    scene = euroc_mono_scene(
+        feats_xy, feats_level, feats_desc, feats_angle, feats_valid,
+        cfg=rig.mono, case=case, seed=seed,
+        depth=np.where(depth > 0, depth, plane))
+    left, right = kitti_stereo_pair(rig)
+    return StereoFrameArgs(left, right, *scene[1:])
+
+
+def rig_config(cfg) -> RigConfig:
+    """The :class:`RigConfig` of a ``pipeline.stereo_system.StereoConfig``."""
+    return RigConfig(mono=mono_slam_config(cfg), bf=float(cfg.bf),
+                     th_depth=float(cfg.th_depth), min_z=float(cfg.min_z))
+
+
+STEREO_FRAMES = (Path(__file__).resolve().parents[1] / "tests" / "golden"
+                 / "frames_stereo.npz")
+
+
+class StereoFrames(NamedTuple):
+    """The stereo and RGB-D runs' input: ``SynthWorld(seed=11)`` rendered
+    as a rectified pair (baseline 0.2 m) with the left camera's depth image
+    at t = 0.0, 0.1, ..., 2.9 s (``scripts/make_torch_stereo_frames.py``)."""
+
+    left: np.ndarray         # (30, 480, 640) uint8
+    right: np.ndarray        # (30, 480, 640) uint8
+    depth: np.ndarray        # (30, 480, 640) uint16, z x depth_factor
+    stamps: np.ndarray       # (30,) float64 s
+    R: np.ndarray            # (30, 3, 3) true world->left-camera poses
+    t: np.ndarray            # (30, 3)
+    centres: np.ndarray      # (30, 3) float64 true left camera centres
+    camera: np.ndarray       # fx, fy, cx, cy, width, height
+    baseline: float
+    depth_factor: float
+
+
+def stereo_frames(path=STEREO_FRAMES) -> StereoFrames:
+    """Load the stereo frames fixture."""
+    with np.load(path) as z:
+        return StereoFrames(**{k: (z[k] if z[k].ndim else float(z[k]))
+                               for k in StereoFrames._fields})
+
+
+# The stereo runs' gate (tests/test_stereo_system.py): more than 20 frames
+# associated, the ATE without scale alignment under 0.12 m, and the path
+# length within 5 % of the truth.
+STEREO_MIN_FRAMES = 20
+STEREO_ATE_GATE_M = 0.12
+STEREO_PATH_TOL = 0.05
+# The JAX package's RgbdSlam on the same frames at TUM1's settings
+# (``scripts/stereo_reference_jax.py rgbd`` on the CPU): 30 frames, ATE
+# without scale alignment 0.007657 m. The RGB-D runs' gate: that frame
+# count +- 1 and an ATE under 1.5 x 0.007657 + 0.002 m.
+RGBD_JAX_FRAMES = 30
+RGBD_JAX_ATE_M = 0.007657241287320005
+
+
+def stereo_golden_config(**changes):
+    """``tests/test_stereo_system.py``'s configuration: the world's 640x480
+    pinhole (fx = fy = 400), bf = 0.2 x 400 = 80, ThDepth 35, 1024
+    features, 32 keyframe / 4096 landmark slots, 8 observations, 10 fps,
+    TrackedMapPoints(1). ``changes`` replace fields."""
+    from .pipeline.stereo_system import StereoConfig
+    cfg = StereoConfig(fx=400.0, fy=400.0, cx=320.0, cy=240.0, width=640,
+                       height=480, n_features=1024, max_kf=32, max_lm=4096,
+                       max_obs=8, fps=10, kf_ref_min_obs=1, bf=80.0,
+                       th_depth=35.0)
+    return dataclasses.replace(cfg, **changes)
+
+
+# The KITTI-capacity run's frames: the stereo frames padded on the right to
+# KITTI's 1241 columns with the world's background and cropped to its 376
+# rows, 52..427 (so cy = 240 - 52 = 188).
+KITTI_CROP_TOP = 52
+
+
+def kitti_frames(frames: np.ndarray, rig: RigConfig = KITTI_STEREO,
+                 value: int = EUROC_PAD_VALUE) -> np.ndarray:
+    """(F, 480, 640) frames padded right to the rig's width with ``value``
+    and cropped to its height from row ``KITTI_CROP_TOP``."""
+    top = KITTI_CROP_TOP
+    return pad_frames(frames, rig.mono.width, value)[
+        :, top:top + rig.mono.height]
+
+
+def kitti_golden_config(**changes):
+    """The stereo frames at :data:`KITTI_STEREO`'s size and capacity: 2000
+    features, 1024 keyframe / 65536 landmark slots, 12 observations,
+    ThDepth 35, the system's windows, on 1241x376 frames
+    (:func:`kitti_frames`), with the synthetic world's camera (fx = fy =
+    400, bf = 80, cx = 320, cy = 188), 10 fps and TrackedMapPoints(1).
+    ``changes`` replace fields."""
+    from .pipeline.stereo_system import StereoConfig
+    k = KITTI_STEREO.mono
+    cfg = StereoConfig(fx=400.0, fy=400.0, cx=320.0,
+                       cy=240.0 - KITTI_CROP_TOP, width=k.width,
+                       height=k.height, n_features=k.n_features,
+                       max_kf=k.max_kf, max_lm=k.max_lm, max_obs=k.max_obs,
+                       fps=10, kf_ref_min_obs=1, bf=80.0,
+                       th_depth=KITTI_STEREO.th_depth)
+    return dataclasses.replace(cfg, **changes)
+
+
+def tum_rgbd_golden_config(**changes):
+    """The stereo frames' left images and depth at TUM1's RGB-D settings
+    (``configs/TUM1_rgbd.yaml`` as ``scripts/run_tum_rgbd.py`` runs it):
+    1000 features, bf 40, ThDepth 40, DepthMapFactor 5000, 1024 keyframe /
+    65536 landmark slots, 12 observations; with the synthetic world's camera
+    (fx = fy = 400, 640x480), 10 fps and TrackedMapPoints(1). ``changes``
+    replace fields."""
+    from .pipeline.stereo_system import RgbdConfig
+    cfg = RgbdConfig(fx=400.0, fy=400.0, cx=320.0, cy=240.0, width=640,
+                     height=480, n_features=1000, max_kf=1024, max_lm=65536,
+                     max_obs=12, fps=10, kf_ref_min_obs=1, bf=40.0,
+                     th_depth=40.0, depth_scale=5000.0)
+    return dataclasses.replace(cfg, **changes)

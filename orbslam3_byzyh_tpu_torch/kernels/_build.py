@@ -45,7 +45,9 @@ class Kernel:
 
     ``functions`` maps each exported C function to its ctypes argument
     types (all return ``int``, a ``cudaError_t``). ``launches`` counts the
-    successful calls made through :meth:`launch`, and only those.
+    successful calls made through :meth:`launch`, and only those;
+    ``fn_launches`` counts them per exported function (a source that
+    exports two kernels' launchers, such as K3's mono and stereo variants).
     """
 
     def __init__(self, name: str, functions: dict[str, list]):
@@ -53,6 +55,7 @@ class Kernel:
         self.source = CSRC / f"{name}.cu"
         self.functions = functions
         self.launches = 0
+        self.fn_launches = {fn: 0 for fn in functions}
         self.build_seconds: float | None = None
         self._lib: ctypes.CDLL | None = None
         self._lock = threading.Lock()
@@ -103,6 +106,7 @@ class Kernel:
             raise RuntimeError(f"{self.name}.{fn} failed: CUDA error {err} "
                                f"({msg})")
         self.launches += 1
+        self.fn_launches[fn] += 1
 
 
 def ptr(t) -> ctypes.c_void_p:

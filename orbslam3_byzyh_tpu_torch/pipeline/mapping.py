@@ -7,8 +7,9 @@ the capacity valve, duplicate fusion (SearchInNeighbors / Fuse), the
 covisibility-windowed local BA, landmark and keyframe culling, and the
 full-map BA the monocular initialisation runs (``local_ba``, with the
 scatter Schur assembly), and the redundancy-cull candidate the system's
-forced culling ranks by (``cull_candidate``). The global BA waits for loop
-closing.
+forced culling ranks by (``cull_candidate``). With ``use_stereo`` the BAs
+add the keypoints' stereo rows (``kp_ur``, baseline x fx ``bf``). The
+global BA waits for loop closing.
 
 Every function returns a new state and writes into none of its inputs. The
 JAX package's drop-mode scatters write a padded spare row that is sliced
@@ -35,7 +36,6 @@ from ..ops import geometry, lie, matching
 from ..solver import ba
 from .tracking import SCALE, SIGMA2, _inv_sigma2_on
 
-_STEREO_WAITS = "the stereo keyframe bundle waits for the stereo slice"
 _INT32_MAX = 2 ** 31 - 1
 
 
@@ -153,11 +153,11 @@ def triangulate_pair(Ra, ta, xy_a, level_a, desc_a, free_a,
 
 
 def _full_ba_problem(state: ms.MapState, free_kf: torch.Tensor, cam_params,
-                     use_stereo: bool = False) -> ba.BAProblem:
+                     use_stereo: bool = False,
+                     bf: float = 0.0) -> ba.BAProblem:
     """The whole-map BA problem, every keyframe and landmark slot, with only
-    the live ``free_kf`` (K,) poses free."""
-    if use_stereo:
-        raise NotImplementedError(_STEREO_WAITS)
+    the live ``free_kf`` (K,) poses free; with ``use_stereo`` the keypoints'
+    right-image u (``kp_ur``) adds stereo rows."""
     kfs, lms, obs = state.kfs, state.lms, state.obs
     kf_safe = obs.kf.clamp_min(0).long()
     kp_safe = obs.kp.clamp_min(0).long()
@@ -167,7 +167,9 @@ def _full_ba_problem(state: ms.MapState, free_kf: torch.Tensor, cam_params,
         obs_w=_inv_sigma2_on(kfs.R.device)[
             kfs.kp_level[kf_safe, kp_safe].long()],
         obs_valid=obs.valid & (obs.kf >= 0), fixed=~(free_kf & kfs.valid),
-        lm_valid=lms.valid, cam_params=cam_params)
+        lm_valid=lms.valid, cam_params=cam_params,
+        obs_ur=kfs.kp_ur[kf_safe, kp_safe] if use_stereo else None,
+        bf=float(bf) if use_stereo else None)
 
 
 def _apply_ba_result(state: ms.MapState, res: ba.BAResult) -> ms.MapState:
@@ -183,13 +185,13 @@ def _apply_ba_result(state: ms.MapState, res: ba.BAResult) -> ms.MapState:
 
 
 def local_ba(state: ms.MapState, free_kf: torch.Tensor, cam_params,
-             model_id: int = cam.PINHOLE,
-             use_stereo: bool = False) -> ms.MapState:
+             model_id: int = cam.PINHOLE, use_stereo: bool = False,
+             bf: float = 0.0) -> ms.MapState:
     """Bundle adjust the whole map with only ``free_kf`` poses free (stages
     (5, 10)), by the scatter Schur assembly: the one-hot form's cost grows
     with the number of keyframe slots squared. Returns the updated state,
     with the observations' inlier gating applied."""
-    prob = _full_ba_problem(state, free_kf, cam_params, use_stereo)
+    prob = _full_ba_problem(state, free_kf, cam_params, use_stereo, bf)
     res = ba.bundle_adjust(prob, model_id=model_id,
                            assembly=ba.schur_pieces_scatter)
     return _apply_ba_result(state, res)
@@ -204,10 +206,9 @@ def windowed_local_ba(state: ms.MapState, kf_id, cam_params,
     landmarks = the first ``n_lm_window`` live landmarks those observe;
     fixed = the other observers of those landmarks (at most ``n_window -
     n_free``), KF 0, and the oldest free keyframe when nothing else is
-    fixed. Runs ``bundle_adjust`` with stages (4, 6) and scatters the free
-    poses, the window's points and its inlier gating back."""
-    if use_stereo:
-        raise NotImplementedError(_STEREO_WAITS)
+    fixed. Runs ``bundle_adjust`` with stages (4, 6) (stereo rows from
+    ``kp_ur`` with ``use_stereo``) and scatters the free poses, the window's
+    points and its inlier gating back."""
     kfs, lms, obs = state.kfs, state.lms, state.obs
     dev = kfs.R.device
     max_kf = kfs.valid.shape[0]
@@ -272,7 +273,10 @@ def windowed_local_ba(state: ms.MapState, kf_id, cam_params,
         obs_uv=kfs.kp_xy[kf_safe, okp_g],
         obs_w=_inv_sigma2_on(dev)[obs_level.long()],
         obs_valid=oval_g & in_win, fixed=win_fixed, lm_valid=lm_ok,
-        cam_params=cam_params)
+        cam_params=cam_params,
+        obs_ur=(torch.where(in_win, kfs.kp_ur[kf_safe, okp_g], -1.0)
+                if use_stereo else None),
+        bf=float(bf) if use_stereo else None)
     # (4, 6) iterations, as the JAX package runs its per-keyframe local BA.
     res = ba.bundle_adjust(prob, model_id=model_id, stages=(4, 6))
 
@@ -470,11 +474,13 @@ def keyframe_bundle(state: ms.MapState, kf_id, R, t, stamp, feats, ur,
     ``kf_id`` is the new keyframe's slot (an int or a 0-d tensor);
     ``feats`` has ``xy``, ``level``, ``angle``, ``desc``, ``valid``;
     ``bindings`` (N,) int32 is the landmark of each keypoint (-1 none).
+    ``ur`` (N,) is the right-image u of each keypoint (-1 none); with
+    ``use_stereo`` the local BA adds its stereo rows (``bf`` a Python
+    float) and the valve keeps room for two frames' worth of landmarks, as
+    a stereo keyframe also back-projects its depths after the bundle.
     Returns (state', bindings', info, culled): info is [parent,
     parent_count, n_lm_hwm', R_kf (9), t_kf (3)] as float32 (15,), culled
     the (K,) mask of keyframes this call dropped."""
-    if use_stereo:
-        raise NotImplementedError(_STEREO_WAITS)
     dev = feats.xy.device
     n_feat = feats.xy.shape[0]
     ki = ms.slot_index(kf_id, dev)
@@ -490,7 +496,8 @@ def keyframe_bundle(state: ms.MapState, kf_id, R, t, stamp, feats, ur,
 
     # The valve runs after this keyframe's observations bind, so its
     # landmarks rank newest and survive.
-    state = landmark_overflow_valve(state, n_feat)
+    state = landmark_overflow_valve(state,
+                                    2 * n_feat if use_stereo else n_feat)
 
     free_kp = feats.valid & (bindings < 0)
     hwm = torch.full((), n_lm_hwm, dtype=torch.int64, device=dev)
@@ -516,6 +523,7 @@ def keyframe_bundle(state: ms.MapState, kf_id, R, t, stamp, feats, ur,
     state = fuse_duplicates(state, kf_id, cam_params, img_w, img_h)
     if do_local_ba:
         state = windowed_local_ba(state, kf_id, cam_params, model_id=model_id,
+                                  use_stereo=use_stereo, bf=bf,
                                   n_free=n_free, n_window=n_window,
                                   n_lm_window=n_lm_window)
         state = cull_landmarks(state, kf_id)

@@ -24,6 +24,13 @@ packed read a tracked frame (``frame_step``'s ``info`` with the last pose),
 and one packed read of the previous keyframe bundle's outputs at the next
 keyframe. Each frame's uploads (the image; the predicted and last poses)
 come from page-locked memory and do not wait for the device.
+
+The stereo and RGB-D systems (``pipeline/stereo_system.py``) extend it
+through ``_ba_kwargs`` (the stereo rows of the frame step's final pose
+optimization and of the bundle), ``_track_local_map``,
+``_need_new_keyframe`` (reading ``_close_counts``, which every tracked
+frame's ``info`` carries) and the slot ``_create_keyframe`` returns (None
+when the map is full and no keyframe was made).
 """
 
 from __future__ import annotations
@@ -161,6 +168,12 @@ class MonoSlam:
         n = config.n_features
         self._no_ur = torch.full((n,), -1.0, device=dev)
         self._zero = torch.zeros((), device=dev)
+        # A stereo or RGB-D frame's right-image u and depth per keypoint
+        # (-1 where none), and its close-point counts (tracked, untracked)
+        # from the frame step: the stereo keyframe rule's inputs.
+        self._ur = None
+        self._depth = None
+        self._close_counts = (0, 0)
 
     # ------------------------------------------------------------------
     @property
@@ -314,6 +327,23 @@ class MonoSlam:
     # ------------------------------------------------------------------
     # Per-frame tracking (Track, the OK-state path)
     # ------------------------------------------------------------------
+    def _ba_kwargs(self) -> dict:
+        """The bundle's and the final pose optimization's stereo arguments:
+        a stereo or RGB-D system returns use_stereo and bf (a Python
+        float)."""
+        return {}
+
+    def _stereo_kwargs(self) -> dict:
+        """``frame_step``'s stereo arguments for this frame: the right-image
+        u, bf and the close-point depth, or the mono placeholders."""
+        ba_kw = self._ba_kwargs()
+        if not ba_kw.get("use_stereo") or self._ur is None:
+            return dict(feats_ur=self._no_ur, bf=self._zero,
+                        th_depth=self._zero, use_stereo=False)
+        return dict(feats_ur=self._ur, bf=ba_kw["bf"],
+                    th_depth=float(self.cfg.depth_threshold),
+                    use_stereo=True)
+
     def _window_kwargs(self) -> dict:
         return dict(max_kf=self.cfg.max_kf,
                     n_local_kf=self.cfg.local_kf_window,
@@ -359,21 +389,23 @@ class MonoSlam:
         last = self._last
         R_pred, t_pred, R_last, t_last = self._motion_prior()
         # One fused device step (motion model with its widened retry, the
-        # local-map track, the counters, the reference-KF count) and one
-        # read: its info with the last pose.
+        # local-map track, the counters, the reference-KF count, the stereo
+        # close-point counts) and one read: its info with the last pose.
         lms, obs = self.state.lms, self.state.obs
+        st = self._stereo_kwargs()
         res, info, n_found, n_visible = tracking.frame_step(
             R_pred, t_pred, R_last, t_last, lms.pos, lms.desc, lms.normal,
             lms.min_dist, lms.max_dist, lms.valid, last["bindings"],
             last["feats"].desc, last["feats"].angle, feats.xy, feats.level,
-            feats.desc, feats.valid, feats.angle, self._no_ur, self._zero,
-            self._zero, obs.kf, obs.valid, self.last_kf_id,
+            feats.desc, feats.valid, feats.angle, st["feats_ur"], st["bf"],
+            st["th_depth"], obs.kf, obs.valid, self.last_kf_id,
             self.cfg.kf_ref_min_obs, self.n_kf, lms.n_found, lms.n_visible,
             self.cam_params, self.cfg.width, self.cfg.height,
-            **self._window_kwargs())
+            use_stereo=st["use_stereo"], **self._window_kwargs())
         info_np, R_lw, t_lw = device_mod.read(info, R_last, t_last)
         n_inliers = int(info_np[0])
         ref_matches = max(int(info_np[1]), 1)
+        self._close_counts = (int(info_np[2]), int(info_np[3]))
         R_np = info_np[4:13].reshape(3, 3)
         t_np = info_np[13:16]
 
@@ -598,16 +630,20 @@ class MonoSlam:
     # ------------------------------------------------------------------
     def _create_keyframe(self, feats, track_res, stamp, R_np, t_np):
         """CreateNewKeyFrame and the LocalMapping work for this keyframe:
-        one dispatch of ``graft.mono_keyframe_step``, its outputs read at
-        the next keyframe (the previous bundle's first)."""
+        one dispatch of ``graft.mono_keyframe_step`` (with the frame's
+        stereo rows on a stereo or RGB-D system), its outputs read at the
+        next keyframe (the previous bundle's first). Returns the new
+        keyframe's slot, or None when the map is full and none was made."""
         self._drain_pending()
         if self.n_kf >= self.cfg.max_kf - 1 and not self._kf_slot_available():
-            return
+            return None
         kf_id = self.n_kf
+        st = self._stereo_kwargs()
         state, bindings, info, culled = graft.mono_keyframe_step(
             self.state, kf_id, track_res.R, track_res.t, stamp, feats,
             track_res.bindings, self.cam_params, self.n_lm, cfg=self.mcfg,
-            do_kf_cull=self.n_kf >= 8)
+            do_kf_cull=self.n_kf >= 8, ur=self._ur,
+            bf=st["bf"] if st["use_stereo"] else None)
         self.state = state
         self.n_kf = kf_id + 1
         self.frames_since_kf = 0
@@ -624,6 +660,7 @@ class MonoSlam:
                            state.kfs.valid.to(torch.float32)]))
         # The hosting frame's trajectory record is this keyframe.
         self._kf_host_pending = True
+        return kf_id
 
     def _drain_pending(self):
         """Read the last keyframe bundle's outputs: the spanning-tree

@@ -6,8 +6,9 @@ Port of ``orbslam3_byzyh_tpu/pipeline/tracking.py`` (monocular):
 ``track_local_map_windowed`` (UpdateLocalKeyFrames / UpdateLocalPoints),
 ``frame_step`` (the fused step the systems call on every tracked frame),
 ``ref_kf_matches``, ``track_reference_keyframe`` and
-``match_for_initialization``. The stereo variants wait for the stereo
-slice: ``use_stereo=True`` raises ``NotImplementedError``.
+``match_for_initialization``; and the stereo variant
+``track_local_map_stereo``, whose final pose optimization mixes stereo rows
+(K3s) with mono ones, selected by ``use_stereo=True``.
 
 The JAX package's drop-mode scatters (``.at[sentinel].set(mode="drop")``)
 become writes into one padded slot that is sliced off, and its ``top_k``
@@ -36,10 +37,6 @@ INV_SIGMA2 = 1.0 / SIGMA2
 RETRY_BELOW = 10
 MOTION_RADIUS = 15.0
 RETRY_RADIUS = 30.0
-
-_STEREO_WAITS = ("stereo tracking (track_local_map_stereo, "
-                 "pose_optimization_stereo) waits for the stereo slice")
-
 
 @functools.cache
 def _inv_sigma2_on(device: torch.device) -> torch.Tensor:
@@ -192,16 +189,12 @@ def track_motion_model(R_pred, t_pred, lm_pos, lm_valid,
     return TrackResult(*(x[0] for x in res))
 
 
-def track_local_map(R0, t0, bindings,
-                    lm_pos, lm_desc, lm_normal, lm_min_d, lm_max_d, lm_valid,
-                    feats_xy, feats_level, feats_desc, feats_valid,
-                    cam_params, img_w: int, img_h: int,
-                    model_id: int = cam.PINHOLE) -> TrackResult:
-    """Project all visible landmarks, widen the match set, re-optimize.
-
-    Landmarks already bound to a keypoint keep their binding; unbound
-    visible landmarks search within a radius of 4 * 1.2^level px.
-    """
+def _search_local_points(R0, t0, bindings, lm_pos, lm_desc, lm_normal,
+                         lm_min_d, lm_max_d, lm_valid, feats_xy, feats_level,
+                         feats_desc, feats_valid, cam_params, img_w: int,
+                         img_h: int):
+    """SearchLocalPoints: the incoming bindings united with the matches of
+    the unbound visible landmarks (radius 4 * 1.2^level px, ratio 0.8)."""
     n_kp = feats_xy.shape[0]
     n_lm = lm_pos.shape[0]
     dev = lm_pos.device
@@ -232,18 +225,78 @@ def track_local_map(R0, t0, bindings,
     new_bind = torch.full((n_kp + 1,), -1, dtype=torch.int32, device=dev)
     new_bind[torch.where(matched, mj, n_kp).long()] = torch.where(
         matched, torch.arange(n_lm, dtype=torch.int32, device=dev), -1)
-    bindings = torch.where(is_bound_kp, bindings, new_bind[:n_kp])
+    return torch.where(is_bound_kp, bindings, new_bind[:n_kp])
 
-    # Final pose optimization over all bound keypoints.
+
+def _final_pose(R0, t0, bindings, lm_pos, feats_xy, feats_level,
+                feats_valid, cam_params, model_id, feats_ur=None, bf=None):
+    """The final pose optimization over every bound keypoint (stereo rows
+    where ``feats_ur`` is given); outliers lose their binding."""
     has = bindings >= 0
     pw = lm_pos[bindings.clamp_min(0).long()]
-    inv_s2 = _inv_sigma2_on(dev)[feats_level.long()]
-    res = pose_opt.pose_optimization(
-        R0, t0, pw, feats_xy, inv_s2, has & feats_valid, cam_params,
-        model_id=model_id)
+    inv_s2 = _inv_sigma2_on(lm_pos.device)[feats_level.long()]
+    if feats_ur is None:
+        res = pose_opt.pose_optimization(
+            R0, t0, pw, feats_xy, inv_s2, has & feats_valid, cam_params,
+            model_id=model_id)
+    else:
+        res = pose_opt.pose_optimization_stereo(
+            R0, t0, pw, feats_xy, feats_ur, bf, inv_s2, has & feats_valid,
+            cam_params, model_id=model_id)
     bindings = torch.where(res.inlier | ~has, bindings, -1)
     return TrackResult(R=res.R, t=res.t, bindings=bindings,
                        n_inliers=res.n_inliers)
+
+
+def track_local_map(R0, t0, bindings,
+                    lm_pos, lm_desc, lm_normal, lm_min_d, lm_max_d, lm_valid,
+                    feats_xy, feats_level, feats_desc, feats_valid,
+                    cam_params, img_w: int, img_h: int,
+                    model_id: int = cam.PINHOLE) -> TrackResult:
+    """Project all visible landmarks, widen the match set, re-optimize.
+
+    Landmarks already bound to a keypoint keep their binding; unbound
+    visible landmarks search within a radius of 4 * 1.2^level px.
+    """
+    bindings = _search_local_points(
+        R0, t0, bindings, lm_pos, lm_desc, lm_normal, lm_min_d, lm_max_d,
+        lm_valid, feats_xy, feats_level, feats_desc, feats_valid, cam_params,
+        img_w, img_h)
+    return _final_pose(R0, t0, bindings, lm_pos, feats_xy, feats_level,
+                       feats_valid, cam_params, model_id)
+
+
+def track_local_map_stereo(R0, t0, bindings,
+                           lm_pos, lm_desc, lm_normal, lm_min_d, lm_max_d,
+                           lm_valid,
+                           feats_xy, feats_level, feats_desc, feats_valid,
+                           feats_ur, bf,
+                           cam_params, img_w: int, img_h: int,
+                           model_id: int = cam.PINHOLE) -> TrackResult:
+    """``track_local_map`` with the stereo residual in the final pose
+    optimization (K3s): keypoints with a right-image match (``feats_ur >=
+    0``) add the u_r = u - bf / z row, the others stay monocular. ``bf`` is
+    a Python float."""
+    bindings = _search_local_points(
+        R0, t0, bindings, lm_pos, lm_desc, lm_normal, lm_min_d, lm_max_d,
+        lm_valid, feats_xy, feats_level, feats_desc, feats_valid, cam_params,
+        img_w, img_h)
+    return _final_pose(R0, t0, bindings, lm_pos, feats_xy, feats_level,
+                       feats_valid, cam_params, model_id, feats_ur, bf)
+
+
+def _track_local(R0, t0, bindings, lm, feats_xy, feats_level, feats_desc,
+                 feats_valid, feats_ur, bf, cam_params, img_w, img_h,
+                 use_stereo, model_id) -> TrackResult:
+    """``track_local_map`` or, with ``use_stereo``, its stereo variant."""
+    if use_stereo:
+        return track_local_map_stereo(
+            R0, t0, bindings, *lm, feats_xy, feats_level, feats_desc,
+            feats_valid, feats_ur, bf, cam_params, img_w, img_h,
+            model_id=model_id)
+    return track_local_map(R0, t0, bindings, *lm, feats_xy, feats_level,
+                           feats_desc, feats_valid, cam_params, img_w, img_h,
+                           model_id=model_id)
 
 
 def _window_map(win: LocalWindow, lm_pos, lm_desc, lm_normal, lm_min_d,
@@ -276,11 +329,11 @@ def track_local_map_windowed(R0, t0, bindings,
                              max_kf: int = 0, n_local_kf: int = 20,
                              n_local_lm: int = 4096,
                              recent_kf: int = 4) -> TrackResult:
-    """``track_local_map`` against the frame's local window
-    (``select_local_window`` over the incoming bindings), with global-id
-    bindings in and out; the whole map when it fits in the window."""
-    if use_stereo:
-        raise NotImplementedError(_STEREO_WAITS)
+    """``track_local_map`` (``track_local_map_stereo`` with ``use_stereo``:
+    ``feats_ur`` (N,) and ``bf`` a Python float) against the frame's local
+    window (``select_local_window`` over the incoming bindings), with
+    global-id bindings in and out; the whole map when it fits in the
+    window."""
     lm = (lm_pos, lm_desc, lm_normal, lm_min_d, lm_max_d, lm_valid)
     use_window = max_kf > 0 and n_local_lm < lm_pos.shape[0]
     if use_window:
@@ -289,9 +342,9 @@ def track_local_map_windowed(R0, t0, bindings,
             n_local_kf=n_local_kf, n_local_lm=n_local_lm, recent_kf=recent_kf)
         lm = _window_map(win, *lm)
         bindings = _to_window(win, bindings)
-    res = track_local_map(R0, t0, bindings, *lm, feats_xy, feats_level,
-                          feats_desc, feats_valid, cam_params, img_w, img_h,
-                          model_id=model_id)
+    res = _track_local(R0, t0, bindings, lm, feats_xy, feats_level,
+                       feats_desc, feats_valid, feats_ur, bf, cam_params,
+                       img_w, img_h, use_stereo, model_id)
     if use_window:
         res = res._replace(bindings=_to_global(win, res.bindings))
     return res
@@ -323,10 +376,14 @@ def frame_step(R_pred, t_pred, R_last, t_last,
     ``torch.where`` selects. Nothing is read back to the host; the caller's
     read of ``info`` is the frame's one synchronisation.
 
+    With ``use_stereo`` (``bf`` a Python float, ``feats_ur`` the frame's
+    right-image u, -1 where none), the local-map track's final pose
+    optimization adds the stereo rows (K3s); the motion model stays mono.
+    ``th_depth`` is the close-point depth (bf / fx * ThDepth; 0 for a mono
+    rig).
+
     Returns (TrackResult, info, n_found', n_visible').
     """
-    if use_stereo:
-        raise NotImplementedError(_STEREO_WAITS)
     both = _motion_model(
         torch.stack([R_pred, R_last]), torch.stack([t_pred, t_last]),
         (MOTION_RADIUS, RETRY_RADIUS), lm_pos, lm_valid, last_bind,
@@ -346,9 +403,9 @@ def frame_step(R_pred, t_pred, R_last, t_last,
             n_local_kf=n_local_kf, n_local_lm=n_local_lm, recent_kf=recent_kf)
         lm = _window_map(win, *lm)
         bindings = _to_window(win, bindings)
-    res = track_local_map(res.R, res.t, bindings, *lm, feats_xy, feats_level,
-                          feats_desc, feats_valid, cam_params, img_w, img_h,
-                          model_id=model_id)
+    res = _track_local(res.R, res.t, bindings, lm, feats_xy, feats_level,
+                       feats_desc, feats_valid, feats_ur, bf, cam_params,
+                       img_w, img_h, use_stereo, model_id)
     if use_window:
         res = res._replace(bindings=_to_global(win, res.bindings))
 
@@ -366,6 +423,8 @@ def frame_step(R_pred, t_pred, R_last, t_last,
 
     # Stereo close-point counters (zero for a mono rig: feats_ur < 0).
     disp = feats_xy[:, 0] - feats_ur
+    if not isinstance(bf, torch.Tensor):  # a number: divide in float32
+        bf = torch.full_like(disp, bf)
     z = bf / disp.clamp_min(1e-6)
     close = (feats_ur >= 0) & (disp > 1e-6) & (z < th_depth) & feats_valid
     tracked = res.bindings >= 0

@@ -1,11 +1,14 @@
 """Bundle adjustment with Schur-complement landmark elimination.
 
-Port of ``orbslam3_byzyh_tpu/solver/ba.py`` (pinhole, monocular rows).
-Observations are landmark-major:
+Port of ``orbslam3_byzyh_tpu/solver/ba.py`` (pinhole). Observations are
+landmark-major:
   * ``obs_kf    (L, O) int32``  keyframe index per observation slot (-1 empty)
   * ``obs_uv    (L, O, 2)``     measured pixels
   * ``obs_w     (L, O)``        information (1 / sigma^2 of the level)
   * ``obs_valid (L, O) bool``
+  * ``obs_ur    (L, O)``        optional: right-image u (-1 = a mono row);
+    a stereo row adds the residual u_r - (u - bf / z)
+    (EdgeStereoSE3ProjectXYZ) and gates at 7.815.
 
 Each landmark row is eliminated by its closed-form 3x3 inverse; its Schur
 contribution is summed into the dense reduced camera system (K, K, 6, 6) by
@@ -24,9 +27,8 @@ The 6K x 6K solve is ``torch.linalg.solve_ex``, which reports failure in a
 tensor instead of reading it back to the host. The LM accept/reject
 decision is a ``torch.where`` on the device.
 
-Robust kernel: Huber sqrt(5.991); outliers are re-classified between
-stages. Stereo rows (``obs_ur``) and the KB8 camera raise
-``NotImplementedError`` until the stereo slice.
+Robust kernel: Huber sqrt(5.991) (sqrt(7.815) on a stereo row); outliers
+are re-classified between stages.
 """
 
 from __future__ import annotations
@@ -38,9 +40,6 @@ import torch
 from ..ops import camera as cam
 from ..ops import lie
 from . import lm
-
-_STEREO_WAITS = "stereo BA rows (obs_ur) wait for the stereo slice"
-
 
 def _inv3x3(A: torch.Tensor) -> torch.Tensor:
     """Closed-form batched 3x3 inverse (adjugate / det, the determinant
@@ -78,8 +77,9 @@ class BAProblem(NamedTuple):
     fixed: torch.Tensor      # (K,) bool: poses held constant
     lm_valid: torch.Tensor   # (L,) bool
     cam_params: torch.Tensor  # (4,) fx, fy, cx, cy
-    obs_ur: torch.Tensor = None   # stereo rows: not ported
-    bf: torch.Tensor = None
+    # Stereo observations: right-image u per observation, -1 = mono.
+    obs_ur: torch.Tensor = None   # (L, O) or None
+    bf: torch.Tensor = None       # baseline x fx (required with obs_ur)
 
 
 class BAResult(NamedTuple):
@@ -91,10 +91,9 @@ class BAResult(NamedTuple):
 
 
 def _residuals(p: BAProblem, R, t, points, model_id):
-    """Per-observation residuals (L, O, 2), pose Jacobians (L, O, 2, 6),
-    point Jacobians (L, O, 2, 3) and the depth gate (L, O)."""
-    if p.obs_ur is not None:
-        raise NotImplementedError(_STEREO_WAITS)
+    """Per-observation residuals (L, O, R), pose Jacobians (L, O, R, 6),
+    point Jacobians (L, O, R, 3) and the depth gate (L, O); R is 2, or 3
+    with stereo rows (the third row zero on a mono observation)."""
     kf = p.obs_kf.clamp_min(0).long()
     Rk = R[kf]                                   # (L, O, 3, 3)
     tk = t[kf]                                   # (L, O, 3)
@@ -109,11 +108,26 @@ def _residuals(p: BAProblem, R, t, points, model_id):
     Jp = -(Jproj @ dpc_dpose)
     Jl = -(Jproj @ Rk)
     depth_ok = pc[..., 2] > 0.05
-    return r, Jp, Jl, depth_ok
+    if p.obs_ur is None:
+        return r, Jp, Jl, depth_ok
+    # The third row, u_r = u - bf / z, on the stereo rows only.
+    iz = 1.0 / pc[..., 2].clamp_min(1e-6)
+    has_ur = p.obs_ur >= 0.0
+    r3 = torch.where(has_ur, p.obs_ur - (uv[..., 0] - p.bf * iz), 0.0)
+    e = p.bf * iz * iz                                   # d(-bf / z) / dz
+    zero = torch.zeros_like(e)
+    extra_pose = torch.stack([zero, zero, e, e * pc[..., 1], -e * pc[..., 0],
+                              zero], -1)
+    Jp3 = torch.where(has_ur[..., None], Jp[..., 0, :] - extra_pose, 0.0)
+    Jl3 = torch.where(has_ur[..., None],
+                      Jl[..., 0, :] - e[..., None] * Rk[..., 2, :], 0.0)
+    return (torch.cat([r, r3[..., None]], -1),
+            torch.cat([Jp, Jp3[..., None, :]], -2),
+            torch.cat([Jl, Jl3[..., None, :]], -2), depth_ok)
 
 
 def _build_system(p: BAProblem, R, t, points, inlier, model_id, robust,
-                  delta2: float) -> dict:
+                  delta2) -> dict:
     """The normal-equation blocks of every landmark row and the cost. ``bl``
     and ``bp_o`` carry the Gauss-Newton sign (H dx = b, b = -J^T W r)."""
     r, Jp, Jl, depth_ok = _residuals(p, R, t, points, model_id)
@@ -284,13 +298,14 @@ def bundle_adjust(p: BAProblem, model_id: int = cam.PINHOLE,
                   stages: tuple = (5, 10),
                   assembly=schur_pieces) -> BAResult:
     """Schur-complement LM bundle adjustment. ``stages``: LM iterations per
-    stage; between stages the observations are re-classified (chi2 <= 5.991
-    and depth > 0.05), and the last stage drops the robust kernel.
-    ``assembly``: ``schur_pieces`` or ``schur_pieces_scatter``. Every
-    decision stays on the device."""
-    if p.obs_ur is not None:
-        raise NotImplementedError(_STEREO_WAITS)
-    delta2 = lm.CHI2_MONO
+    stage; between stages the observations are re-classified (chi2 <= 5.991,
+    7.815 on a stereo row, and depth > 0.05), and the last stage drops the
+    robust kernel. ``assembly``: ``schur_pieces`` or
+    ``schur_pieces_scatter``. Every decision stays on the device."""
+    if p.obs_ur is None:
+        delta2 = lm.CHI2_MONO
+    else:
+        delta2 = torch.where(p.obs_ur >= 0.0, lm.CHI2_STEREO, lm.CHI2_MONO)
     n_kf = p.R.shape[0]
     inlier = torch.ones_like(p.obs_valid)
     R, t, points = p.R, p.t, p.points

@@ -5,7 +5,9 @@ PoseOptimization``): 4 rounds x 10 LM iterations; the chi2 gate 5.991
 re-classifies outliers between rounds; Huber kernel with delta^2 = 5.991,
 dropped in the final round. The whole schedule is kernel K3
 (:mod:`.cuda_pose_opt`), whose plain PyTorch version is the JAX package's
-XLA path. Stereo waits for a later port.
+XLA path. ``pose_optimization_stereo`` mixes mono rows with stereo rows
+(EdgeStereoSE3ProjectXYZOnlyPose: a third residual u_r - (u - bf / z), chi2
+gate and Huber delta^2 7.815); it is kernel K3s, K3 with its stereo flag.
 
 State: camera pose Tcw as (R (3, 3), t (3,)). Left-multiplicative update
 T <- exp([rho, phi]) * T, so d(pc)/d(delta) = [I | -skew(pc)].
@@ -41,6 +43,29 @@ def _residuals_mono(R, t, pts_w, obs_uv, cam_params, model_id):
     return r, J, pc[:, 2] > 0.05
 
 
+def _residuals_stereo(R, t, pts_w, obs_uv, obs_ur, bf, cam_params,
+                      model_id):
+    """The 3-row stereo residual (u, v, u_r = u - bf / z) and its (N, 3, 6)
+    Jacobian; rows with ``obs_ur < 0`` are monocular: their third row is
+    zero. Returns (r, J, depth_ok, has_ur)."""
+    r2, J2, depth_ok = _residuals_mono(R, t, pts_w, obs_uv, cam_params,
+                                       model_id)
+    pc = pts_w @ R.T + t
+    iz = 1.0 / pc[:, 2].clamp_min(1e-6)
+    ur_pred = (obs_uv[:, 0] - r2[:, 0]) - bf * iz
+    has_ur = obs_ur >= 0.0
+    r3 = torch.where(has_ur, obs_ur - ur_pred, 0.0)
+    # d(u_r)/d(pc) = du/dpc + (0, 0, bf / z^2), through [I | -skew(pc)].
+    e = bf * iz * iz
+    zero = torch.zeros_like(e)
+    extra = torch.stack([zero, zero, e, e * pc[:, 1], -e * pc[:, 0], zero],
+                        -1)
+    J3 = torch.where(has_ur[:, None], J2[:, 0, :] - extra, 0.0)
+    r = torch.cat([r2, r3[:, None]], -1)                    # (N, 3)
+    J = torch.cat([J2, J3[:, None, :]], -2)                 # (N, 3, 6)
+    return r, J, depth_ok, has_ur
+
+
 def pose_optimization(R0, t0, pts_w, obs_uv, inv_sigma2, valid, cam_params,
                       model_id: int = cam.PINHOLE, n_rounds: int = 4,
                       n_iters: int = 10) -> PoseOptResult:
@@ -59,5 +84,30 @@ def pose_optimization(R0, t0, pts_w, obs_uv, inv_sigma2, valid, cam_params,
         R0, t0, pts_w, obs_uv, inv_sigma2, valid, cam_params,
         n_rounds=n_rounds, n_iters=n_iters)
     inlier = (chi2 <= cuda_pose_opt.CHI2_MONO) & valid
+    return PoseOptResult(R=R, t=t, inlier=inlier,
+                         n_inliers=inlier.sum(-1).to(torch.int32), chi2=chi2)
+
+
+def pose_optimization_stereo(R0, t0, pts_w, obs_uv, obs_ur, bf, inv_sigma2,
+                             valid, cam_params, model_id: int = cam.PINHOLE,
+                             n_rounds: int = 4,
+                             n_iters: int = 10) -> PoseOptResult:
+    """Motion-only BA with mixed mono/stereo observations.
+
+    ``obs_ur`` (N,): the right-image u of each keypoint, < 0 for a mono
+    row; ``bf``: baseline x fx, a Python float (the kernel takes it by
+    value). Per-row chi2 gates 5.991 / 7.815. Batched as
+    :func:`pose_optimization` (one K3s launch on the card)."""
+    from . import cuda_pose_opt
+
+    if model_id != cam.PINHOLE:
+        raise NotImplementedError(
+            "pose_optimization_stereo: only PINHOLE is ported")
+    R, t, chi2 = cuda_pose_opt.pose_optimization_stereo(
+        R0, t0, pts_w, obs_uv, obs_ur, bf, inv_sigma2, valid, cam_params,
+        n_rounds=n_rounds, n_iters=n_iters)
+    delta2 = torch.where(obs_ur >= 0.0, cuda_pose_opt.CHI2_STEREO,
+                         cuda_pose_opt.CHI2_MONO)
+    inlier = (chi2 <= delta2) & valid
     return PoseOptResult(R=R, t=t, inlier=inlier,
                          n_inliers=inlier.sum(-1).to(torch.int32), chi2=chi2)

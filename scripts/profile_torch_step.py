@@ -30,7 +30,11 @@ stage function synchronised before and after it (extraction, the frame
 step, the fallback, the init, the keyframe bundle, the previous bundle's
 read, the rest of ``track``), over ``--sequences`` sequences; then one
 sequence under the profiler (device busy share, launches per frame, K1-K3
-by name; the table goes to ``--out``, no trace). ``both`` runs
+by name; the table goes to ``--out``, no trace). ``--entry stereo``: the
+same for ``StereoSlam`` at the KITTI stereo capacity on the stereo frames
+(``graft.kitti_golden_config()``, ``graft.kitti_frames``) and for
+``RgbdSlam`` at TUM1's settings (``graft.tum_rgbd_golden_config()``), with
+the stereo extraction and the depth landmarks as stages. ``both`` runs
 tracking and mono, ``all`` (the default) tracking, mono and keyframe in
 turn. For each it reports, with the card's name and power limit:
   * the step and its stages by host clock around synchronised calls,
@@ -55,7 +59,7 @@ import time
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--entry", choices=("tracking", "mono", "keyframe", "init",
-                                        "system", "both", "all"),
+                                        "system", "stereo", "both", "all"),
                     default="all")
     ap.add_argument("--sequences", type=int, default=2)
     ap.add_argument("--frames", type=int, default=20)
@@ -131,8 +135,7 @@ def main() -> int:
             print(f"[{label} profile] {e.self_device_time_total / n_prof:9.1f} "
                   f"us/step x{e.count // n_prof:4d}  {e.key[:90]}")
         # The port's own kernels by name, wherever they rank.
-        for kname, name in (("K1", "brief_kernel"), ("K2", "match_kernel"),
-                            ("K3", "pose_opt_kernel")):
+        for kname, name in KERNEL_NAMES:
             mine = [e for e in events if name in e.key]
             us = sum(e.self_device_time_total for e in mine) / n_prof
             count = sum(e.count for e in mine) / n_prof
@@ -241,25 +244,51 @@ def main() -> int:
         profile_init(args, dev, card, timed, report)
     if args.entry == "system":
         profile_system(args, dev, card, timed)
+    if args.entry == "stereo":
+        for cell in ("kitti", "rgbd"):
+            profile_system(args, dev, card, timed, cell)
     return 0
 
 
-def profile_system(args, dev, card, timed) -> None:
-    """The monocular system's frames by kind: stage times and a profile."""
+# The port's kernels as the profiler names them: K3 and K3s are the two
+# instantiations of one template.
+KERNEL_NAMES = (("K1", "brief_kernel"), ("K2", "match_kernel"),
+                ("K3", "pose_opt_kernel<false>"),
+                ("K3s", "pose_opt_kernel<true>"))
+
+
+def profile_system(args, dev, card, timed, cell: str = "mono") -> None:
+    """A system's frames by kind: stage times and a profile. ``cell``:
+    "mono" (MonoSlam at EuRoC capacity), "kitti" (StereoSlam at KITTI
+    capacity) or "rgbd" (RgbdSlam at TUM1's settings)."""
     import torch
 
     from orbslam3_byzyh_tpu_torch import graft
-    from orbslam3_byzyh_tpu_torch.pipeline import system, tracking
+    from orbslam3_byzyh_tpu_torch.pipeline import stereo_system, system
+    from orbslam3_byzyh_tpu_torch.pipeline import tracking
 
-    gold = graft.golden_frames()
-    frames = graft.pad_frames(gold.frames)
-    cfg = graft.euroc_golden_config()
     stages = [("extract", graft, "mono_extract"),
               ("frame step", tracking, "frame_step"),
               ("fallback", tracking, "track_reference_keyframe"),
               ("init", graft, "mono_initialize"),
               ("keyframe bundle", graft, "mono_keyframe_step"),
               ("bundle read", system.MonoSlam, "_drain_pending")]
+    if cell == "mono":
+        gold = graft.golden_frames()
+        stamps, frames = gold.stamps, graft.pad_frames(gold.frames)
+        cls, cfg = system.MonoSlam, graft.euroc_golden_config()
+    else:
+        sf = graft.stereo_frames()
+        stamps = sf.stamps
+        if cell == "kitti":
+            cls, cfg = stereo_system.StereoSlam, graft.kitti_golden_config()
+            frames = list(zip(graft.kitti_frames(sf.left),
+                              graft.kitti_frames(sf.right)))
+            stages[0] = ("stereo extract", graft, "stereo_extract")
+        else:
+            cls, cfg = stereo_system.RgbdSlam, graft.tum_rgbd_golden_config()
+            frames = list(zip(sf.left, sf.depth))
+        stages[3] = ("init", stereo_system.StereoSlam, "_stereo_initialize")
     spent = {}
 
     def wrap(label, fn):
@@ -271,7 +300,7 @@ def profile_system(args, dev, card, timed) -> None:
 
     def sequence(staged):
         """One sequence: per frame (kind, track ms, stage ms)."""
-        slam = system.MonoSlam(cfg, device=dev)
+        slam = cls(cfg, device=dev)
         originals = [(o, n, getattr(o, n)) for _, o, n in stages]
         if staged:
             for (label, _, _), (o, n, fn) in zip(stages, originals):
@@ -282,11 +311,12 @@ def profile_system(args, dev, card, timed) -> None:
                                                      step(*a, **kw))[1]
         out = []
         try:
-            for img, stamp in zip(frames, gold.stamps):
+            for img, stamp in zip(frames, stamps):
                 uninit = slam.status == system.NOT_INITIALIZED
                 n_b = len(bundles)
                 spent.clear()
-                _, total = timed(lambda: slam.track(img, float(stamp)))
+                args_ = img if isinstance(img, tuple) else (img,)
+                _, total = timed(lambda: slam.track(*args_, float(stamp)))
                 if uninit:
                     kind = ("uninitialised"
                             if slam.status == system.NOT_INITIALIZED
@@ -315,7 +345,7 @@ def profile_system(args, dev, card, timed) -> None:
         parts = {k: v for k, v in parts.items() if v > 0}
         rest = mean - sum(parts.values())
         text = " + ".join(f"{k} {v:.3f} ms" for k, v in parts.items())
-        print(f"[system stages] {kind} ({len(rs)} frames): track() "
+        print(f"[{cell} system stages] {kind} ({len(rs)} frames): track() "
               f"{mean:.3f} ms = {text} + rest {rest:.3f} ms (means, each "
               f"stage synchronised; median track() "
               f"{statistics.median(r[1] for r in rs):.3f} ms; {card})")
@@ -333,7 +363,7 @@ def profile_system(args, dev, card, timed) -> None:
     busy_us = sum(e.self_device_time_total for e in events)
     launches = sum(e.count for e in events)
     n = len(kinds)
-    print(f"[system profile] one sequence of {n} frames ("
+    print(f"[{cell} system profile] one sequence of {n} frames ("
           f"{', '.join(f'{k} {kinds.count(k)}' for k in sorted(set(kinds)))}"
           f"): wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} "
           f"ms ({100 * busy_us / wall_us:.1f}% busy, "
@@ -341,16 +371,15 @@ def profile_system(args, dev, card, timed) -> None:
           f"{launches / n:.0f} device operations/frame ({card})")
     events.sort(key=lambda e: -e.self_device_time_total)
     for e in events[:15]:
-        print(f"[system profile] {e.self_device_time_total / n:9.1f} "
+        print(f"[{cell} system profile] {e.self_device_time_total / n:9.1f} "
               f"us/frame x{e.count:6d}  {e.key[:90]}")
-    for kname, name in (("K1", "brief_kernel"), ("K2", "match_kernel"),
-                        ("K3", "pose_opt_kernel")):
+    for kname, name in KERNEL_NAMES:
         mine = [e for e in events if name in e.key]
         us = sum(e.self_device_time_total for e in mine)
         count = sum(e.count for e in mine)
-        print(f"[system kernel] {kname} {name}: {us / n:.1f} us/frame device "
-              f"time, {count} launches in the sequence ({card})")
-    out = os.path.join(args.out, "system")
+        print(f"[{cell} system kernel] {kname} {name}: {us / n:.1f} us/frame "
+              f"device time, {count} launches in the sequence ({card})")
+    out = os.path.join(args.out, "system" if cell == "mono" else cell)
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(out, "key_averages.txt"), "w") as fh:
         fh.write(f"{card}\n")

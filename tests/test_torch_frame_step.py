@@ -102,8 +102,28 @@ def test_frame_step_reads_nothing_back(feats, monkeypatch):
 
 
 def test_stereo_waits_for_its_slice(feats):
-    sc = convert.tree_to_torch(mono_scene(feats, CFG, "normal"), "cpu")
-    with pytest.raises(NotImplementedError, match="stereo"):
-        ttr.frame_step(*sc[1:14], *([None] * 8), *sc[14:16], sc[16], 3,
-                       sc[17], sc[18], sc[19], sc[20], CFG.width, CFG.height,
-                       use_stereo=True)
+    """The stereo branch of frame_step (the stereo slice has come): with no
+    keypoint holding a right-image u it gives the mono step's bindings,
+    inliers, counters and close-point counts (none), the pose within 1e-5
+    (its final pose optimization sums three-row normal equations). The
+    stereo rows themselves are held against the JAX package in
+    test_torch_stereo.py and test_torch_stereo_system.py."""
+    a = graft.MonoFrameArgs(*convert.tree_to_torch(
+        mono_scene(feats, CFG, "normal"), "cpu"))
+    xy, level, desc, angle, valid = (t(x) for x in feats)
+    head = (a.R_pred, a.t_pred, a.R_last, a.t_last, a.lm_pos, a.lm_desc,
+            a.lm_normal, a.lm_min_d, a.lm_max_d, a.lm_valid, a.last_bind,
+            a.last_desc, a.last_angle, xy, level, desc, valid, angle,
+            torch.full((xy.shape[0],), -1.0))
+    tail = (a.obs_kf, a.obs_valid, a.ref_kf, CFG.kf_ref_min_obs, a.n_kf,
+            a.n_found, a.n_visible, a.cam_params, CFG.width, CFG.height)
+    kw = dict(max_kf=CFG.max_kf, n_local_lm=CFG.n_local_lm)
+    mono = ttr.frame_step(*head, torch.zeros(()), torch.zeros(()), *tail,
+                          **kw)
+    st = ttr.frame_step(*head, 40.0, 5.0, *tail, use_stereo=True, **kw)
+    np.testing.assert_array_equal(n(st[0].bindings), n(mono[0].bindings))
+    np.testing.assert_array_equal(n(st[1])[:4], n(mono[1])[:4])
+    np.testing.assert_allclose(n(st[1])[4:], n(mono[1])[4:], atol=1e-5)
+    for x, y in zip(st[2:], mono[2:]):
+        np.testing.assert_array_equal(n(x), n(y))
+    assert int(st[0].n_inliers) > 0 and n(st[1])[2:4].sum() == 0

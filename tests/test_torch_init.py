@@ -168,9 +168,14 @@ def test_local_ba_matches_jax():
     assert_states_close(ref, convert.map_state_to_numpy(got), m.cam_params)
     moved = np.abs(ref.kfs.R - m.state.kfs.R).max((1, 2)) > 0
     np.testing.assert_array_equal(moved, free & m.state.kfs.valid)
-    with pytest.raises(NotImplementedError, match="stereo"):
-        tmap.local_ba(convert.map_state_to_torch(m.state, "cpu"), t(free),
-                      t(m.cam_params), use_stereo=True)
+    # With use_stereo and no keypoint holding a right-image u (the small
+    # map's kp_ur is -1 throughout) the full-map BA gives the mono result;
+    # its stereo rows are held against the JAX package in
+    # test_torch_mapping.py and test_torch_keyframe_step.py.
+    stereo = tmap.local_ba(convert.map_state_to_torch(m.state, "cpu"),
+                           t(free), t(m.cam_params), use_stereo=True, bf=40.0)
+    assert_states_close(convert.map_state_to_numpy(got),
+                        convert.map_state_to_numpy(stereo), m.cam_params)
 
 
 @functools.cache

@@ -409,3 +409,110 @@ def test_mono_initialize_on_the_card_matches_cpu(dev):
         assert torch.equal(g.bindings.cpu(), c.bindings)
     assert float((g.R.cpu() - c.R).abs().max()) <= 1e-3
     assert map_state.check_invariants(g.state, 2, cfg.max_lm) == []
+
+
+def _stereo_problem(gen, dev, n, bf, stereo_share=0.6, outliers=80):
+    """A mixed mono / stereo pose problem: noisy projections and right-image
+    u (u - bf / z) on a share of the rows, outliers in both."""
+    pts = np.stack([gen.uniform(-6, 6, n), gen.uniform(-2, 2, n),
+                    gen.uniform(4, 30, n)], -1).astype(np.float32)
+    R_gt = lie.so3_exp(torch.tensor(gen.normal(0, 0.05, 3))).float()
+    t_gt = torch.tensor(gen.normal(0, 0.3, 3)).float()
+    cam = np.array([718.856, 718.856, 607.1928, 185.2157], np.float32)
+    pc = pts @ R_gt.numpy().T + t_gt.numpy()
+    uv = np.stack([cam[0] * pc[:, 0] / pc[:, 2] + cam[2],
+                   cam[1] * pc[:, 1] / pc[:, 2] + cam[3]], -1)
+    uv += gen.normal(0, 0.5, uv.shape)
+    ur = uv[:, 0] - bf / pc[:, 2] + gen.normal(0, 0.5, n)
+    bad = gen.choice(n, outliers, replace=False)
+    uv[bad[:outliers // 2]] += gen.uniform(20, 80, (outliers // 2, 2))
+    ur[bad[outliers // 2:]] += gen.uniform(10, 40, outliers - outliers // 2)
+    ur = np.where(gen.random(n) < stereo_share, ur, -1.0).astype(np.float32)
+    R0 = lie.so3_exp(torch.tensor(gen.normal(0, 0.01, 3)).float()) @ R_gt
+    t0 = t_gt + torch.tensor(gen.normal(0, 0.05, 3)).float()
+    pts, uv, ur, inv_s2, valid, cam = (_t(a, dev) for a in (
+        pts, uv.astype(np.float32), ur,
+        1.0 / 1.2 ** (2.0 * gen.integers(0, 8, n)), gen.random(n) > 0.03,
+        cam))
+    return R0.to(dev), t0.to(dev), pts, uv, ur, bf, inv_s2, valid, cam
+
+
+def test_k3s_kernel_matches_plain(dev, gen):
+    """K3s at KITTI's 2000 points (about 60 % stereo rows, outliers in both
+    coordinates) within 1e-4 of its plain version, inliers within 2; a batch
+    of three problems is one launch, each row bit-equal to its single run."""
+    n, bf = 2000, 386.1448
+    probs = [_stereo_problem(gen, dev, n, bf) for _ in range(3)]
+    for p in probs:
+        before = cuda_pose_opt.KERNEL.fn_launches[cuda_pose_opt.STEREO_FN]
+        Rk, tk, ck = cuda_pose_opt.pose_optimization_stereo_kernel(*p)
+        assert (cuda_pose_opt.KERNEL.fn_launches[cuda_pose_opt.STEREO_FN]
+                == before + 1)
+        R0, t0, pts, uv, ur, bf_, inv_s2, valid, cam = p
+        Rp, tp, cp = cuda_pose_opt.pose_optimization_plain(
+            R0, t0, pts, uv, inv_s2, valid, cam, obs_ur=ur, bf=bf_)
+        torch.cuda.synchronize()
+        assert float((Rk - Rp).abs().max()) <= 1e-4
+        assert float((tk - tp).abs().max()) <= 1e-4
+        gate = torch.where(ur >= 0, cuda_pose_opt.CHI2_STEREO,
+                           cuda_pose_opt.CHI2_MONO)
+        nk = int(((ck <= gate) & valid).sum())
+        npl = int(((cp <= gate) & valid).sum())
+        assert abs(nk - npl) <= 2
+    stacked = [torch.stack(a) for a in zip(*(
+        p[:5] + p[6:8] for p in probs))]
+    Rb, tb, cb = cuda_pose_opt.pose_optimization_stereo_kernel(
+        *stacked[:5], bf, *stacked[5:], probs[0][8])
+    for i, p in enumerate(probs):
+        Rs, ts, cs = cuda_pose_opt.pose_optimization_stereo_kernel(*p)
+        assert torch.equal(Rb[i], Rs) and torch.equal(tb[i], ts)
+        assert torch.equal(cb[i], cs)
+
+
+def test_k3s_all_mono_rows_match_k3(dev, gen):
+    """With no stereo row K3s computes K3's schedule: within 1e-5 (the
+    third row's zero terms change only the compiler's fused multiply-adds)."""
+    p = _stereo_problem(gen, dev, 1500, 386.1448, stereo_share=0.0)
+    R0, t0, pts, uv, ur, bf, inv_s2, valid, cam = p
+    Rs, ts, cs = cuda_pose_opt.pose_optimization_stereo_kernel(*p)
+    Rm, tm, cm = cuda_pose_opt.pose_optimization_kernel(
+        R0, t0, pts, uv, inv_s2, valid, cam)
+    torch.cuda.synchronize()
+    assert float((Rs - Rm).abs().max()) <= 1e-5
+    assert float((ts - tm).abs().max()) <= 1e-5
+    assert cuda_pose_opt.pose_max_points_stereo() < \
+        cuda_pose_opt.pose_max_points()
+
+
+def test_stereo_frame_step_on_the_card(dev):
+    """graft.stereo_frame_step at KITTI size on the shifted pair: one K3
+    and one K3s launch, back to the identity, no synchronisation inside
+    frame_step, the same inliers as the CPU plain path within 1 %."""
+    rig = graft.KITTI_STEREO
+    left, right = graft.kitti_stereo_pair()
+    cam = torch.tensor([rig.mono.fx, rig.mono.fy, rig.mono.cx, rig.mono.cy],
+                       device=dev)
+    f, _, m = graft.stereo_extract(_t(left, dev), _t(right, dev), cam, None)
+    feats = [convert.to_numpy(a) for a in (f.xy, f.level, f.desc, f.angle,
+                                           f.valid)]
+    scene = graft.kitti_stereo_scene(*feats, convert.to_numpy(m.depth))
+    args = graft.StereoFrameArgs(*convert.tree_to_torch(scene, dev))
+    graft.stereo_frame_step(*args)   # first call: caches its constants
+    k = cuda_pose_opt.KERNEL.fn_launches
+    before = dict(k)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res, info, _, _, _ = graft.stereo_frame_step(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert k[cuda_pose_opt.MONO_FN] == before[cuda_pose_opt.MONO_FN] + 1
+    assert k[cuda_pose_opt.STEREO_FN] == before[cuda_pose_opt.STEREO_FN] + 1
+    n_gpu = int(info[0])
+    assert n_gpu >= 0.9 * int(f.valid.sum())
+    assert float((res.R - torch.eye(3, device=dev)).abs().max()) <= 1e-3
+    assert float(res.t.abs().max()) <= 1e-3
+    _, info_cpu, _, _, _ = graft.stereo_frame_step(*(
+        None if a is None else a.cpu() for a in args))
+    assert abs(int(info_cpu[0]) - n_gpu) <= 0.01 * n_gpu

@@ -25,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 from torch_port_util import (assert_states_close, jax_feats, jax_map_state,
-                             n, small_map, small_map_config,
+                             n, plant_ur, small_map, small_map_config,
                              triangulation_margins)
 
 from orbslam3_byzyh_tpu.models import map_state as jms
@@ -37,6 +37,7 @@ from orbslam3_byzyh_tpu_torch.pipeline import mapping as tmap
 CFG = small_map_config()
 CASES = ("normal", "full")
 FLIP_MARGIN = 1e-5
+BF = 40.0
 
 
 def _jax_bundle(m):
@@ -243,9 +244,35 @@ def test_keyframe_step_reads_nothing_back(maps, monkeypatch):
 
 
 def test_stereo_bundle_waits_for_its_slice(maps):
+    """The stereo bundle (the stereo slice has come) against the JAX
+    package's, on the normal case with ``kp_ur`` planted and the new
+    keyframe's ``ur`` from its bound landmarks' depths: bindings, culled
+    keyframes and ``info[:3]`` exact, the map within tolerance. The valve's
+    margin is two frames' worth (512 slots); the map keeps 1459 free, so it
+    retires nothing."""
+    rng = np.random.default_rng(6)
     m = maps["normal"]
-    a = graft.mono_map_args(m, "cpu")
-    with pytest.raises(NotImplementedError, match="stereo"):
-        tmap.keyframe_bundle(*a[:6], torch.full((CFG.n_features,), -1.0),
-                             *a[6:], float(CFG.width), float(CFG.height),
-                             use_stereo=True)
+    st = plant_ur(m.state, rng, BF)
+    b = m.bindings
+    z = (m.state.lms.pos[np.maximum(b, 0)] @ m.R.T + m.t)[:, 2]
+    ur = np.where((b >= 0) & (rng.random(len(b)) < 0.6),
+                  m.feats.xy[:, 0] - BF / z, -1.0).astype(np.float32)
+    kw = dict(use_stereo=True, bf=BF, n_neighbors=CFG.triangulation_neighbors,
+              n_free=CFG.local_window + 1, n_window=CFG.ba_window,
+              n_lm_window=CFG.ba_lm_window, do_kf_cull=True,
+              do_local_ba=True)
+    js, jb, jinfo, jculled = jmap.keyframe_bundle(
+        jax_map_state(st), m.kf_id, jnp.asarray(m.R), jnp.asarray(m.t),
+        m.stamp, jax_feats(m.feats), jnp.asarray(ur), jnp.asarray(b),
+        jnp.asarray(m.cam_params), m.n_lm_hwm, float(CFG.width),
+        float(CFG.height), **kw)
+    a = graft.mono_map_args(m._replace(state=st), "cpu")
+    ts, tb, tinfo, tculled = tmap.keyframe_bundle(
+        *a[:6], torch.from_numpy(ur), *a[6:], float(CFG.width),
+        float(CFG.height), **kw)
+    np.testing.assert_array_equal(n(tb), np.asarray(jb))
+    np.testing.assert_array_equal(n(tinfo)[:3], np.asarray(jinfo)[:3])
+    np.testing.assert_array_equal(n(tculled), np.asarray(jculled))
+    ref = jms.MapState(*(type(g)(*(np.asarray(x) for x in g)) for g in js))
+    np.testing.assert_array_equal(ref.kfs.kp_ur[m.kf_id], ur)
+    assert_states_close(ref, convert.map_state_to_numpy(ts), m.cam_params)

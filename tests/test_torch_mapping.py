@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 from torch_port_util import (assert_states_close, jax_feats, jax_map_state,
-                             n, small_map, small_map_config, t,
+                             n, plant_ur, small_map, small_map_config, t,
                              triangulation_margins)
 
 from orbslam3_byzyh_tpu.models import map_state as jms
@@ -328,3 +328,27 @@ def test_drop_keyframe_exact(stages, kf, do):
                 getattr(getattr(got, group), name),
                 getattr(getattr(ref, group), name), err_msg=name)
     assert ref.kfs.valid[kf] == (not do)
+
+
+# --- The stereo rows (use_stereo, bf) ---------------------------------------
+
+BF = 40.0
+
+
+def test_windowed_local_ba_stereo_matches_jax(stages):
+    """The windowed BA with stereo rows (``kp_ur`` planted on the fused
+    map): the rows it moves exact, the map within tolerance."""
+    m = stages["m"]
+    st = plant_ur(stages["fused"], np.random.default_rng(5), BF)
+    kw = dict(use_stereo=True, bf=BF, n_free=CFG.local_window + 1,
+              n_window=CFG.ba_window, n_lm_window=CFG.ba_lm_window)
+    ref = _np(jmap.windowed_local_ba(jax_map_state(st), m.kf_id,
+                                     jnp.asarray(m.cam_params), **kw))
+    got = convert.map_state_to_numpy(tmap.windowed_local_ba(
+        convert.map_state_to_torch(st, "cpu"), m.kf_id, t(m.cam_params),
+        **kw))
+    np.testing.assert_array_equal((got.kfs.R != st.kfs.R).any((1, 2)),
+                                  (ref.kfs.R != st.kfs.R).any((1, 2)))
+    np.testing.assert_array_equal((got.lms.pos != st.lms.pos).any(1),
+                                  (ref.lms.pos != st.lms.pos).any(1))
+    assert_states_close(ref, got, m.cam_params)

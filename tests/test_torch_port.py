@@ -148,3 +148,59 @@ def test_convert_round_trip(rng):
     assert convert.to_torch(np.arange(3, dtype=np.int64), "cpu").dtype == torch.int32
     assert convert.to_torch(np.ones(3), "cpu").dtype == torch.float32
     assert convert.to_torch(np.ones(3, bool), "cpu").dtype == torch.bool
+
+
+def test_static_checks_cover_the_stereo_slice():
+    """The stereo slice's modules are among the checked sources."""
+    checked = {str(p.relative_to(PORT)) for p in PORT_SOURCES
+               if p.is_relative_to(PORT)}
+    for rel in ("ops/stereo.py", "pipeline/stereo_system.py",
+                "solver/cuda_pose_opt.py", "solver/ba.py"):
+        assert rel in checked, rel
+
+
+def test_k3s_wrapper_rejects_cpu_tensors():
+    z = torch.zeros
+    with pytest.raises(ValueError):
+        cuda_pose_opt.pose_optimization_stereo_kernel(
+            torch.eye(3), z(3), z(8, 3), z(8, 2), z(8), 40.0, z(8),
+            z(8, dtype=torch.bool), z(4))
+    assert set(cuda_pose_opt.KERNEL.fn_launches) >= {
+        cuda_pose_opt.MONO_FN, cuda_pose_opt.STEREO_FN}
+
+
+# The KITTI stereo rig cut for the CPU: a third of the image and focal
+# length, 256 features, 64 keyframe / 2048 landmark slots, a 512-landmark
+# window; the baseline is KITTI's (bf = 0.53716 x fx).
+SMALL_RIG = graft.RigConfig(
+    mono=graft.MonoConfig(width=416, height=128, fx=240.0, fy=240.0,
+                          cx=208.0, cy=62.0, dist=None, n_features=256,
+                          max_kf=64, max_lm=2048, n_local_lm=512),
+    bf=0.53716 * 240.0)
+
+
+def test_stereo_frame_step_on_the_cpu():
+    """``graft.stereo_frame_step`` on the CPU on the shifted pair (a plane
+    at bf / 32): the level-0 disparities within 0.5 px of 32, back to the
+    identity with most features inliers, close points counted, and no
+    kernel launched (the plain versions run)."""
+    for k in KERNELS.values():
+        k.launches = 0
+        k.fn_launches = dict.fromkeys(k.fn_launches, 0)
+    m = SMALL_RIG.mono
+    left, right = (t(a) for a in graft.kitti_stereo_pair(SMALL_RIG))
+    cam = t(np.array([m.fx, m.fy, m.cx, m.cy], np.float32))
+    f, _, s = graft.stereo_extract(left, right, cam, None, SMALL_RIG)
+    disp = n(f.xy[:, 0] - s.u_right)
+    lvl0 = n(s.valid & (f.level == 0))
+    assert lvl0.sum() > 20
+    assert np.abs(disp[lvl0] - graft.KITTI_PAIR_SHIFT).max() <= 0.5
+    feats = [n(a) for a in (f.xy, f.level, f.desc, f.angle, f.valid)]
+    scene = graft.kitti_stereo_scene(*feats, n(s.depth), rig=SMALL_RIG)
+    args = graft.StereoFrameArgs(*convert.tree_to_torch(scene, "cpu"))
+    res, info, _, _, _ = graft.stereo_frame_step(*args, rig=SMALL_RIG)
+    assert int(res.n_inliers) >= 0.8 * int(f.valid.sum())
+    np.testing.assert_allclose(n(res.R), np.eye(3), atol=1e-3)
+    np.testing.assert_allclose(n(res.t), 0.0, atol=1e-3)
+    assert n(info)[2] > 0                     # tracked close points
+    assert all(k.launches == 0 for k in KERNELS.values())

@@ -181,3 +181,19 @@ def triangulation_margins(X, Ra, ta, Rb, tb, xy_a, xy_b, level_a, level_b,
     cos = (((X - ca) / da[:, None]) * ((X - cb) / db[:, None])).sum(-1)
     margins.append(np.abs(cos - 0.9998) / 0.9998)
     return np.min(margins, axis=0)
+
+
+def plant_ur(state, rng, bf, share=0.6):
+    """A numpy map state with ``kp_ur`` planted: each observed keypoint of a
+    live landmark gets u - bf / z from the landmark's depth in its keyframe
+    (noise 0.3 px) with probability ``share``; the rest keep -1."""
+    kfs, lms, obs = state.kfs, state.lms, state.obs
+    live = obs.valid & (obs.kf >= 0) & lms.valid[:, None]
+    rows, cols = np.nonzero(live)
+    kf, kp = obs.kf[rows, cols], obs.kp[rows, cols]
+    pc = np.einsum("nij,nj->ni", kfs.R[kf], lms.pos[rows]) + kfs.t[kf]
+    ur = kfs.kp_xy[kf, kp, 0] - bf / pc[:, 2] + rng.normal(0, 0.3, len(kf))
+    keep = (rng.random(len(kf)) < share) & (pc[:, 2] > 0.1)
+    kp_ur = kfs.kp_ur.copy()
+    kp_ur[kf[keep], kp[keep]] = ur[keep]
+    return state._replace(kfs=kfs._replace(kp_ur=kp_ur.astype(np.float32)))
