@@ -4,8 +4,7 @@
     python3 chip_smoke.py
 
 Builds the three CUDA kernels from ``orbslam3_byzyh_tpu_torch/csrc`` with
-nvcc (in parallel) and drives the four entry points of the port through
-them:
+nvcc (in parallel) and drives the port's entry points through them:
 
   * ``graft.tracking_step`` (480x640, 1024 features, 4096 landmarks) on a
     scene that tracks (the example image against a map lifted from its own
@@ -60,6 +59,20 @@ them:
     of each first sequence held against its plain version, two timed
     sequences each, per frame kind as phase 10.
 
+  * phase "12 inertial": the stereo-inertial device path at the EuRoC
+    stereo-inertial configuration (752x480 rectified, bf 48.02, ThDepth 60,
+    1200 features, 200 Hz IMU, 1024 / 65536 / 12 slots):
+    ``graft.vi_frame_step`` on ``graft.euroc_vi_scene``'s three cases
+    (no prior, a carried prior, the fallback to the IMU prediction) held
+    to the truth and to the CPU plain path, its synchronisations named,
+    50 timed calls; ``graft.vi_keyframe_step`` on ``graft.euroc_vi_map``
+    (the cost falls, the free states move towards the truth, nothing else
+    is written), 20 timed calls; ``graft.vi_initialize`` on
+    ``graft.euroc_vi_init`` with the stereo and the mono gates (gravity,
+    scale, gyro bias), 10 timed calls; the solvers' CUDA-graph replay
+    against their operations run one by one; every K1, K2, K3 and K3s
+    launch of the frame steps held against its plain version.
+
 Every kernel is held against its plain PyTorch version on the card: on
 synthetic inputs at both paths' shapes, and on the very inputs each path
 gave it (its wrapper's calls are recorded and replayed). K3 and K3s are
@@ -100,6 +113,7 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
 import warnings
 
 import numpy as np
@@ -163,6 +177,9 @@ JAX_STEREO_READS = {
 # window of 24 keyframes (its fixed part must fit the slots).
 CAPACITY_MAX_KF = 16
 CAPACITY_BA_WINDOW = 24
+# Phase 12: warm-up calls of the stereo-inertial frame step before its
+# timed ones.
+N_WARMUP_VI = 10
 
 
 def phase(name: str, msg: str) -> None:
@@ -363,21 +380,28 @@ def triangulation_margins(X, Ra, ta, Rb, tb, xy_a, xy_b, level_a, level_b,
 
 
 @contextlib.contextmanager
-def counted_syncs():
+def counted_syncs(stacks: list | None = None):
     """Count the operations that synchronise the stream with the host
     inside the block (``torch.cuda.set_sync_debug_mode("warn")``): yields a
-    list that ends up holding each warning's "file:line"."""
+    list that ends up holding each warning's "file:line". ``stacks``, when
+    given, receives each one's Python stack."""
     where = []
     torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
+    with warnings.catch_warnings():
         warnings.simplefilter("always")
+
+        def show(message, category, filename, lineno, file=None, line=None):
+            if "synchroniz" in str(message):
+                where.append(f"{os.path.relpath(filename)}:{lineno}")
+                if stacks is not None:
+                    stacks.append("".join(traceback.format_stack(limit=14)))
+
         torch.cuda.set_sync_debug_mode("warn")
+        warnings.showwarning = show
         try:
             yield where
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    where += [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
-              if "synchroniz" in str(w.message)]
 
 
 @contextlib.contextmanager
@@ -445,6 +469,395 @@ def run_sequence(slam, frames, stamps, kernels, bundles, after=None):
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def phase_inertial(dev, card, sk, check_call, timed, shape_of) -> dict:
+    """Phase "12 inertial": the stereo-inertial device path at the EuRoC
+    stereo-inertial configuration. ``sk``: the launch counters of K1, K2,
+    K3 and K3s; ``check_call`` / ``timed`` / ``shape_of``: main's kernel
+    checks. Returns the phase's results and each kernel's held calls."""
+    from orbslam3_byzyh_tpu_torch import convert, graft
+    from orbslam3_byzyh_tpu_torch.ops import cuda_brief, cuda_match
+    from orbslam3_byzyh_tpu_torch.pipeline import inertial_system as vi
+    from orbslam3_byzyh_tpu_torch.solver import (cuda_pose_opt, inertial,
+                                                 inertial_ba)
+
+    name = "12 inertial"
+    cfg = graft.EUROC_STEREO_INERTIAL
+    m_cfg = cfg.rig.mono
+    ctx = graft.vi_context(cfg, dev)
+    ctx_cpu = graft.vi_context(cfg, "cpu")
+    out = {"frame": {}, "keyframe": {}, "init": {}}
+    held = {n: [] for n in sk}
+
+    @contextlib.contextmanager
+    def recording():
+        with recorded(cuda_brief, "brief_descriptors_kernel") as c1, \
+                recorded(cuda_match, "hamming_best2_kernel") as c2, \
+                recorded(cuda_pose_opt, "pose_optimization_kernel") as c3, \
+                recorded(cuda_pose_opt,
+                         "pose_optimization_stereo_kernel") as c3s:
+            yield {"K1": c1, "K2": c2, "K3": c3, "K3s": c3s}
+
+    def zero_counts():
+        for k in sk.values():
+            k.launches = 0
+
+    # The sites that may wait for the device inside the frame step: the
+    # step's one read (device.read), and with a carried prior the
+    # eigendecomposition of its PSD projection (inertial.prior_sqrt).
+    read_site = "orbslam3_byzyh_tpu_torch/device.py"
+    eigh_site = "orbslam3_byzyh_tpu_torch/solver/inertial.py"
+
+    # -- the frame step, three cases -----------------------------------------
+    left, right = (torch.from_numpy(a).to(dev) for a in graft.euroc_vi_pair(cfg))
+    f, _, m = graft.stereo_extract(left, right, ctx.cam_params, None,
+                                   cfg.rig)
+    n_match = int(m.valid.sum())
+    disp = float((f.xy[:, 0] - m.u_right)[m.valid].median())
+    require(n_match >= 0.25 * m_cfg.n_features
+            and abs(disp - graft.VI_PAIR_SHIFT) <= 0.1,
+            f"EuRoC stereo match: {n_match} matches, disparity {disp}")
+    feats_np = [convert.to_numpy(a) for a in (f.xy, f.level, f.desc,
+                                               f.angle, f.valid)]
+    depth_np = convert.to_numpy(m.depth)
+    n_valid = int(f.valid.sum())
+    frame_calls = {}
+    for case in ("keyframe", "prior", "fallback"):
+        s = graft.euroc_vi_scene(*feats_np, depth_np, case=case, cfg=cfg)
+        args = graft.vi_frame_args(s, dev)
+        # The first call: the cached constants, and the CUDA graphs of the
+        # solves not captured yet (the window's preintegration and the
+        # solve without the prior on "keyframe", with it on "prior").
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graft.vi_frame_step(args, ctx, cfg)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        zero_counts()
+        stacks = []
+        with recording() as calls, counted_syncs(stacks) as syncs:
+            res, _, _ = graft.vi_frame_step(args, ctx, cfg)
+        got = {n: k.launches for n, k in sk.items()}
+        require(got == {"K1": 2, "K2": 2, "K3": 1, "K3s": 1},
+                f"vi frame step ({case}) launches {got}, expected K1 2, K2 "
+                f"2, K3 1, K3s 1")
+        for n, c in calls.items():
+            frame_calls.setdefault(n, []).extend(
+                (a, kw, case) for a, kw in c)
+        info = res.info
+        pr = res.pose_inertial
+        n_in = int(info[0])
+        R = info[2:11].reshape(3, 3).astype(np.float64)
+        r_err = float(np.abs(R - np.eye(3)).max())
+        c_err = float(np.linalg.norm(R.T @ info[11:14].astype(np.float64)))
+        v_err = float(np.linalg.norm(convert.to_numpy(pr.v) - s.v_true))
+        vp_err = float(np.linalg.norm(convert.to_numpy(res.v_pred)
+                                      - s.v_true))
+        b_err = float(np.abs(info[14:20] - np.asarray(graft.VI_BIAS)).max())
+        used = bool(res.used_prediction)
+        expect = [read_site] + ([eigh_site] if case == "prior" else [])
+        sites = sorted(w.rsplit(":", 1)[0] for w in syncs)
+        require(np.isfinite(info).all(), f"vi frame step ({case}): "
+                f"non-finite info")
+        require(n_in >= 0.75 * n_valid, f"vi frame step ({case}): {n_in} "
+                f"inliers of {n_valid}")
+        require(r_err <= 2e-3 and c_err <= 1e-2, f"vi frame step ({case}): "
+                f"rotation {r_err}, centre {c_err} m from the truth")
+        # The solve must bring the velocity nearer the truth than the IMU
+        # prediction it starts from; with the prior ("prior": the last
+        # frame's velocity 0.05 m/s off and weakly held) by most of the way.
+        require(v_err <= 0.015 and v_err < vp_err
+                and (case != "prior" or v_err <= 0.25 * vp_err),
+                f"vi frame step ({case}): velocity {v_err} m/s from the "
+                f"truth, the prediction {vp_err}")
+        require(b_err <= 1e-4, f"vi frame step ({case}): bias {b_err} from "
+                f"the truth")
+        require(used == (case == "fallback"), f"vi frame step ({case}): "
+                f"IMU prediction used {used}")
+        require(sites == sorted(expect), f"vi frame step ({case}): "
+                f"synchronisations at {syncs}, expected {expect}; "
+                f"stacks: {stacks}")
+        # The CPU plain path on the same inputs.
+        res_c, _, _ = graft.vi_frame_step(graft.vi_frame_args(s, "cpu"),
+                                          ctx_cpu, cfg)
+        n_cpu = int(res_c.info[0])
+        Rc = res_c.info[2:11].reshape(3, 3).astype(np.float64)
+        d_pose = max(float(np.abs(Rc - R).max()), float(np.linalg.norm(
+            Rc.T @ res_c.info[11:14] - R.T @ info[11:14])))
+        require(abs(n_cpu - n_in) <= max(2, 0.01 * n_in) and d_pose <= 1e-3,
+                f"vi frame step ({case}): CPU {n_cpu} inliers vs card "
+                f"{n_in}, poses {d_pose} apart")
+        out["frame"][case] = {
+            "n_inliers": n_in, "n_valid": n_valid, "n_inliers_cpu": n_cpu,
+            "cpu_pose_gap": d_pose, "R_err": r_err, "centre_err_m": c_err,
+            "v_err_mps": v_err, "v_pred_err_mps": vp_err,
+            "bias_err": b_err, "used_prediction": used,
+            "ref_matches": int(info[1]), "close": info[20:22].tolist(),
+            "launches": got, "syncs": syncs, "first_call_ms": first_ms}
+        phase(name, f"{case}: vi_frame_step {m_cfg.width}x{m_cfg.height}, "
+              f"{m_cfg.n_features} features, {m_cfg.max_lm} landmark slots: "
+              f"{n_in} inliers of {n_valid} (CPU plain path {n_cpu}, poses "
+              f"{d_pose:.1e} apart); rotation {r_err:.1e}, centre "
+              f"{c_err * 1e3:.2f} mm, velocity {v_err * 1e3:.2f} mm/s "
+              f"(the prediction {vp_err * 1e3:.2f}), bias {b_err:.1e} from "
+              f"the truth; IMU prediction used: {used}; close points "
+              f"{info[20:22].tolist()}; launches {got}; synchronisations "
+              f"{syncs}; the first call (captures included) {first_ms:.1f} "
+              f"ms ({card})")
+    out["frame"]["stereo_matches"] = n_match
+    out["frame"]["disparity_median"] = disp
+
+    # The solvers replay as CUDA graphs: held against the same operations
+    # run one by one, on the prior case.
+    from orbslam3_byzyh_tpu_torch.utils import cuda_graph
+    args = graft.vi_frame_args(graft.euroc_vi_scene(
+        *feats_np, depth_np, case="prior", cfg=cfg), dev)
+    res_g, _, _ = graft.vi_frame_step(args, ctx, cfg)
+    with cuda_graph.disabled():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res_e, _, _ = graft.vi_frame_step(args, ctx, cfg)
+        eager_ms = (time.perf_counter() - t0) * 1e3
+    # The counts, the pose and the biases within 1e-5, H_marg within 1e-4
+    # of its largest entry (both runs take cuSOLVER's LU: the 30-dim solve
+    # with a prior is ill-conditioned along the biases, and another LU
+    # moved them by up to 1e-4).
+    pose_gap = float(np.abs(res_g.info[:14] - res_e.info[:14]).max())
+    bias_gap = float(np.abs(res_g.info[14:20] - res_e.info[14:20]).max())
+    h_gap = float((res_g.pose_inertial.H_marg - res_e.pose_inertial.H_marg)
+                  .abs().max() / res_e.pose_inertial.H_marg.abs().max())
+    require(pose_gap <= 1e-5 and bias_gap <= 1e-5 and h_gap <= 1e-4,
+            f"vi frame step: the graph replay from the operations run one "
+            f"by one: counts and pose {pose_gap}, biases {bias_gap}, H_marg "
+            f"{h_gap} (relative)")
+    out["frame"]["graph_vs_eager"] = {"pose": pose_gap, "bias": bias_gap,
+                                      "H_marg_rel": h_gap,
+                                      "eager_ms": eager_ms}
+    phase(name, f"prior: the CUDA-graph replay of the solve against its "
+          f"operations run one by one: counts and pose within "
+          f"{pose_gap:.1e}, biases within {bias_gap:.1e}, H_marg within "
+          f"{h_gap:.1e} of its largest entry; one step run so took "
+          f"{eager_ms:.1f} ms ({card})")
+
+    # Timing, per case with and without the prior: the read included.
+    from torch.profiler import ProfilerActivity, profile
+    for case in ("keyframe", "prior"):
+        args = graft.vi_frame_args(graft.euroc_vi_scene(
+            *feats_np, depth_np, case=case, cfg=cfg), dev)
+        ms_ = []
+        zero_counts()
+        for i in range(N_WARMUP_VI + N_TIMED_FRAMES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            graft.vi_frame_step(args, ctx, cfg)
+            if i >= N_WARMUP_VI:
+                ms_.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            graft.vi_frame_step(args, ctx, cfg)
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+        out["frame"][f"{case}_ms"] = spread(ms_)
+        out["frame"][f"{case}_device_ops"] = sum(e.count for e in ev)
+        out["frame"][f"{case}_device_ms"] = sum(
+            e.self_device_time_total for e in ev) / 1e3
+        st = out["frame"][f"{case}_ms"]
+        phase(name, f"vi_frame_step ({case}) median {st['median']:.3f} ms, "
+              f"p80 {st['p80']:.3f} ms over {N_TIMED_FRAMES} calls after "
+              f"{N_WARMUP_VI} warm-up (min {st['min']:.3f}, max "
+              f"{st['max']:.3f}), the read included; "
+              f"{out['frame'][case + '_device_ops']} device operations, "
+              f"{out['frame'][case + '_device_ms']:.3f} ms of device time "
+              f"a call ({card})")
+
+    # -- the keyframe step ---------------------------------------------------
+    mp = graft.euroc_vi_map(cfg)
+    imap = graft.vi_map_args(mp, dev)
+    K = mp.kf_id + 1
+    free = np.arange(K - cfg.viba_free, K)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graft.vi_keyframe_step(imap, mp.kf_id, mp.map_first_kf, ctx)   # capture
+    torch.cuda.synchronize()
+    kf_first_ms = (time.perf_counter() - t0) * 1e3
+    zero_counts()
+    with counted_syncs() as syncs:
+        new = graft.vi_keyframe_step(imap, mp.kf_id, mp.map_first_kf, ctx)
+        torch.cuda.synchronize()
+    got = {n: k.launches for n, k in sk.items()}
+    ids = vi.chain(mp.kf_prev, mp.kf_id, cfg.viba_window)
+    cost0 = float(inertial_ba.problem_cost(vi.build_viba(
+        imap, ids, list(free), cfg.viba_window, cfg.viba_landmarks,
+        (0.0, 0.0), 1.0, ctx)[0]))
+    cost1 = float(inertial_ba.problem_cost(vi.build_viba(
+        new, ids, list(free), cfg.viba_window, cfg.viba_landmarks,
+        (0.0, 0.0), 1.0, ctx)[0]))
+    R0, t0_ = mp.state.kfs.R, mp.state.kfs.t
+    R1, t1_ = (convert.to_numpy(x) for x in (new.state.kfs.R,
+                                             new.state.kfs.t))
+
+    def centres(R, t):
+        return -np.einsum("kji,kj->ki", R[:K].astype(np.float64),
+                          t[:K].astype(np.float64))
+    c_true = centres(mp.R_true, mp.t_true)
+    e0 = np.linalg.norm(centres(R0, t0_) - c_true, axis=-1)[free]
+    e1 = np.linalg.norm(centres(R1, t1_) - c_true, axis=-1)[free]
+    v1 = convert.to_numpy(new.kf_vel)
+    ve0 = np.linalg.norm(mp.kf_vel[free] - mp.v_true[free], axis=-1)
+    ve1 = np.linalg.norm(v1[free] - mp.v_true[free], axis=-1)
+    others = np.setdiff1d(np.arange(m_cfg.max_kf), free)
+    moved_fixed = float(max(np.abs(R1[others] - R0[others]).max(),
+                            np.abs(t1_[others] - t0_[others]).max()))
+    side = {n: convert.to_numpy(getattr(new, n)) for n in
+            ("kf_vel", "kf_bg", "kf_ba")}
+    side_other = max(float(np.abs(side[n][others] - getattr(mp, n)[others])
+                           .max()) for n in side)
+    side_free = min(float(np.abs(side[n][free] - getattr(mp, n)[free])
+                          .max()) for n in side)
+    require(cost1 < cost0, f"vi keyframe step: cost {cost0} -> {cost1}")
+    require(e1.mean() < e0.mean() and ve1.mean() < ve0.mean(),
+            f"vi keyframe step: free centres {e0.mean()} -> {e1.mean()} m, "
+            f"velocities {ve0.mean()} -> {ve1.mean()} m/s from the truth")
+    require(moved_fixed == 0.0, f"vi keyframe step: a fixed keyframe moved "
+            f"by {moved_fixed}")
+    require(side_other == 0.0 and side_free > 0.0, f"vi keyframe step: "
+            f"velocities / biases written outside the free slots "
+            f"({side_other}) or not at all in them ({side_free})")
+    with cuda_graph.disabled():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager = graft.vi_keyframe_step(imap, mp.kf_id, mp.map_first_kf, ctx)
+        torch.cuda.synchronize()
+        kf_eager_ms = (time.perf_counter() - t0) * 1e3
+    kf_gap = max(float((a - b).abs().max()) for a, b in (
+        (new.state.kfs.R, eager.state.kfs.R),
+        (new.state.kfs.t, eager.state.kfs.t), (new.kf_vel, eager.kf_vel)))
+    require(kf_gap <= 1e-4, f"vi keyframe step: the graph replay {kf_gap} "
+            f"from the operations run one by one")
+    kf_ms = []
+    for i in range(N_WARMUP_KEYFRAMES + N_TIMED_KEYFRAMES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graft.vi_keyframe_step(imap, mp.kf_id, mp.map_first_kf, ctx)
+        torch.cuda.synchronize()
+        if i >= N_WARMUP_KEYFRAMES:
+            kf_ms.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        graft.vi_keyframe_step(imap, mp.kf_id, mp.map_first_kf, ctx)
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    out["keyframe"] = {
+        "cost": [cost0, cost1], "free_centre_err_m": [e0.mean(), e1.mean()],
+        "free_v_err_mps": [ve0.mean(), ve1.mean()], "launches": got,
+        "syncs": syncs, "ms": spread(kf_ms), "graph_vs_eager": kf_gap,
+        "eager_ms": kf_eager_ms, "first_call_ms": kf_first_ms,
+        "device_ops": sum(e.count for e in ev),
+        "device_ms": sum(e.self_device_time_total for e in ev) / 1e3,
+        "live_kf": K,
+        "landmarks": int(mp.state.lms.valid.sum())}
+    st = out["keyframe"]["ms"]
+    phase(name, f"vi_keyframe_step: {K} live keyframes, "
+          f"{out['keyframe']['landmarks']} landmarks, window "
+          f"{cfg.viba_window} ({cfg.viba_free} free), "
+          f"{cfg.viba_landmarks} landmark slots: cost {cost0:.1f} -> "
+          f"{cost1:.1f}; free centres {e0.mean() * 1e3:.2f} -> "
+          f"{e1.mean() * 1e3:.2f} mm, velocities {ve0.mean() * 1e3:.1f} -> "
+          f"{ve1.mean() * 1e3:.1f} mm/s from the truth; fixed keyframes and "
+          f"the other slots' velocities and biases untouched; kernel "
+          f"launches {got}; synchronisations {syncs}; median "
+          f"{st['median']:.3f} ms, p80 {st['p80']:.3f} ms over "
+          f"{N_TIMED_KEYFRAMES} calls (the first, its capture included, "
+          f"{kf_first_ms:.1f} ms; one call op by op {kf_eager_ms:.1f} ms); "
+          f"{out['keyframe']['device_ops']} "
+          f"device operations, {out['keyframe']['device_ms']:.3f} ms of "
+          f"device time a call ({card})")
+
+    # -- the init step, stereo (scale fixed) and mono gates -----------------
+    for case in ("stereo", "mono"):
+        c = cfg if case == "stereo" else graft.mono_inertial_gates(cfg)
+        mi = graft.euroc_vi_init(c, case=case)
+        cx = graft.vi_context(c, dev, stereo=case == "stereo")
+        imap = graft.vi_map_args(mi, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graft.vi_initialize(imap, mi.kf_id, cx, c)           # captures
+        torch.cuda.synchronize()
+        in_first_ms = (time.perf_counter() - t0) * 1e3
+        with counted_syncs() as syncs:
+            new, fit, ok = graft.vi_initialize(imap, mi.kf_id, cx, c)
+            torch.cuda.synchronize()
+        g_est = convert.to_numpy(fit.solve.R_wg).astype(np.float64) @ [0, 0, -1.0]
+        g_true = mi.R_vw.astype(np.float64) @ [0, 0, -1.0]
+        g_deg = float(np.degrees(np.arccos(np.clip(g_est @ g_true, -1, 1))))
+        s_true = 1.0 if case == "stereo" else mi.scale
+        s_err = abs(fit.scale - s_true) / s_true
+        bg_err = float(np.abs(fit.bias[:3] - mi.bias_true[:3]).max())
+        sites = sorted(w.rsplit(":", 1)[0] for w in syncs)
+        require(ok and g_deg < 1.0 and s_err < 0.02 and bg_err < 2.5e-3,
+                f"vi initialize ({case}): init {ok}, gravity {g_deg} deg, "
+                f"scale {fit.scale} vs {s_true}, gyro bias {bg_err}")
+        require(sites == [read_site], f"vi initialize ({case}): "
+                f"synchronisations at {syncs}, expected one read")
+        with cuda_graph.disabled():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, fit_e, _ = graft.vi_initialize(imap, mi.kf_id, cx, c)
+            torch.cuda.synchronize()
+            in_eager_ms = (time.perf_counter() - t0) * 1e3
+        in_gap = max(abs(fit.scale - fit_e.scale),
+                     float(np.abs(fit.bias - fit_e.bias).max()))
+        require(in_gap <= 1e-4, f"vi initialize ({case}): the graph replay "
+                f"{in_gap} from the operations run one by one")
+        in_ms = []
+        for i in range(N_WARMUP_INITS + N_TIMED_INITS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            graft.vi_initialize(imap, mi.kf_id, cx, c)
+            torch.cuda.synchronize()
+            if i >= N_WARMUP_INITS:
+                in_ms.append((time.perf_counter() - t0) * 1e3)
+        out["init"][case] = {"gravity_deg": g_deg, "scale": fit.scale,
+                             "scale_true": s_true, "scale_err": s_err,
+                             "bg_err": bg_err, "syncs": syncs,
+                             "ms": spread(in_ms), "chain": mi.kf_id + 1,
+                             "graph_vs_eager": in_gap,
+                             "eager_ms": in_eager_ms,
+                             "first_call_ms": in_first_ms}
+        st = out["init"][case]["ms"]
+        phase(name, f"vi_initialize ({case}): {mi.kf_id + 1} keyframes "
+              f"over {mi.kf_stamp[mi.kf_id]:.2f} s: gravity {g_deg:.3f} "
+              f"deg, scale {fit.scale:.4f} (truth {s_true}), gyro bias "
+              f"{bg_err:.2e} off; synchronisations {syncs}; median "
+              f"{st['median']:.3f} ms, p80 {st['p80']:.3f} ms over "
+              f"{N_TIMED_INITS} calls (the first, its captures included, "
+              f"{in_first_ms:.1f} ms; one call op by op {in_eager_ms:.1f} "
+              f"ms; {card})")
+
+    out["graphs"] = len(cuda_graph._GRAPHS)
+    phase(name, f"{out['graphs']} CUDA graphs captured in the phase (at "
+          f"most {cuda_graph.MAX_GRAPHS} kept)")
+
+    # -- every kernel launch of the frame steps, held against plain ---------
+    for n, calls in frame_calls.items():
+        for a, kw, case in calls:
+            err, (b_ms, b_by, b_txt) = check_call(n, a, kw)
+            entry = {"call": f"vi frame step ({case})",
+                     "shape": shape_of(n, a, kw), "max_abs_err": err,
+                     "bound_ms": b_ms, "bound_by": b_by, "bound": b_txt}
+            if case == "keyframe":
+                entry.update(timed(n, a, kw, plain_reps=5 if n in (
+                    "K3", "K3s") else 20))
+            held[n].append(entry)
+        phase(name, f"{n}: all {len(calls)} launches of the three frame "
+              f"steps held against plain (max err "
+              f"{max(e['max_abs_err'] for e in held[n]):.2e})")
+    out["held"] = held
+    return out
 
 
 def main() -> int:
@@ -2232,6 +2645,9 @@ def main() -> int:
           f"the float64 oracle over the stereo cell's checked calls: K3 "
           f"{plain32_err['K3']:.2e}, K3s {plain32_err['K3s']:.2e}")
 
+    # -- 12: the stereo-inertial device path ----------------------------------
+    vi_out = phase_inertial(dev, card, sk, check_call, timed, shape_of)
+
     sources = {"K1": ("steered-BRIEF sampler", "csrc/brief.cu",
                       "orbslam3_byzyh_tpu/ops/pallas_brief.py:161",
                       "none: no single PyTorch call gathers rotated sample "
@@ -2256,7 +2672,12 @@ def main() -> int:
                 k: {kind: st["launches_per_frame"][n]
                     for kind, st in v["frame_kinds"].items()}
                 for k, v in stereo_sys.items()},
-            "stereo_system_calls": st_sys_calls[n]}
+            "stereo_system_calls": st_sys_calls[n],
+            "launches_vi_frame_step": {
+                case: vi_out["frame"][case]["launches"][n]
+                for case in ("keyframe", "prior", "fallback")},
+            "launches_vi_keyframe_step": vi_out["keyframe"]["launches"][n],
+            "vi_frame_step_calls": vi_out["held"][n]}
 
     # K3s: no Pallas kernel; it ports the JAX package's XLA function.
     k3s_entry = {
@@ -2317,7 +2738,9 @@ def main() -> int:
         "keyframe_step": keyframe, "init_step_ms": init_med,
         "init_step_p80_ms": init_p80, "init_step_per_call": init_per_call,
         "init_step": init, "system": system, "stereo": stereo,
-        "plain32_err": plain32_err, "card": card}))
+        "plain32_err": plain32_err,
+        "inertial": {k: v for k, v in vi_out.items() if k != "held"},
+        "card": card}, default=str))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -77,3 +77,70 @@ def map_state_to_numpy(state):
 
     return ms.MapState(kfs=conv(state.kfs), lms=conv(state.lms),
                        obs=conv(state.obs))
+
+
+def preint_to_torch(p, device=None):
+    """A preintegration (any NamedTuple with the JAX package's
+    ``PreintState`` fields, numpy or JAX leaves, batched or not) -> the
+    port's ``imu.PreintState`` on ``device`` (``None``: the card)."""
+    from .ops import imu
+    dev = device_mod.resolve(device)
+    return imu.PreintState(*(to_torch(getattr(p, f), dev)
+                             for f in imu.PreintState._fields))
+
+
+def preint_to_numpy(p):
+    """The port's ``imu.PreintState`` -> the same NamedTuple of numpy
+    arrays (feed it to the JAX package's ``PreintState(*...)``)."""
+    return type(p)(*(to_numpy(x) for x in p))
+
+
+def viba_problem_to_torch(p, device=None):
+    """A VI-BA problem shaped as the JAX package's ``VIBAProblem`` (numpy or
+    JAX leaves) -> the port's ``inertial_ba.VIBAProblem`` on ``device``;
+    ``obs_ur`` and ``bf`` may be None."""
+    from .solver import inertial_ba
+    dev = device_mod.resolve(device)
+    return inertial_ba.VIBAProblem(**{
+        f: (preint_to_torch(p.preints, dev) if f == "preints"
+            else None if getattr(p, f) is None
+            else to_torch(getattr(p, f), dev))
+        for f in inertial_ba.VIBAProblem._fields})
+
+
+def viba_problem_to_numpy(p):
+    """The port's ``VIBAProblem`` -> a dict of its fields as numpy (the
+    preintegrations a numpy ``PreintState``; None stays None)."""
+    return {f: (preint_to_numpy(x) if f == "preints"
+                else None if x is None else to_numpy(x))
+            for f, x in zip(p._fields, p)}
+
+
+def inertial_map_to_torch(state_np, kf_vel, kf_bg, kf_ba, kf_prev,
+                          kf_preint, kf_stamp, device=None):
+    """A map state (numpy, the JAX package's dtypes) with its per-keyframe
+    inertial arrays -> the port's ``inertial_system.InertialMap``: the
+    velocities and biases (max_kf, 3) on ``device``; the chain ``kf_prev``,
+    the stamps and the per-slot preintegrations (numpy ``PreintState``s or
+    None) as the system keeps them (host arrays, device preintegrations)."""
+    from .pipeline import inertial_system as vi
+    dev = device_mod.resolve(device)
+    return vi.InertialMap(
+        state=map_state_to_torch(state_np, dev), kf_vel=to_torch(kf_vel, dev),
+        kf_bg=to_torch(kf_bg, dev), kf_ba=to_torch(kf_ba, dev),
+        kf_prev=np.asarray(kf_prev, np.int32).copy(),
+        kf_preint=[None if q is None else preint_to_torch(q, dev)
+                   for q in kf_preint],
+        kf_stamp=np.asarray(kf_stamp, np.float64).copy())
+
+
+def inertial_map_to_numpy(imap) -> dict:
+    """The port's ``InertialMap`` -> a dict of numpy: ``state`` (the JAX
+    package's dtypes), ``kf_vel``, ``kf_bg``, ``kf_ba``, ``kf_prev``,
+    ``kf_preint`` (numpy PreintStates or None) and ``kf_stamp``."""
+    return dict(state=map_state_to_numpy(imap.state),
+                kf_vel=to_numpy(imap.kf_vel), kf_bg=to_numpy(imap.kf_bg),
+                kf_ba=to_numpy(imap.kf_ba), kf_prev=imap.kf_prev.copy(),
+                kf_preint=[None if q is None else preint_to_numpy(q)
+                           for q in imap.kf_preint],
+                kf_stamp=imap.kf_stamp.copy())

@@ -483,7 +483,8 @@ _LEVEL_P = np.array([0.3, 0.22, 0.16, 0.12, 0.08, 0.06, 0.04, 0.02])
 
 def euroc_mono_map(cfg: MonoConfig = EUROC_MONO, case: str = "normal",
                    seed: int = 0, n_live_kf: int = 200,
-                   view_points: int = 7000) -> MonoMap:
+                   view_points: int = 7000, path=None, bf=None,
+                   ur_depth: float = 0.0) -> MonoMap:
     """A map at ``cfg``'s capacity and a new keyframe for it (numpy in and
     out), in which every stage of ``mono_keyframe_step`` has work.
 
@@ -512,6 +513,11 @@ def euroc_mono_map(cfg: MonoConfig = EUROC_MONO, case: str = "normal",
     landmarks, observed by 2-3 keyframes of the first half, fill all but
     2/3 of ``n_features`` slots, so the capacity valve retires the oldest
     and the slot allocation recycles.
+
+    ``path(k)``, when given, replaces the path: keyframe k's true (R_cw,
+    t_cw, camera centre) for k = 0..n_live_kf. ``bf``, when given, gives
+    each keypoint closer than ``ur_depth`` m its right-image u, u - bf / z
+    with 0.3 px of noise (``kp_ur``; -1 elsewhere).
     """
     if case not in ("normal", "full"):
         raise ValueError(f"case: 'normal' or 'full', got {case!r}")
@@ -522,7 +528,8 @@ def euroc_mono_map(cfg: MonoConfig = EUROC_MONO, case: str = "normal",
     p_cull = K // 2
     fx, fy, cx, cy = cfg.fx, cfg.fy, cfg.cx, cfg.cy
     W, H = cfg.width, cfg.height
-    poses = [_path_pose(k, _SPACING) for k in range(K + 1)]
+    poses = [_path_pose(k, _SPACING) if path is None else path(k)
+             for k in range(K + 1)]
 
     # The point field: a slab in front of the path, as dense as asked.
     half_w = 10.0 * max(cx, W - cx) / fx + 1.0
@@ -536,7 +543,7 @@ def euroc_mono_map(cfg: MonoConfig = EUROC_MONO, case: str = "normal",
         uv = np.stack([fx * pc[:, 0] / z + cx, fy * pc[:, 1] / z + cy], -1)
         ok = ((z > 0.1) & (uv[:, 0] >= 8) & (uv[:, 0] < W - 8)
               & (uv[:, 1] >= 8) & (uv[:, 1] < H - 8))
-        return uv, ok
+        return uv, ok, z
 
     pilot = rng.uniform(lo, hi, (20000, 3))
     frac = max(project(K // 2, pilot)[1].mean(), 1e-6)
@@ -552,8 +559,9 @@ def euroc_mono_map(cfg: MonoConfig = EUROC_MONO, case: str = "normal",
     kp_desc = np.zeros((K + 1, nf, 8), np.uint32)
     kp_level = np.zeros((K + 1, nf), np.int32)
     kp_angle = np.zeros((K + 1, nf), np.float32)
+    kp_ur = np.full((K + 1, nf), -1.0, np.float32)
     for k in range(K + 1):
-        uv, ok = project(k, X)
+        uv, ok, z = project(k, X)
         vis = np.flatnonzero(ok)
         pick = rng.permutation(vis)[:nf]
         n = len(pick)
@@ -569,6 +577,11 @@ def euroc_mono_map(cfg: MonoConfig = EUROC_MONO, case: str = "normal",
         kp_desc[k, :n] = base[pick] ^ flips
         kp_level[k, :n] = p_level[pick]
         kp_angle[k, :n] = p_angle[pick] + rng.normal(0, 0.02, n)
+        if bf is not None:
+            zk = z[pick]
+            kp_ur[k, :n] = np.where(
+                zk < ur_depth, kp_xy[k, :n, 0] - bf / zk
+                + rng.normal(0, 0.3, n), -1.0)
     kp_valid = kp_pt >= 0
 
     # Appearances in the old views, chronological per point.
@@ -702,7 +715,7 @@ def euroc_mono_map(cfg: MonoConfig = EUROC_MONO, case: str = "normal",
             kp_xy=slab(kp_xy, 0), kp_level=slab(kp_level, 0),
             kp_angle=slab(kp_angle, 0), kp_desc=slab(kp_desc, 0),
             kp_valid=slab(kp_valid, False),
-            kp_ur=np.full((cfg.max_kf, nf), -1.0, f32), valid=kf_valid),
+            kp_ur=slab(kp_ur, -1.0), valid=kf_valid),
         lms=ms.Landmarks(
             pos=pos.astype(f32), desc=desc, normal=normal.astype(f32),
             min_dist=min_d.astype(f32), max_dist=max_d.astype(f32),
@@ -1291,3 +1304,587 @@ def tum_rgbd_golden_config(**changes):
                      max_obs=12, fps=10, kf_ref_min_obs=1, bf=40.0,
                      th_depth=40.0, depth_scale=5000.0)
     return dataclasses.replace(cfg, **changes)
+
+
+# --- The stereo-inertial device path ----------------------------------------
+
+class ViConfig(NamedTuple):
+    """A visual-inertial deployment: the rig, the IMU, the VI-BA sizes and
+    the IMU-initialisation gates (the port's own copy of
+    ``MonoInertialSlam``'s defaults and ``StereoInertialSlam``'s gates)."""
+
+    rig: RigConfig
+    imu: object                   # pipeline.inertial_system.ImuConfig
+    viba_window: int = 24         # local VI-BA keyframes
+    viba_free: int = 10           # of which the newest are free
+    viba_landmarks: int = 4096    # VI-BA landmark slots
+    full_viba_kf: int = 64        # full VI-BA keyframes
+    init_prior: tuple = (1e2, 1e5)   # bias prior (gyro, accel) at the init
+    fix_scale: bool = True        # stereo: the init keeps the scale
+
+
+# EuRoC's IMU.T_b_c1 (body <- left camera), configs/EuRoC_stereo_inertial.yaml.
+EUROC_T_BC = np.array(
+    [[0.0148655429818, -0.999880929698, 0.00414029679422, -0.0216401454975],
+     [0.999557249008, 0.0149672133247, 0.025715529948, -0.064676986768],
+     [-0.0257744366974, 0.00375618835797, 0.999660727178, 0.00981073058949],
+     [0.0, 0.0, 0.0, 1.0]], np.float32)
+
+
+def _euroc_stereo_inertial() -> ViConfig:
+    from .pipeline.inertial_system import ImuConfig
+    return ViConfig(
+        rig=RigConfig(
+            mono=MonoConfig(width=752, height=480, fx=436.2443, fy=436.2443,
+                            cx=364.4412, cy=256.9517, dist=None,
+                            n_features=1200),
+            bf=48.0208, th_depth=60.0),
+        imu=ImuConfig(T_bc=EUROC_T_BC, gyro_noise=1.7e-4, acc_noise=2.0e-3,
+                      gyro_walk=1.9393e-5, acc_walk=3.0e-3, freq=200.0))
+
+
+# EuRoC stereo-inertial as ``scripts/run_euroc_stereo_inertial.py
+# --no-vocabulary`` runs it (``configs/EuRoC_stereo_inertial.yaml``): the
+# pair rectified to a pinhole with no distortion (fx = fy = 436.2443, cx =
+# 364.4412, cy = 256.9517, bf = 48.0208, so a 0.1101 m baseline, from the
+# JAX package's ``io/rectify.build_rectification``: host-side OpenCV
+# preprocessing the card's machine lacks, so they are constants here),
+# ThDepth 60 (close points within 6.605 m), 1200 features over 8 levels at
+# 1.2, 20 fps; the IMU at 200 Hz with the yaml's noise, walk and T_b_c1;
+# 1024 keyframe, 65536 landmark and 12 observation slots; the VI-BA sizes
+# of MonoInertialSlam and the stereo IMU-init gates.
+EUROC_STEREO_INERTIAL = _euroc_stereo_inertial()
+
+
+def mono_inertial_gates(cfg: ViConfig) -> ViConfig:
+    """``cfg`` with the monocular IMU-init gates: the (1e2, 1e10) prior, a
+    free scale."""
+    return cfg._replace(init_prior=(1e2, 1e10), fix_scale=False)
+
+
+def vi_context(cfg: ViConfig = EUROC_STEREO_INERTIAL, device=None,
+               stereo: bool = True):
+    """The inertial functions' constants (``inertial_system.ViContext``) of
+    ``cfg`` on ``device`` (``None``: the card); ``stereo=False`` leaves the
+    stereo rows out (a monocular map)."""
+    from .pipeline import inertial_system as vi
+    m = cfg.rig.mono
+    return vi.make_context(
+        cfg.imu, [m.fx, m.fy, m.cx, m.cy], cfg.rig.bf if stereo else None,
+        cfg.rig.depth_threshold if stereo else 0.0, m.width, m.height,
+        _mono_window(m), m.kf_ref_min_obs, cfg.viba_window, cfg.viba_free,
+        cfg.viba_landmarks, cfg.full_viba_kf, device=device)
+
+
+class ViFrameArgs(NamedTuple):
+    """``vi_frame_step``'s arguments: the pair, the last frame, the map,
+    the inertial state and the IMU samples. Tensors on the device, except
+    where noted (host values, as the system keeps them)."""
+
+    img_l: object            # (H, W) float32
+    img_r: object
+    last_bind: object        # (N,) int32
+    last_desc: object        # (N, 8)
+    last_angle: object       # (N,)
+    lms: object              # map_state.Landmarks
+    obs: object              # map_state.Observations
+    n_kf: int                # host: live keyframes
+    last_kf_id: int          # host: the reference keyframe
+    body: tuple              # (R_wb, p_w, v_w) the last frame's body state
+    bias: np.ndarray         # host (6,): [bg, ba]
+    imu: tuple               # host: (ts, gyr, acc) samples in (t0, t1]
+    t0: float                # host: the last frame's stamp
+    t1: float                # host: this frame's stamp
+    prior_H: object          # (15, 15) the last frame's H_marg, or None
+
+
+def vi_frame_step(args: ViFrameArgs, ctx, cfg: ViConfig = EUROC_STEREO_INERTIAL):
+    """One stereo-inertial tracking frame, as ``StereoInertialSlam.track``
+    runs ``_track_inertial``: with a carried prior its square root first
+    (``inertial.prior_sqrt``, the one synchronisation besides the read:
+    ``torch.linalg.eigh``, here while the device is idle), then
+    ``stereo_extract`` (K1 twice and the stereo match) and
+    ``inertial_system.track_inertial`` (the window's preintegration and
+    prediction, the motion model from it (K2, K3) with the fallback to the
+    prediction, the local map with stereo rows (K2, K3s), the pose-inertial
+    optimization, the epilogue and its one packed read). ``ctx``:
+    :func:`vi_context` of ``cfg``. Returns (ViFrameResult, left features,
+    StereoMatchResult)."""
+    from .pipeline import inertial_system as vi
+    from .solver import inertial
+    prior_L = (None if args.prior_H is None
+               else inertial.prior_sqrt(args.prior_H))
+    f, _, m = stereo_extract(args.img_l, args.img_r, ctx.cam_params, None,
+                             cfg.rig)
+    res = vi.track_inertial(
+        f, m.u_right, m.depth, args.last_bind, args.last_desc,
+        args.last_angle, args.lms, args.obs, args.n_kf, args.last_kf_id,
+        args.body, args.bias, args.imu, args.t0, args.t1, ctx,
+        prior_H=args.prior_H, prior_L=prior_L)
+    return res, f, m
+
+
+def vi_keyframe_step(imap, kf_id: int, map_first_kf: int, ctx):
+    """``MonoInertialSlam._local_inertial_ba`` for a new keyframe
+    ``kf_id``: the visual-inertial BA over the chain's last
+    ``viba_window`` keyframes (the newest ``viba_free`` free) and
+    ``viba_landmarks`` landmark slots, stages (4, 6), written back to the
+    map. ``imap``: an ``inertial_system.InertialMap``. No host read."""
+    from .pipeline import inertial_system as vi
+    return vi.local_inertial_ba(imap, kf_id, map_first_kf, ctx)
+
+
+def vi_initialize(imap, kf_id: int, ctx, cfg: ViConfig = EUROC_STEREO_INERTIAL):
+    """The device work of ``MonoInertialSlam._initialize_imu`` at keyframe
+    ``kf_id``: ``inertial_refit`` (the inertial-only solve of gravity,
+    scale, biases and velocities over the chain, ``cfg.init_prior``, the
+    scale fixed with ``cfg.fix_scale``; the map's gravity and scale rebase),
+    then, when the scale came out finite and at least 0.1, the full VI-BA
+    over up to ``full_viba_kf`` keyframes with the same bias prior, stages
+    (5, 10). One host read: the scale with the biases. Returns (imap',
+    RefitResult, whether it initialised)."""
+    from .pipeline import inertial_system as vi
+    imap, fit = vi.inertial_refit(imap, kf_id, cfg.init_prior[0],
+                                  cfg.init_prior[1], cfg.fix_scale, ctx)
+    if not np.isfinite(fit.scale) or fit.scale < 1e-1:
+        return imap, fit, False
+    imap = vi.full_inertial_ba(imap, kf_id, cfg.init_prior[0],
+                               cfg.init_prior[1], ctx)
+    return imap, fit, True
+
+
+# The stereo-inertial example pair's right image is the left one shifted
+# this many pixels: a fronto-parallel plane at bf / 12 = 4.0017 m, inside
+# EuRoC's 6.605 m close-point depth.
+VI_PAIR_SHIFT = 12
+# The frame step's IMU window: a frame period of 0.05 s (20 fps) sampled at
+# 200 Hz, the samples offset by half a period from the frames (boundary
+# splitting on both ends: 11 steps).
+VI_T0, VI_T1 = 10.0, 10.05
+# euroc_vi_scene's true body motion over the window (constant): body rate
+# (rad/s), world acceleration (m/s^2), velocity at the frame (m/s); and the
+# IMU's bias [bg, ba].
+VI_OMEGA = (0.1, -0.2, 0.15)
+VI_ACCEL = (0.3, -0.2, 0.1)
+VI_VEL = (0.5, 0.1, -0.2)
+VI_BIAS = (0.002, -0.001, 0.0015, 0.03, -0.02, 0.01)
+
+
+def euroc_vi_pair(cfg: ViConfig = EUROC_STEREO_INERTIAL):
+    """The example pair at the rig's size: ``example_image`` and the same
+    image shifted ``VI_PAIR_SHIFT`` px left (wrapped round). float32 numpy
+    (left, right)."""
+    m = cfg.rig.mono
+    left = example_image(m.height, m.width)
+    return left, np.roll(left, -VI_PAIR_SHIFT, axis=1)
+
+
+def _so3_log_np(R) -> np.ndarray:
+    """Rotation -> so(3) vector (float64, away from pi)."""
+    c = np.clip((np.trace(R) - 1.0) / 2.0, -1.0, 1.0)
+    th = np.arccos(c)
+    w = np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
+    return w * (0.5 if th < 1e-9 else th / (2.0 * np.sin(th)))
+
+
+class ViScene(NamedTuple):
+    """``vi_frame_step``'s inputs as numpy (the map's rows as
+    :class:`MonoFrameArgs` names them) and the truth: the frame's camera
+    is at the identity, its body state ``R_true``, ``p_true``,
+    ``v_true``."""
+
+    img_l: np.ndarray
+    img_r: np.ndarray
+    scene: MonoFrameArgs     # the map and the last frame (its img unused)
+    body: tuple              # (R_wb, p_w, v_w) the last frame's estimate
+    bias: np.ndarray         # (6,)
+    imu: tuple               # (ts, gyr, acc) in (t0, t1]
+    t0: float
+    t1: float
+    prior_H: np.ndarray | None
+    R_true: np.ndarray       # body state at t1
+    p_true: np.ndarray
+    v_true: np.ndarray
+
+
+def euroc_vi_scene(feats_xy, feats_level, feats_desc, feats_angle,
+                   feats_valid, depth, case: str = "keyframe",
+                   cfg: ViConfig = EUROC_STEREO_INERTIAL,
+                   seed: int = 0) -> ViScene:
+    """A frame that ``vi_frame_step`` tracks (numpy in and out): the map of
+    :func:`euroc_mono_scene` at ``cfg``'s capacity, the left frame's own
+    features lifted to their stereo depths (``depth`` (N,) from
+    ``stereo_extract`` of :func:`euroc_vi_pair`; the plane's bf / 12 where
+    there is none), with the true camera at the identity; and an IMU
+    window (``VI_T0``, ``VI_T1``] of 200 Hz samples of a body moving at
+    constant rate ``VI_OMEGA`` and world acceleration ``VI_ACCEL`` with the
+    known bias ``VI_BIAS``. The last frame's body state is the truth at
+    ``VI_T0`` off by about 0.5 mrad, 2 mm and 0.02 m/s (the system's
+    estimate).
+
+    ``case`` = "keyframe": no prior (the LastKeyFrame variant). "prior": a
+    carried 15 x 15 marginal prior, one eigenvalue slightly negative (the
+    PSD projection must act). "fallback": the last frame keeps only 8
+    bindings, so the motion model finds fewer than 10 inliers and the IMU
+    prediction is taken."""
+    if case not in ("keyframe", "prior", "fallback"):
+        raise ValueError(f"case: 'keyframe', 'prior' or 'fallback', "
+                         f"got {case!r}")
+    rig = cfg.rig
+    depth = np.asarray(depth, np.float64)
+    plane = rig.bf / VI_PAIR_SHIFT
+    scene = euroc_mono_scene(
+        feats_xy, feats_level, feats_desc, feats_angle, feats_valid,
+        cfg=rig.mono, case="normal", seed=seed,
+        depth=np.where(depth > 0, depth, plane))
+    if case == "fallback":
+        bound = np.flatnonzero(scene.last_bind >= 0)
+        keep = np.full_like(scene.last_bind, -1)
+        keep[bound[:8]] = scene.last_bind[bound[:8]]
+        scene = scene._replace(last_bind=keep)
+    left, right = euroc_vi_pair(cfg)
+
+    rng = np.random.default_rng(seed + 1)
+    T = np.asarray(cfg.imu.T_bc, np.float64)
+    R_bc, t_bc = T[:3, :3], T[:3, 3]
+    R1 = R_bc.T                         # the camera at the identity
+    p1 = -R_bc.T @ t_bc
+    w = np.array(VI_OMEGA)
+    a_w = np.array(VI_ACCEL)
+    v1 = np.array(VI_VEL)
+    g = np.array([0.0, 0.0, -9.81])
+    bias = np.array(VI_BIAS)
+
+    def state(t):
+        d = t - VI_T1
+        return (R1 @ _rodrigues(w * d), v1 + a_w * d,
+                p1 + v1 * d + 0.5 * a_w * d * d)
+
+    period = 1.0 / cfg.imu.freq
+    ts = VI_T0 + period / 2 + period * np.arange(
+        int(round((VI_T1 - VI_T0) / period)))
+    gyr = np.tile(w + bias[:3], (len(ts), 1))
+    acc = np.stack([state(t)[0].T @ (a_w - g) for t in ts]) + bias[3:]
+    R0, v0, p0 = state(VI_T0)
+    R0 = R0 @ _rodrigues(rng.normal(0, 5e-4 / np.sqrt(3), 3))
+    dp = rng.normal(0, 2e-3 / np.sqrt(3), 3)
+    dv = rng.normal(0, 2e-2 / np.sqrt(3), 3)
+
+    prior_H = None
+    if case == "prior":
+        # The last frame's pose firmly held (information 1e5 to 1e6) and
+        # about 0.2 mm off, its velocity about 0.1 m/s off and weakly held
+        # (1 to 10): the joint solve must take the velocity from the
+        # inertial link to the tracked pose, far from the prediction. The
+        # biases held at 1e6 (gyro) and 1e4 (accel). Each block in a random
+        # basis; the smallest eigenvalue -1e-3 (a float32 Schur complement
+        # is only nearly PSD).
+        dp, dv = dp / 10, dv * 5
+        lams = ([-1e-3] + list(np.logspace(5.0, 6.0, 5)),
+                np.logspace(0.0, 1.0, 3), [1e6] * 3, [1e4] * 3)
+        prior_H = np.zeros((15, 15))
+        i = 0
+        for lam in lams:
+            Q, _ = np.linalg.qr(rng.normal(size=(len(lam), len(lam))))
+            prior_H[i:i + len(lam), i:i + len(lam)] = (Q * lam) @ Q.T
+            i += len(lam)
+    p0 = p0 + dp
+    v0 = v0 + dv
+    f32 = np.float32
+    return ViScene(
+        img_l=left, img_r=right, scene=scene,
+        body=(R0.astype(f32), p0.astype(f32), v0.astype(f32)),
+        bias=bias.astype(f32),
+        imu=(ts, gyr.astype(f32), acc.astype(f32)), t0=VI_T0, t1=VI_T1,
+        prior_H=None if prior_H is None else prior_H.astype(f32),
+        R_true=R1.astype(f32), p_true=p1.astype(f32), v_true=v1.astype(f32))
+
+
+def vi_frame_args(s: ViScene, device=None) -> ViFrameArgs:
+    """:class:`ViFrameArgs` of a :class:`ViScene` on ``device`` (``None``:
+    the card)."""
+    t = lambda a: convert.to_torch(a, device)
+    sc = s.scene
+    n_obs = np.asarray(sc.obs_valid).sum(-1).astype(np.int32)
+    lms = ms.Landmarks(
+        pos=t(sc.lm_pos), desc=t(sc.lm_desc), normal=t(sc.lm_normal),
+        min_dist=t(sc.lm_min_d), max_dist=t(sc.lm_max_d), n_obs=t(n_obs),
+        n_found=t(sc.n_found), n_visible=t(sc.n_visible),
+        first_kf=t(np.zeros_like(n_obs)), valid=t(sc.lm_valid))
+    obs = ms.Observations(kf=t(sc.obs_kf), kp=t(np.zeros_like(sc.obs_kf)),
+                          valid=t(sc.obs_valid))
+    return ViFrameArgs(
+        img_l=t(s.img_l), img_r=t(s.img_r), last_bind=t(sc.last_bind),
+        last_desc=t(sc.last_desc), last_angle=t(sc.last_angle), lms=lms,
+        obs=obs, n_kf=int(sc.n_kf), last_kf_id=int(sc.ref_kf),
+        body=tuple(t(a) for a in s.body), bias=s.bias, imu=s.imu, t0=s.t0,
+        t1=s.t1, prior_H=None if s.prior_H is None else t(s.prior_H))
+
+
+# --- The keyframe and init steps' maps --------------------------------------
+
+# euroc_mono_map's frame (camera-like: y down, z forward) -> the inertial
+# world (z up, gravity along -z): forward becomes +y, down becomes -z.
+_Q_WORLD = np.array([[1.0, 0.0, 0.0], [0.0, 0.0, 1.0], [0.0, -1.0, 0.0]])
+_KF_DT = 0.25          # euroc_mono_map's keyframe stamps, s
+
+
+def _vi_truth(cfg: ViConfig, n_views: int, centre0, rot0, bias):
+    """A body trajectory whose keyframe states are exactly what the
+    preintegration of its IMU samples gives (as tests/test_inertial.py's
+    chains are made): 200 Hz samples (bias added) of the analytic camera
+    path ``centre0(t)``, ``rot0(t)`` (R_wc, in euroc_mono_map's frame)
+    taken into the inertial world, then the true states rolled forward from
+    t = 0 through each keyframe interval's integration steps in float64.
+    Returns (ts, gyr, acc, R_wb (V, 3, 3), p_w (V, 3), v_w (V, 3)) at the
+    keyframe stamps k * 0.25 s."""
+    from .pipeline import inertial_system as vi
+    T = np.asarray(cfg.imu.T_bc, np.float64)
+    R_bc, t_bc = T[:3, :3], T[:3, 3]
+    g = np.array([0.0, 0.0, -9.81])
+    Q = _Q_WORLD
+
+    def body(t):
+        R_wc = Q @ rot0(t)
+        return R_wc @ R_bc.T, Q @ centre0(t) - R_wc @ R_bc.T @ t_bc
+
+    h = 1e-3
+    n_s = int(round(_KF_DT * (n_views - 1) * cfg.imu.freq))
+    ts = np.arange(n_s + 1) / cfg.imu.freq
+    gyr = np.zeros((len(ts), 3))
+    acc = np.zeros((len(ts), 3))
+    for i, t in enumerate(ts):
+        (Rm, pm), (R, p), (Rp, pp) = body(t - h), body(t), body(t + h)
+        gyr[i] = _so3_log_np(Rm.T @ Rp) / (2 * h)
+        acc[i] = R.T @ ((pp - 2 * p + pm) / (h * h) - g)
+    gyr_m = (gyr + bias[:3]).astype(np.float32)
+    acc_m = (acc + bias[3:]).astype(np.float32)
+
+    R, p = body(0.0)
+    v = (body(h)[1] - body(-h)[1]) / (2 * h)
+    Rs, ps, vs = [R], [p], [v]
+    for k in range(1, n_views):
+        t0, t1 = _KF_DT * (k - 1), _KF_DT * k
+        sel = (ts > t0) & (ts <= t1)
+        a, w, dts = vi.make_steps(ts[sel], gyr_m[sel], acc_m[sel], t0, t1,
+                                  vi.KF_STEPS)
+        for aj, wj, dt in zip(a.astype(np.float64) - bias[3:],
+                              w.astype(np.float64) - bias[:3],
+                              dts.astype(np.float64)):
+            if dt <= 0:
+                continue
+            p = p + v * dt + 0.5 * g * dt * dt + 0.5 * R @ aj * dt * dt
+            v = v + g * dt + R @ aj * dt
+            R = R @ _rodrigues(wj * dt)
+        Rs.append(R)
+        ps.append(p)
+        vs.append(v)
+    return ts, gyr_m, acc_m, np.stack(Rs), np.stack(ps), np.stack(vs)
+
+
+def _kf_preints(cfg: ViConfig, ts, gyr, acc, ks, bias) -> dict:
+    """Keyframe k's preintegration over (stamp k-1, stamp k] at
+    linearization bias ``bias`` (6,), for each k of ``ks``: numpy
+    PreintStates from the port's ``imu.integrate`` on the CPU (all
+    intervals as one batch, cut to the longest one's samples)."""
+    from .ops import imu
+    from .pipeline import inertial_system as vi
+    steps = []
+    for k in ks:
+        t0, t1 = _KF_DT * (k - 1), _KF_DT * k
+        sel = (ts > t0) & (ts <= t1)
+        steps.append(vi.make_steps(ts[sel], gyr[sel], acc[sel], t0, t1,
+                                   vi.KF_STEPS))
+    # The real rows come first: cut the padding that none of them needs.
+    n = max(int(np.flatnonzero(d > 0)[-1]) + 1 for _, _, d in steps)
+    a, w, dts = (torch.from_numpy(np.stack([s[i][:n] for s in steps]))
+                 for i in range(3))
+    b = torch.from_numpy(np.tile(np.asarray(bias, np.float32), (len(ks), 1)))
+    pre = imu.integrate(a, w, dts, b,
+                        torch.from_numpy(cfg.imu.noise_cov()),
+                        torch.from_numpy(cfg.imu.walk_cov()))
+    return {k: imu.PreintState(*(x[i].numpy() for x in pre))
+            for i, k in enumerate(ks)}
+
+
+class ViMap(NamedTuple):
+    """A map with its inertial state (numpy, the JAX package's dtypes) and
+    the truth."""
+
+    state: ms.MapState
+    kf_vel: np.ndarray       # (max_kf, 3) the system's estimates
+    kf_bg: np.ndarray
+    kf_ba: np.ndarray
+    kf_prev: np.ndarray      # (max_kf,) int32 chain
+    kf_preint: list          # per slot: numpy PreintState or None
+    kf_stamp: np.ndarray     # (max_kf,) float64
+    kf_id: int               # the newest keyframe
+    map_first_kf: int
+    R_true: np.ndarray       # (K, 3, 3) true R_cw of the live keyframes
+    t_true: np.ndarray       # (K, 3)
+    v_true: np.ndarray       # (K, 3) true body velocities (world)
+    bias_true: np.ndarray    # (6,)
+    R_vw: np.ndarray         # the map's world <- the gravity-aligned world
+    scale: float             # metric = scale x map units
+
+
+def vi_map_args(m: ViMap, device=None):
+    """An ``inertial_system.InertialMap`` of a :class:`ViMap` on ``device``
+    (``None``: the card)."""
+    return convert.inertial_map_to_torch(
+        m.state, m.kf_vel, m.kf_bg, m.kf_ba, m.kf_prev, m.kf_preint,
+        m.kf_stamp, device)
+
+
+def _vi_map(cfg: ViConfig, n_live_kf: int, centre0, rot0, bias, n_preint,
+            seed: int, R_vw, scale: float, stereo: bool, view_points: int,
+            perturb, bias_lin) -> ViMap:
+    """The map of :func:`euroc_mono_map` on the rolled true path of
+    :func:`_vi_truth`, taken into the inertial world, then into the map's
+    world x' = R_vw x / scale; the chain 0 -> 1 -> ... -> K-1 with the
+    last ``n_preint`` keyframes' preintegrations, linearized at
+    ``bias_lin``; ``perturb(rng, R_cw, t_cw, v, k)`` gives keyframe k's
+    estimates (R_cw, t_cw, v, bias (6,))."""
+    K = n_live_kf
+    ts, gyr, acc, Rwb, pw, vw = _vi_truth(cfg, K + 1, centre0, rot0, bias)
+    T = np.asarray(cfg.imu.T_bc, np.float64)
+    R_cb = T[:3, :3].T
+    t_cb = -R_cb @ T[:3, 3]
+    Q = _Q_WORLD
+    R_cw = np.einsum("ij,kjl->kil", R_cb, Rwb.transpose(0, 2, 1))
+    t_cw = t_cb - np.einsum("kij,kj->ki", R_cw, pw)
+    centres = pw + np.einsum("kij,j->ki", Rwb, T[:3, 3])
+
+    def path(k):                        # in euroc_mono_map's frame
+        return R_cw[k] @ Q, t_cw[k], Q.T @ centres[k]
+
+    m = euroc_mono_map(cfg.rig.mono, seed=seed, n_live_kf=K,
+                       view_points=view_points, path=path,
+                       bf=cfg.rig.bf if stereo else None,
+                       ur_depth=cfg.rig.depth_threshold)
+    st = m.state
+    # euroc_mono_map's frame -> the inertial world -> the map's world.
+    M = np.asarray(R_vw, np.float64) @ Q
+    kfs, lms = st.kfs, st.lms
+    R_new = np.einsum("kij,lj->kil", kfs.R.astype(np.float64), M)
+    t_new = kfs.t.astype(np.float64) / scale
+    rng = np.random.default_rng(seed + 7)
+    v_est = np.zeros((cfg.rig.mono.max_kf, 3))
+    b_est = np.zeros((cfg.rig.mono.max_kf, 6))
+    for k in range(K):
+        R_new[k], t_new[k], v_est[k], b_est[k] = perturb(
+            rng, R_new[k], t_new[k], vw[k], k)
+    valid = lms.valid
+    f32 = np.float32
+    state = st._replace(
+        kfs=kfs._replace(R=R_new.astype(f32), t=t_new.astype(f32)),
+        lms=lms._replace(
+            pos=np.where(valid[:, None], lms.pos @ M.T / scale,
+                         lms.pos).astype(f32),
+            normal=np.where(valid[:, None], lms.normal @ M.T,
+                            lms.normal).astype(f32),
+            min_dist=np.where(valid, lms.min_dist / scale,
+                              lms.min_dist).astype(f32),
+            max_dist=np.where(valid, lms.max_dist / scale,
+                              lms.max_dist).astype(f32)))
+    max_kf = cfg.rig.mono.max_kf
+    kf_prev = np.full(max_kf, -1, np.int32)
+    kf_prev[1:K] = np.arange(K - 1)
+    pre = _kf_preints(cfg, ts, gyr, acc, list(range(max(K - n_preint, 1), K)),
+                      bias_lin)
+    kf_preint = [pre.get(k) for k in range(max_kf)]
+    kf_stamp = np.full(max_kf, np.nan)
+    kf_stamp[:K] = _KF_DT * np.arange(K)
+    R_true = np.einsum("kij,lj->kil", R_cw[:K], np.asarray(R_vw, np.float64))
+    return ViMap(
+        state=state, kf_vel=v_est.astype(f32), kf_bg=b_est[:, :3].astype(f32),
+        kf_ba=b_est[:, 3:].astype(f32), kf_prev=kf_prev,
+        kf_preint=kf_preint, kf_stamp=kf_stamp, kf_id=K - 1, map_first_kf=0,
+        R_true=R_true.astype(f32), t_true=(t_cw[:K] / scale).astype(f32),
+        v_true=vw[:K].astype(f32), bias_true=np.asarray(bias, f32),
+        R_vw=np.asarray(R_vw, f32), scale=float(scale))
+
+
+# euroc_vi_map's IMU bias and the estimates' offsets from it.
+VI_MAP_BIAS = (0.001, -0.0015, 0.0005, 0.02, 0.01, -0.015)
+
+
+def euroc_vi_map(cfg: ViConfig = EUROC_STEREO_INERTIAL, seed: int = 0,
+                 n_live_kf: int = 200, view_points: int = 7000,
+                 stereo: bool = True) -> ViMap:
+    """A map at ``cfg``'s capacity for ``vi_keyframe_step`` (numpy in and
+    out): :func:`euroc_mono_map`'s (``n_live_kf`` keyframes 0.25 s and 0.15
+    m apart, its landmarks, observations and keypoints, with the stereo
+    keypoints' u_r when ``stereo``) on a smooth path in the gravity-aligned
+    world, chained 0 -> 1 -> ... -> K-1, the chain's last ``viba_window``
+    keyframes carrying their preintegrations of 200 Hz samples of the true
+    motion (with bias ``VI_MAP_BIAS``, at which they are linearized; the
+    truth is what the integrator makes of the samples). The system's
+    estimates: every keyframe pose is off by 0.3 mrad and 2 mm as in
+    euroc_mono_map, its velocity and bias the truth; the newest
+    ``viba_free`` keyframes' poses by 2 mrad and 2 cm more, their
+    velocities by 0.05 m/s and their biases by 5e-4 rad/s and 1e-2 m/s^2.
+    The new keyframe is ``kf_id`` = K - 1."""
+    K = n_live_kf
+
+    def centre0(t):                      # euroc_mono_map's path, k = 4 t
+        return np.array([0.6 * t, 0.08 * np.sin(0.28 * t),
+                         0.05 * np.sin(0.2 * t)])
+
+    def rot0(t):
+        return _rodrigues([0.02 * np.sin(0.16 * t), 0.03 * np.sin(0.12 * t),
+                           0.01 * np.sin(0.2 * t)])
+
+    bias = np.asarray(VI_MAP_BIAS)
+
+    def perturb(rng, R, t, v, k):
+        if k < K - cfg.viba_free:
+            return R, t, v, bias
+        R, t = _perturb(rng, R, t, 2e-3 / np.sqrt(3), 2e-2 / np.sqrt(3))
+        return R, t, v + rng.normal(0, 0.05 / np.sqrt(3), 3), bias + (
+            np.concatenate([rng.normal(0, 5e-4, 3), rng.normal(0, 1e-2, 3)]))
+
+    return _vi_map(cfg, K, centre0, rot0, bias, cfg.viba_window, seed,
+                   np.eye(3), 1.0, stereo, view_points, perturb, bias)
+
+
+# euroc_vi_init's visual world: tilted away from gravity by these angles
+# (deg, about x then y), and for the monocular case scaled down by this.
+VI_INIT_TILT = (8.0, -5.0)
+VI_INIT_SCALE = 2.0
+VI_INIT_BIAS = (0.004, -0.003, 0.002, 0.0, 0.0, 0.0)
+
+
+def euroc_vi_init(cfg: ViConfig = EUROC_STEREO_INERTIAL, case: str = "stereo",
+                  seed: int = 0, n_live_kf: int = 12,
+                  view_points: int = 7000) -> ViMap:
+    """A chain for ``vi_initialize`` (numpy in and out): ``n_live_kf``
+    keyframes 0.25 s apart (2.75 s at 12: over the 1 s and 2 s of chain
+    that the stereo and mono systems wait for) on an excited path (about 1 m/s^2 and 0.1 rad/s
+    of wobble, so that the accelerometer sees the scale), every keyframe
+    with its preintegration (gyro bias ``VI_INIT_BIAS``), in a map world
+    tilted by ``VI_INIT_TILT`` away from gravity. ``case`` = "stereo": the
+    metric map with the keypoints' u_r; "mono": the map scaled down by
+    ``VI_INIT_SCALE`` and no u_r. Velocities and biases are zero (the
+    system's state before the init)."""
+    if case not in ("stereo", "mono"):
+        raise ValueError(f"case: 'stereo' or 'mono', got {case!r}")
+    from scipy.spatial.transform import Rotation
+    R_vw = Rotation.from_euler("xy", VI_INIT_TILT, degrees=True).as_matrix()
+
+    def centre0(t):
+        return np.array([0.6 * t + 0.25 * np.sin(2.3 * t),
+                         0.2 * np.sin(1.9 * t + 0.5),
+                         0.15 * np.sin(2.7 * t)])
+
+    def rot0(t):
+        return _rodrigues([0.08 * np.sin(1.5 * t), 0.1 * np.sin(1.1 * t),
+                           0.06 * np.sin(1.7 * t)])
+
+    def perturb(rng, R, t, v, k):
+        return R, t, np.zeros(3), np.zeros(6)
+
+    return _vi_map(cfg, n_live_kf, centre0, rot0, np.asarray(VI_INIT_BIAS),
+                   n_live_kf, seed, R_vw,
+                   1.0 if case == "stereo" else VI_INIT_SCALE,
+                   case == "stereo", view_points, perturb, np.zeros(6))

@@ -3,9 +3,17 @@
 Port of ``orbslam3_byzyh_tpu/ops/lie.py``: rotations are 3x3 matrices,
 poses are (R, t) pairs, and every function takes arbitrary leading batch
 dimensions. Small-angle branches select Taylor series with ``torch.where``.
+
+Two projections onto SO(3): :func:`normalize_rotation` is the JAX package's
+SVD (on CUDA ``torch.linalg.svd`` synchronises the stream);
+:func:`project_rotation` is a sync-free Newton polar iteration with the JAX
+package's custom JVP, for the inertial code, which projects once per IMU
+sample and differentiates through the projection.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -24,13 +32,26 @@ def skew(w: torch.Tensor) -> torch.Tensor:
     ], -2)
 
 
+def vee(W: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`skew`. (..., 3, 3) -> (..., 3)."""
+    return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], -1)
+
+
 def _eye_like(W: torch.Tensor) -> torch.Tensor:
     return torch.eye(3, dtype=W.dtype, device=W.device).expand(W.shape)
 
 
+def _angle2(w: torch.Tensor) -> torch.Tensor:
+    """|w|^2 as (..., 1): the scalar factors below keep a trailing axis,
+    because forward-mode differentiation (``torch.func.jvp``) of a 0-d
+    tensor combined with a Python number gives a float64 tangent in some
+    torch versions."""
+    return (w * w).sum(-1, keepdim=True)
+
+
 def so3_exp(w: torch.Tensor) -> torch.Tensor:
     """Rodrigues: (..., 3) -> (..., 3, 3)."""
-    theta2 = (w * w).sum(-1)
+    theta2 = _angle2(w)
     theta = torch.sqrt(theta2)
     W = skew(w)
     W2 = W @ W
@@ -40,12 +61,12 @@ def so3_exp(w: torch.Tensor) -> torch.Tensor:
                     torch.sin(theta) / torch.where(small, one, theta))
     b = torch.where(small, 0.5 - theta2 / 24.0,
                     (1.0 - torch.cos(theta)) / torch.where(small, one, theta2))
-    return _eye_like(W) + a[..., None, None] * W + b[..., None, None] * W2
+    return _eye_like(W) + a[..., None] * W + b[..., None] * W2
 
 
 def so3_right_jacobian(w: torch.Tensor) -> torch.Tensor:
     """Right Jacobian Jr of SO(3). (..., 3) -> (..., 3, 3)."""
-    theta2 = (w * w).sum(-1)
+    theta2 = _angle2(w)
     theta = torch.sqrt(theta2)
     W = skew(w)
     W2 = W @ W
@@ -56,7 +77,113 @@ def so3_right_jacobian(w: torch.Tensor) -> torch.Tensor:
     a = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / safe2)
     b = torch.where(small, 1.0 / 6.0 - theta2 / 120.0,
                     (theta - torch.sin(theta)) / safe3)
-    return _eye_like(W) - a[..., None, None] * W + b[..., None, None] * W2
+    return _eye_like(W) - a[..., None] * W + b[..., None] * W2
+
+
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """Logarithm map SO(3) -> so(3): (..., 3, 3) -> (..., 3). The angle is
+    atan2(sin, cos) (smooth at the identity under differentiation); within
+    1e-3 of pi the axis comes from the diagonal of (R + R^T) / 2."""
+    # Scalars as (..., 1), as in so3_exp.
+    trace = (R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2])[..., None]
+    cos_theta = ((trace - 1.0) * 0.5).clamp(-1.0, 1.0)
+    w_vee = vee(R - R.transpose(-1, -2)) * 0.5         # sin(theta) * axis
+    sin_theta = torch.sqrt(_angle2(w_vee) + 1e-14)
+    theta = torch.atan2(sin_theta, cos_theta)
+    near_pi = theta > (math.pi - 1e-3)
+    w_generic = theta / torch.where(near_pi, torch.ones_like(sin_theta),
+                                    sin_theta) * w_vee
+
+    Rp = 0.5 * (R + R.transpose(-1, -2))
+    diag = torch.stack([Rp[..., 0, 0], Rp[..., 1, 1], Rp[..., 2, 2]], -1)
+    axis = torch.sqrt(((diag - cos_theta)
+                       / (1.0 - cos_theta).clamp_min(1e-8)).clamp_min(0.0))
+    axis = axis * torch.where(w_vee >= 0.0, 1.0, -1.0)
+    axis = axis / torch.linalg.vector_norm(axis, dim=-1,
+                                           keepdim=True).clamp_min(1e-8)
+    return torch.where(near_pi, theta * axis, w_generic)
+
+
+def so3_right_jacobian_inv(w: torch.Tensor) -> torch.Tensor:
+    """Inverse right Jacobian of SO(3). (..., 3) -> (..., 3, 3)."""
+    theta2 = _angle2(w)
+    theta = torch.sqrt(theta2)
+    W = skew(w)
+    W2 = W @ W
+    small = theta < _EPS
+    one = torch.ones_like(theta)
+    safe = torch.where(small, one, theta)
+    safe2 = torch.where(small, one, theta2)
+    sin_t, cos_t = torch.sin(safe), torch.cos(safe)
+    sin_safe = torch.where(sin_t.abs() < 1e-8, one, sin_t)
+    c = torch.where(small, 1.0 / 12.0 + theta2 / 720.0,
+                    1.0 / safe2 - (1.0 + cos_t) / (2.0 * safe * sin_safe))
+    return _eye_like(W) + 0.5 * W + c[..., None] * W2
+
+
+# Newton polar iterations of project_rotation. Each squares the distance
+# from SO(3): a product of float32 rotations (1e-7 off) is at float32
+# rounding after one, an input 1e-3 off after two.
+POLAR_ITERS = 2
+
+
+def _inv_transpose(X: torch.Tensor) -> torch.Tensor:
+    """X^-T of a batch of 3x3 matrices: the cofactor matrix over the
+    determinant, with columns x1 x x2, x2 x x0, x0 x x1."""
+    a, b, c = X[..., :, 0], X[..., :, 1], X[..., :, 2]
+    bc = torch.linalg.cross(b, c, dim=-1)
+    det = (a * bc).sum(-1)
+    cof = torch.stack([bc, torch.linalg.cross(c, a, dim=-1),
+                       torch.linalg.cross(a, b, dim=-1)], -1)
+    return cof / det[..., None, None]
+
+
+def _polar(R: torch.Tensor) -> torch.Tensor:
+    X = R
+    for _ in range(POLAR_ITERS):
+        X = 0.5 * (X + _inv_transpose(X))
+    return X
+
+
+def _tangent_projection(Rn: torch.Tensor, dR: torch.Tensor) -> torch.Tensor:
+    """The JAX package's custom JVP of ``normalize_rotation``: the tangent
+    projected onto SO(3)'s tangent space at Rn, (dR - Rn dR^T Rn) / 2. The
+    map is its own adjoint, so it is the backward rule too."""
+    return 0.5 * (dR - Rn @ dR.transpose(-1, -2) @ Rn)
+
+
+class _ProjectRotation(torch.autograd.Function):
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(R):
+        return _polar(R)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_forward(output)
+        ctx.save_for_backward(output)
+
+    @staticmethod
+    def jvp(ctx, dR):
+        (Rn,) = ctx.saved_tensors
+        return _tangent_projection(Rn, dR)
+
+    @staticmethod
+    def backward(ctx, g):
+        (Rn,) = ctx.saved_tensors
+        return _tangent_projection(Rn, g)
+
+
+def project_rotation(R: torch.Tensor) -> torch.Tensor:
+    """Project a near-rotation (det > 0) onto SO(3) without synchronising:
+    ``POLAR_ITERS`` Newton polar iterations X <- (X + X^-T) / 2, which
+    converge to the polar factor, the SVD's U V^T. It stands in for the JAX
+    package's ``normalize_rotation`` (within 1e-6 on rotations 1e-3 off,
+    ``tests/test_torch_imu.py``) and carries its custom JVP: forward-mode
+    (``torch.func.jacfwd``) and reverse-mode differentiation see the tangent
+    projection at the output, not the iteration."""
+    return _ProjectRotation.apply(R)
 
 
 def normalize_rotation(R: torch.Tensor) -> torch.Tensor:

@@ -34,7 +34,17 @@ by name; the table goes to ``--out``, no trace). ``--entry stereo``: the
 same for ``StereoSlam`` at the KITTI stereo capacity on the stereo frames
 (``graft.kitti_golden_config()``, ``graft.kitti_frames``) and for
 ``RgbdSlam`` at TUM1's settings (``graft.tum_rgbd_golden_config()``), with
-the stereo extraction and the depth landmarks as stages. ``both`` runs
+the stereo extraction and the depth landmarks as stages. ``--entry vi``:
+``graft.vi_frame_step`` at the EuRoC stereo-inertial configuration on
+``graft.euroc_vi_scene`` (its "keyframe" and "prior" cases), split by stage,
+each stage function synchronised before and after it: the prior's square
+root (the prior case), the stereo extraction, the frame window's
+preintegration, the IMU prediction, the motion model, the local map, the
+pose-inertial optimization, and the epilogue (the rest of the step, its read
+included); then a few steps under the profiler (device busy and idle share,
+device operations per step, K1-K3s by name), and the keyframe step
+(``graft.vi_keyframe_step`` on ``graft.euroc_vi_map``) the same way, split
+into the window's build, the VI-BA and the write-back. ``both`` runs
 tracking and mono, ``all`` (the default) tracking, mono and keyframe in
 turn. For each it reports, with the card's name and power limit:
   * the step and its stages by host clock around synchronised calls,
@@ -59,7 +69,8 @@ import time
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--entry", choices=("tracking", "mono", "keyframe", "init",
-                                        "system", "stereo", "both", "all"),
+                                        "system", "stereo", "vi", "both",
+                                        "all"),
                     default="all")
     ap.add_argument("--sequences", type=int, default=2)
     ap.add_argument("--frames", type=int, default=20)
@@ -247,7 +258,149 @@ def main() -> int:
     if args.entry == "stereo":
         for cell in ("kitti", "rgbd"):
             profile_system(args, dev, card, timed, cell)
+    if args.entry == "vi":
+        profile_vi(args, dev, card)
     return 0
+
+
+def _device_share(label, card, n, step):
+    """``n`` calls of ``step`` under the profiler: the device's busy and
+    idle share of the wall time, device operations per call, the top items
+    and K1-K3s by name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in events)
+    ops = sum(e.count for e in events)
+    print(f"[{label} profile] {n} calls: wall {wall_us / n / 1e3:.3f} ms, "
+          f"device busy {busy_us / n / 1e3:.3f} ms "
+          f"({100 * busy_us / wall_us:.1f}% busy, "
+          f"{100 - 100 * busy_us / wall_us:.1f}% idle), {ops / n:.0f} device "
+          f"operations a call ({card})")
+    events.sort(key=lambda e: -e.self_device_time_total)
+    for e in events[:12]:
+        print(f"[{label} profile] {e.self_device_time_total / n:9.1f} us x"
+              f"{e.count // n:5d}  {e.key[:90]}")
+    for kname, name in KERNEL_NAMES:
+        mine = [e for e in events if name in e.key]
+        print(f"[{label} kernel] {kname}: "
+              f"{sum(e.self_device_time_total for e in mine) / n:.1f} us, "
+              f"{sum(e.count for e in mine) / n:.0f} launches a call")
+
+
+def profile_vi(args, dev, card) -> None:
+    """``--entry vi``: the stereo-inertial frame and keyframe steps by
+    stage."""
+    import contextlib
+
+    import torch
+    from orbslam3_byzyh_tpu_torch import convert, graft
+    from orbslam3_byzyh_tpu_torch.ops import imu
+    from orbslam3_byzyh_tpu_torch.pipeline import inertial_system as vi
+    from orbslam3_byzyh_tpu_torch.pipeline import tracking
+    from orbslam3_byzyh_tpu_torch.solver import inertial, inertial_ba
+
+    cfg = graft.EUROC_STEREO_INERTIAL
+    ctx = graft.vi_context(cfg, dev)
+    left, right = (torch.from_numpy(a).to(dev)
+                   for a in graft.euroc_vi_pair(cfg))
+    f, _, m = graft.stereo_extract(left, right, ctx.cam_params, None,
+                                   cfg.rig)
+    feats = [convert.to_numpy(a) for a in (f.xy, f.level, f.desc, f.angle,
+                                           f.valid)]
+
+    @contextlib.contextmanager
+    def staged(targets, acc):
+        """Time each (module, name) call, synchronised around it."""
+        saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
+
+        def wrap(label, fn):
+            def timed_fn(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                acc[label] = acc.get(label, 0.0) + (
+                    time.perf_counter() - t0) * 1e3
+                return out
+            return timed_fn
+        for mod, name, fn in saved:
+            setattr(mod, name, wrap(name, fn))
+        try:
+            yield
+        finally:
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
+
+    frame_stages = ((inertial, "prior_sqrt"), (graft, "stereo_extract"),
+                    (vi, "preintegrate"), (imu, "predict_state"),
+                    (tracking, "track_motion_model"),
+                    (tracking, "track_local_map_windowed"),
+                    (inertial, "pose_inertial_optimization"))
+    for case in ("keyframe", "prior"):
+        a = graft.vi_frame_args(graft.euroc_vi_scene(
+            *feats, convert.to_numpy(m.depth), case=case, cfg=cfg), dev)
+
+        def step():
+            return graft.vi_frame_step(a, ctx, cfg)
+
+        for _ in range(10):
+            step()
+        totals, sums = [], {}
+        for _ in range(args.frames):
+            acc = {}
+            with staged(frame_stages, acc):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+            total = (time.perf_counter() - t0) * 1e3
+            acc["epilogue"] = total - sum(acc.values())
+            totals.append(total)
+            for k, v in acc.items():
+                sums.setdefault(k, []).append(v)
+        med = {k: statistics.median(v) for k, v in sums.items()}
+        print(f"[vi {case} stages] step {statistics.median(totals):.3f} ms "
+              f"= " + " + ".join(f"{k} {v:.3f}" for k, v in med.items())
+              + f" ms (medians of {args.frames}, each stage synchronised; "
+              f"{card})")
+        _device_share(f"vi {case}", card, 5, step)
+
+    mp = graft.euroc_vi_map(cfg)
+    imap = graft.vi_map_args(mp, dev)
+
+    def kf_step():
+        return graft.vi_keyframe_step(imap, mp.kf_id, mp.map_first_kf, ctx)
+
+    for _ in range(5):
+        kf_step()
+    kf_stages = ((vi, "build_viba"), (inertial_ba, "vi_bundle_adjust"),
+                 (vi, "apply_viba"))
+    totals, sums = [], {}
+    for _ in range(args.frames):
+        acc = {}
+        with staged(kf_stages, acc):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            kf_step()
+            torch.cuda.synchronize()
+        totals.append((time.perf_counter() - t0) * 1e3)
+        for k, v in acc.items():
+            sums.setdefault(k, []).append(v)
+    med = {k: statistics.median(v) for k, v in sums.items()}
+    print(f"[vi keyframe stages] step {statistics.median(totals):.3f} ms = "
+          + " + ".join(f"{k} {v:.3f}" for k, v in med.items())
+          + f" ms (medians of {args.frames}; {card})")
+    _device_share("vi keyframe", card, 5, kf_step)
 
 
 # The port's kernels as the profiler names them: K3 and K3s are the two

@@ -516,3 +516,63 @@ def test_stereo_frame_step_on_the_card(dev):
     _, info_cpu, _, _, _ = graft.stereo_frame_step(*(
         None if a is None else a.cpu() for a in args))
     assert abs(int(info_cpu[0]) - n_gpu) <= 0.01 * n_gpu
+
+
+def _vi_frame(dev, case):
+    """graft.vi_frame_step's arguments at the EuRoC stereo-inertial size, on
+    the card and on the CPU."""
+    cfg = graft.EUROC_STEREO_INERTIAL
+    ctx = graft.vi_context(cfg, dev)
+    left, right = graft.euroc_vi_pair(cfg)
+    f, _, m = graft.stereo_extract(_t(left, dev), _t(right, dev),
+                                   ctx.cam_params, None, cfg.rig)
+    feats = [convert.to_numpy(a) for a in (f.xy, f.level, f.desc, f.angle,
+                                           f.valid)]
+    scene = graft.euroc_vi_scene(*feats, convert.to_numpy(m.depth),
+                                 case=case, cfg=cfg)
+    return cfg, ctx, scene, int(f.valid.sum())
+
+
+@pytest.mark.parametrize("case", ["keyframe", "prior", "fallback"])
+def test_vi_frame_step_on_the_card(dev, case):
+    """graft.vi_frame_step at the EuRoC stereo-inertial size: K1 twice, K2
+    twice, K3 once (the motion model from the IMU prediction) and K3s once
+    (the local map); the one read of info (and with a carried prior the
+    eigendecomposition of its projection) and no other synchronisation; the
+    same inliers and pose as the CPU plain path; the IMU prediction taken
+    in the fallback case only."""
+    cfg, ctx, scene, n_valid = _vi_frame(dev, case)
+    args = graft.vi_frame_args(scene, dev)
+    graft.vi_frame_step(args, ctx, cfg)        # first call: the captures
+    fns = (cuda_brief.KERNEL.fn_launches, cuda_match.KERNEL.fn_launches,
+           cuda_pose_opt.KERNEL.fn_launches)
+    before = [dict(k) for k in fns]
+    import warnings
+    torch.cuda.synchronize()
+    # The mode is set outside the recording: setting it first warns that
+    # the mode is a prototype, which is no synchronisation of the step.
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            res, _, _ = graft.vi_frame_step(args, ctx, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    sites = sorted(os.path.basename(w.filename) for w in caught
+                   if "synchroniz" in str(w.message))
+    assert sites == sorted(["device.py"] + (["inertial.py"]
+                                            if case == "prior" else []))
+    launched = [sum(k.values()) - sum(b.values())
+                for k, b in zip(fns, before)]
+    assert launched == [2, 2, 2]
+    k3 = cuda_pose_opt.KERNEL.fn_launches
+    assert k3[cuda_pose_opt.STEREO_FN] - before[2][cuda_pose_opt.STEREO_FN] \
+        == 1
+    info = res.info
+    assert int(info[0]) >= 0.75 * n_valid
+    assert np.abs(info[2:11].reshape(3, 3) - np.eye(3)).max() <= 2e-3
+    assert bool(res.used_prediction) == (case == "fallback")
+    res_c, _, _ = graft.vi_frame_step(graft.vi_frame_args(scene, "cpu"),
+                                      graft.vi_context(cfg, "cpu"), cfg)
+    assert abs(int(res_c.info[0]) - int(info[0])) <= max(2, 0.01 * info[0])
+    assert np.abs(res_c.info[2:14] - info[2:14]).max() <= 1e-3
