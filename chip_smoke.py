@@ -182,6 +182,37 @@ CAPACITY_BA_WINDOW = 24
 N_WARMUP_VI = 10
 
 
+# Phase 13: the inertial systems' timed sequences after one warm-up
+# sequence, per cell.
+N_TIMED_VI_SEQUENCES = 2
+# The JAX inertial systems' reads of device values in each kind of frame
+# (orbslam3_byzyh_tpu/pipeline/inertial_system.py unless named), beside
+# the port's synchronisations.
+JAX_VI_READS = {
+    "uninitialised": "mono: n_valid (system.py:342) and an attempt's "
+                     "n_matches, success (:353, :370); stereo: the depth and "
+                     "validity (stereo_system.py:138-139)",
+    "init": "mono: the init's reads (system.py:342-375) and keyframe 0's "
+            "stamp (:322); stereo: the depth, validity, landmark count and "
+            "high-water mark (stereo_system.py:138-139, :174, :203)",
+    "visual": "info (system.py:504); before the IMU init the last "
+              "keyframe's stamp once (:322)",
+    "inertial": "info (:1059); a RECENTLY_LOST frame the predicted pose "
+                "(:1074)",
+    "keyframe": "info (:1059), the liveness before the bundle (system.py:825), "
+                "the previous bundle's info (:867) and its culled mask "
+                "(:880), the pending cull (:464) with the liveness (:470), "
+                "the successor's bias (:493-494) and the valid mask (:504), "
+                "the keyframe's pose for the body (:1105-1106); stereo: the "
+                "depth landmarks' count and high-water mark "
+                "(stereo_system.py:174, :203)",
+    "imu_keyframe": "a keyframe's, and the refit's: the chain's poses "
+                    "(:728-729), the scale (:741), gravity and velocities "
+                    "(:746, :750), the biases (:755), the keyframe's pose "
+                    "(:793-794 or :644-645) and biases (:651-652), the ref "
+                    "cache (system.py)"}
+
+
 def phase(name: str, msg: str) -> None:
     print(f"[{name}] {msg}", flush=True)
 
@@ -380,11 +411,13 @@ def triangulation_margins(X, Ra, ta, Rb, tb, xy_a, xy_b, level_a, level_b,
 
 
 @contextlib.contextmanager
-def counted_syncs(stacks: list | None = None):
+def counted_syncs(stacks: list | None = None, callers: list | None = None):
     """Count the operations that synchronise the stream with the host
     inside the block (``torch.cuda.set_sync_debug_mode("warn")``): yields a
     list that ends up holding each warning's "file:line". ``stacks``, when
-    given, receives each one's Python stack."""
+    given, receives each one's Python stack; ``callers`` the innermost
+    frame of each in the port's ``pipeline/`` modules ("file:line
+    function"), the system code that asked for it."""
     where = []
     torch.cuda.synchronize()
     with warnings.catch_warnings():
@@ -395,6 +428,14 @@ def counted_syncs(stacks: list | None = None):
                 where.append(f"{os.path.relpath(filename)}:{lineno}")
                 if stacks is not None:
                     stacks.append("".join(traceback.format_stack(limit=14)))
+                if callers is not None:
+                    inner = [f for f in traceback.extract_stack()
+                             if "orbslam3_byzyh_tpu_torch/pipeline/"
+                             in f.filename]
+                    callers.append(
+                        f"{os.path.relpath(inner[-1].filename)}:"
+                        f"{inner[-1].lineno} {inner[-1].name}" if inner
+                        else "outside pipeline/")
 
         torch.cuda.set_sync_debug_mode("warn")
         warnings.showwarning = show
@@ -858,6 +899,239 @@ def phase_inertial(dev, card, sk, check_call, timed, shape_of) -> dict:
               f"{max(e['max_abs_err'] for e in held[n]):.2e})")
     out["held"] = held
     return out
+
+
+def phase_inertial_system(dev, card, sk, check_call, shape_of) -> dict:
+    """Phase "13 inertial system": ``StereoInertialSlam`` and
+    ``MonoInertialSlam`` on the committed VI frames, (d) the stereo golden
+    cell, (e) the mono golden cell, (f) the stereo frames at the EuRoC
+    stereo-inertial capacity. Per cell: one warm-up sequence with every
+    K1, K2, K3 and K3s launch held against its plain version, held to its
+    gates; then timed sequences (frame latency by kind, frames/s, launches,
+    CUDA graphs captured); then one sequence counting the synchronisations
+    by kind. Returns the results and each kernel's first held call per
+    cell."""
+    from orbslam3_byzyh_tpu_torch import graft
+    from orbslam3_byzyh_tpu_torch.ops import cuda_brief, cuda_match
+    from orbslam3_byzyh_tpu_torch.pipeline import inertial_system as vi
+    from orbslam3_byzyh_tpu_torch.pipeline import system as system_mod
+    from orbslam3_byzyh_tpu_torch.pipeline.stereo_inertial import \
+        StereoInertialSlam
+    from orbslam3_byzyh_tpu_torch.solver import cuda_pose_opt
+    from orbslam3_byzyh_tpu_torch.utils import cuda_graph
+
+    name = "13 inertial system"
+    vs, vm = graft.vi_stereo_frames(), graft.vi_mono_frames()
+    cells = {
+        "d_stereo_vi": (StereoInertialSlam,
+                        graft.stereo_inertial_golden_config(), vs,
+                        list(zip(vs.left, vs.right)), "stereo"),
+        "e_mono_vi": (vi.MonoInertialSlam,
+                      graft.mono_inertial_golden_config(), vm,
+                      [(f,) for f in vm.left], "mono"),
+        "f_euroc_vi": (StereoInertialSlam, graft.euroc_vi_golden_config(),
+                       vs, list(zip(graft.pad_frames(vs.left),
+                                    graft.pad_frames(vs.right))), "stereo")}
+    spies = {"K1": (cuda_brief, "brief_descriptors_kernel"),
+             "K2": (cuda_match, "hamming_best2_kernel"),
+             "K3": (cuda_pose_opt, "pose_optimization_kernel"),
+             "K3s": (cuda_pose_opt, "pose_optimization_stereo_kernel")}
+    originals = {n: getattr(m, f) for n, (m, f) in spies.items()}
+    checked, held, guard = {}, {n: [] for n in sk}, []
+    bundles = []
+    keyframe_step = graft.mono_keyframe_step
+
+    def counted_bundle(*a, **kw):
+        bundles.append(1)
+        return keyframe_step(*a, **kw)
+
+    def checking(cell, n):
+        fn = originals[n]
+
+        def spy(*a, **kw):
+            out = fn(*a, **kw)
+            if guard:
+                return out
+            guard.append(n)
+            try:
+                err, b = check_call(n, a, kw)
+            finally:
+                guard.pop()
+            rec = checked[cell][n]
+            rec["calls"] += 1
+            rec["max_abs_err"] = max(rec["max_abs_err"], float(err))
+            if rec["calls"] == 1:
+                held[n].append((cell, a, kw, err, b))
+            return out
+
+        return spy
+
+    def run(slam, frames, imgs, syncs=None):
+        """``track`` over the sequence as a user's loop calls it (each
+        frame with its IMU batch). Per frame: its kind, its host-clock ms,
+        its launches (and, with ``syncs``, its synchronisations)."""
+        out = []
+        t_seq = time.perf_counter()
+        for i, (img, stamp) in enumerate(zip(imgs, frames.stamps)):
+            uninit = slam.status == system_mod.NOT_INITIALIZED
+            ready, stage, n_b = slam.imu_ready, slam.viba_stage, len(bundles)
+            before = {n: k.launches for n, k in sk.items()}
+            imu = frames.imu(i)
+            callers = []
+            ctx = counted_syncs(callers=callers) if syncs is not None else \
+                contextlib.nullcontext([])
+            with ctx as where:
+                t0 = time.perf_counter()
+                slam.track(*img, float(stamp), imu)
+                ms = (time.perf_counter() - t0) * 1e3
+            if uninit:
+                kind = ("uninitialised"
+                        if slam.status == system_mod.NOT_INITIALIZED
+                        else "init")
+            elif len(bundles) > n_b:
+                kind = ("imu_keyframe" if slam.viba_stage != stage
+                        else "keyframe")
+            else:
+                kind = "inertial" if ready else "visual"
+            out.append({"kind": kind, "ms": ms, "syncs": list(where),
+                        "callers": callers,
+                        "launches": {n: k.launches - before[n]
+                                     for n, k in sk.items()}})
+        traj = slam.trajectory
+        return out, traj, time.perf_counter() - t_seq
+
+    def gate(cell, kind, slam, frames, traj):
+        require(len(traj) > 0, f"{cell}: no frame tracked")
+        v = slam._body[2] if slam._body is not None else torch.zeros(3)
+        g = graft.vi_gates(kind, traj, slam.t0, frames,
+                           v.detach().cpu().numpy())
+        g.update(imu_ready=bool(slam.imu_ready),
+                 viba_stage=int(slam.viba_stage),
+                 live_keyframes=int(slam.state.kfs.valid.sum()),
+                 live_landmarks=int(slam.state.lms.valid.sum()))
+        ok = g["ok"] and slam.imu_ready
+        if kind == "stereo":
+            g["jax_ate_m"] = graft.VI_STEREO_JAX_ATE_M
+            ok = ok and g["ate_m"] < graft.VI_STEREO_JAX_ATE_GATE_M
+            limit = (f"imu_ready, >= {graft.VI_STEREO_MIN_FRAMES} frames, "
+                     f"ATE < {graft.VI_STEREO_ATE_GATE_M} m and < "
+                     f"{graft.VI_STEREO_JAX_ATE_GATE_M:.5f} m (1.5 x the "
+                     f"JAX run's + 0.002), speed within "
+                     f"{graft.VI_SPEED_TOL_MPS} m/s")
+        else:
+            g["jax_ate_m"] = graft.VI_MONO_JAX_ATE_M
+            ok = ok and slam.viba_stage >= 2
+            limit = (f"imu_ready, viba_stage >= 2, >= "
+                     f"{graft.VI_MONO_MIN_FRAMES} frames; after "
+                     f"{graft.VI_MONO_POST_S} s: scale within "
+                     f"{graft.VI_MONO_SCALE_TOL} of 1, ATE < "
+                     f"{graft.VI_MONO_ATE_GATE_M} m, gravity within "
+                     f"{graft.VI_MONO_GRAVITY_DEG} deg; no single-frame "
+                     f"outlier; speed within {graft.VI_SPEED_TOL_MPS} m/s")
+        require(ok, f"{cell}: {g} against {limit}")
+        return g
+
+    out = {}
+    graft.mono_keyframe_step = counted_bundle
+    try:
+        for cell, (cls, setup, frames, imgs, kind) in cells.items():
+            checked[cell] = {n: {"calls": 0, "max_abs_err": 0.0} for n in sk}
+            for n_, (m, f) in spies.items():
+                setattr(m, f, checking(cell, n_))
+            cap0 = cuda_graph.CAPTURES[0]
+            try:
+                slam = cls(setup.config, setup.imu, **setup.viba)
+                _, traj, sec = run(slam, frames, imgs)
+                torch.cuda.synchronize()
+            finally:
+                for n_, (m, f) in spies.items():
+                    setattr(m, f, originals[n_])
+            warm = gate(cell, kind, slam, frames, traj)
+            warm.update(seconds=sec,
+                        graphs_captured=cuda_graph.CAPTURES[0] - cap0)
+            used = [n for n in sk if n != "K3s" or kind == "stereo"]
+            require(all(checked[cell][n]["calls"] > 0 for n in used),
+                    f"{cell}: kernels launched {checked[cell]}")
+            phase(name, f"{cell}: warm-up sequence, every launch held "
+                  "against its plain version: " + ", ".join(
+                      f"{n} {checked[cell][n]['calls']} calls max err "
+                      f"{checked[cell][n]['max_abs_err']:.2e}" for n in sk)
+                  + f"; {json.dumps(warm)}")
+            recs, seqs = [], []
+            for _ in range(N_TIMED_VI_SEQUENCES):
+                slam = cls(setup.config, setup.imu, **setup.viba)
+                for k in sk.values():
+                    k.launches = 0
+                cap0 = cuda_graph.CAPTURES[0]
+                torch.cuda.synchronize()
+                r, traj, sec = run(slam, frames, imgs)
+                res = gate(cell, kind, slam, frames, traj)
+                res.update(seconds=sec, fps=len(imgs) / sec,
+                           graphs_captured=cuda_graph.CAPTURES[0] - cap0,
+                           launches={n: k.launches for n, k in sk.items()})
+                require(all(res["launches"][n] > 0 for n in used),
+                        f"{cell}: launches {res['launches']}")
+                seqs.append(res)
+                recs += r
+            slam = cls(setup.config, setup.imu, **setup.viba)
+            sync_recs, _, _ = run(slam, frames, imgs, syncs=True)
+            kinds = {}
+            for k_ in ("uninitialised", "init", "visual", "inertial",
+                       "keyframe", "imu_keyframe"):
+                rs = [r for r in recs if r["kind"] == k_]
+                ws = [r["syncs"] for r in sync_recs if r["kind"] == k_]
+                cs = [r["callers"] for r in sync_recs if r["kind"] == k_]
+                st = spread(r["ms"] for r in rs)
+                st["launches_per_frame"] = {
+                    n: (sum(r["launches"][n] for r in rs) / len(rs) if rs
+                        else None) for n in sk}
+                sites = {}
+                for w in ws:
+                    for site in w:
+                        sites[site] = sites.get(site, 0) + 1
+                st["syncs_per_frame"] = (sum(len(w) for w in ws) / len(ws)
+                                         if ws else None)
+                st["sync_sites"] = {k: v / len(ws)
+                                    for k, v in sorted(sites.items())}
+                asked = {}
+                for c in cs:
+                    for site in c:
+                        asked[site] = asked.get(site, 0) + 1
+                st["sync_callers"] = {k: v / len(cs)
+                                      for k, v in sorted(asked.items())}
+                st["jax_host_reads"] = JAX_VI_READS[k_]
+                kinds[k_] = st
+                if st["n"]:
+                    phase(name, f"{cell}: {k_} frames ({st['n']} over "
+                          f"{N_TIMED_VI_SEQUENCES} sequences): track() "
+                          f"median {st['median']:.3f} ms, p80 "
+                          f"{st['p80']:.3f} ms (min {st['min']:.3f}, max "
+                          f"{st['max']:.3f}); launches per frame "
+                          f"{st['launches_per_frame']}; "
+                          f"{st['syncs_per_frame']} synchronisations per "
+                          f"frame {st['sync_sites']}, asked for by "
+                          f"{st['sync_callers']}; the JAX system reads "
+                          f"{JAX_VI_READS[k_]} ({card})")
+            fps = [r["fps"] for r in seqs]
+            phase(name, f"{cell}: {len(imgs)} frames in "
+                  + ", ".join(f"{r['seconds']:.3f}" for r in seqs) + " s = "
+                  + ", ".join(f"{f:.2f}" for f in fps) + " frames/s; "
+                  f"graphs captured: warm-up {warm['graphs_captured']}, "
+                  f"timed {[r['graphs_captured'] for r in seqs]}; ATE "
+                  f"{[round(r['ate_m'], 5) for r in seqs]} m (JAX "
+                  f"{seqs[0]['jax_ate_m']:.5f}), frames "
+                  f"{[r['frames'] for r in seqs]}, speed error "
+                  f"{[round(r['speed_err_mps'], 4) for r in seqs]} m/s, "
+                  f"viba_stage {[r['viba_stage'] for r in seqs]} ({card})")
+            out[cell] = {"config": {k: v for k, v in dataclasses.asdict(
+                setup.config).items() if not isinstance(v, np.ndarray)},
+                "viba": setup.viba, "warmup": warm, "sequences": seqs,
+                "frame_kinds": kinds, "fps": spread(fps),
+                "checked": checked[cell]}
+    finally:
+        graft.mono_keyframe_step = keyframe_step
+    out["graphs_kept"] = len(cuda_graph._GRAPHS)
+    return out, held
 
 
 def main() -> int:
@@ -2648,6 +2922,31 @@ def main() -> int:
     # -- 12: the stereo-inertial device path ----------------------------------
     vi_out = phase_inertial(dev, card, sk, check_call, timed, shape_of)
 
+    # -- 13: the inertial systems -------------------------------------------
+    vi_sys, vi_held = phase_inertial_system(dev, card, sk, check_call,
+                                            shape_of)
+    vi_sys_calls = {n: [] for n in sk}
+    for n, calls in vi_held.items():
+        # Timed at the EuRoC-capacity cell's shapes (the golden cells'
+        # calls were held against plain in the warm-up all the same).
+        for cell, a, kw, err, (b_ms, b_by, b_txt) in calls:
+            if cell != "f_euroc_vi":
+                continue
+            entry = {"call": f"system {cell}", "shape": shape_of(n, a, kw),
+                     "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+                     "bound": b_txt}
+            entry.update(timed(n, a, kw, plain_reps=5 if n in ("K3", "K3s")
+                               else 20))
+            vi_sys_calls[n].append(entry)
+            phase("13 inertial system", f"{n} {entry['call']} "
+                  f"{entry['shape']}: launch alone {entry['ms']:.4f} ms, "
+                  f"wrapper {entry['wrapper_ms']:.4f} ms, plain "
+                  f"{entry['plain_ms']:.4f} ms, bound {b_ms:.5f} ms by "
+                  f"{b_by} ({card})")
+    del vi_held
+    phase("13 inertial system", f"{vi_sys['graphs_kept']} CUDA graphs kept "
+          f"at the end (at most 32 are)")
+
     sources = {"K1": ("steered-BRIEF sampler", "csrc/brief.cu",
                       "orbslam3_byzyh_tpu/ops/pallas_brief.py:161",
                       "none: no single PyTorch call gathers rotated sample "
@@ -2677,7 +2976,15 @@ def main() -> int:
                 case: vi_out["frame"][case]["launches"][n]
                 for case in ("keyframe", "prior", "fallback")},
             "launches_vi_keyframe_step": vi_out["keyframe"]["launches"][n],
-            "vi_frame_step_calls": vi_out["held"][n]}
+            "vi_frame_step_calls": vi_out["held"][n],
+            "launches_vi_system": {
+                k: v["sequences"][0]["launches"][n]
+                for k, v in vi_sys.items() if isinstance(v, dict)},
+            "launches_vi_system_per_frame_kind": {
+                k: {kind: st["launches_per_frame"][n]
+                    for kind, st in v["frame_kinds"].items()}
+                for k, v in vi_sys.items() if isinstance(v, dict)},
+            "vi_system_calls": vi_sys_calls[n]}
 
     # K3s: no Pallas kernel; it ports the JAX package's XLA function.
     k3s_entry = {
@@ -2740,6 +3047,7 @@ def main() -> int:
         "init_step": init, "system": system, "stereo": stereo,
         "plain32_err": plain32_err,
         "inertial": {k: v for k, v in vi_out.items() if k != "held"},
+        "inertial_system": vi_sys,
         "card": card}, default=str))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

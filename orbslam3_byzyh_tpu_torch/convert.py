@@ -144,3 +144,44 @@ def inertial_map_to_numpy(imap) -> dict:
                 kf_preint=[None if q is None else preint_to_numpy(q)
                            for q in imap.kf_preint],
                 kf_stamp=imap.kf_stamp.copy())
+
+
+def carry_inertial_state(src, dst) -> None:
+    """Set an inertial system ``dst`` (the port's ``MonoInertialSlam`` or
+    ``StereoInertialSlam``) to the inertial state of ``src``, an object with
+    the JAX package's ``MonoInertialSlam`` attributes (numpy or JAX
+    values): the chain (``kf_prev``), its preintegrations, stamps (a live
+    keyframe's empty host stamp filled from the map's device stamp),
+    velocities and biases, the body state, the frame bias, the carried
+    prior, the IMU buffer, the schedule's flags, gates and counters,
+    ``map_first_kf`` and the dispatched cull. The map, the counters and the
+    frame context of ``MonoSlam`` are the caller's to carry."""
+    dev = dst.device
+    dst.kf_prev = np.asarray(src.kf_prev, np.int32).copy()
+    # The port keeps every live keyframe's stamp on the host; the JAX
+    # system fills its mirror from the device's float32 stamp when read.
+    stamp = np.asarray(src.kf_stamp, np.float64).copy()
+    lazy = np.isnan(stamp) & np.asarray(src.state.kfs.valid)
+    stamp[lazy] = np.asarray(src.state.kfs.stamp)[lazy]
+    dst.kf_stamp = stamp
+    dst.kf_preint = [None if q is None else preint_to_torch(q, dev)
+                     for q in src.kf_preint]
+    for name in ("kf_vel", "kf_bg", "kf_ba"):
+        setattr(dst, name, to_torch(getattr(src, name), dev))
+    dst._body = (None if src._body is None
+                 else tuple(to_torch(x, dev) for x in src._body))
+    dst._bias = np.asarray(src._bias, np.float32).copy()
+    dst._pose_prior_H = (None if src._pose_prior_H is None
+                         else to_torch(src._pose_prior_H, dev))
+    pend = getattr(src, "_pending_cull", None)
+    dst._pending_cull = None if pend is None else to_torch(pend, dev)
+    for name in ("imu_ready", "viba_stage", "_next_scale_refine",
+                 "map_first_kf", "imu_init_prior", "imu_init_min_time",
+                 "imu_init_min_kf", "imu_fix_scale", "_last_stamp"):
+        setattr(dst, name, getattr(src, name))
+    dst._imu_init_failures = getattr(src, "_imu_init_failures", 0)
+    buf = dst.buf
+    buf.n = src.buf.n
+    buf.t = np.array(src.buf.t, np.float64)
+    buf.gyr = np.array(src.buf.gyr, np.float32)
+    buf.acc = np.array(src.buf.acc, np.float32)

@@ -49,24 +49,34 @@
 //    warp 0 already solves for the step that follows a rejection (same H,
 //    g and pose, lam * 10), so only an accepted candidate leaves a solve on
 //    the critical path.
-// Division and square root stay IEEE (no fast math): the kernel is held to
-// the plain PyTorch version within 1e-4.
+// The schedule's arithmetic is double precision (`real`): the points, the
+// pose and the camera arrive as float32 and the results leave as float32,
+// as the plain version's float64 oracle casts them; the damping stays the
+// plain version's float32. In float32 the sums, the accept tests and the
+// retraction drifted by up to 1.2e-4 from the oracle on the mono-inertial
+// map (poses a few metres from the origin), past the 1e-4 the kernel is held
+// to; the float32 plain version strayed as far (8.4e-5). Division and
+// square root stay IEEE (no fast math).
 
 #include <cuda_runtime.h>
 
 namespace {
 
+// The arithmetic type of the schedule (the points and poses arrive and
+// leave as float32).
+using real = double;
+
 constexpr int kThreads = 384;  // warp 0 solves, warps 1-11 sweep the points
 constexpr int kWarps = kThreads / 32;
 constexpr int kWorkers = kThreads - 32;  // warps 1.. sweep the points
-constexpr float kDelta2 = 5.991f;         // chi2 gate, 2 rows
-constexpr float kDelta2Stereo = 7.815f;   // chi2 gate, 3 rows
-constexpr float kFar = 1e9f;             // chi2 of a point behind the camera
+constexpr real kDelta2 = 5.991;         // chi2 gate, 2 rows
+constexpr real kDelta2Stereo = 7.815;   // chi2 gate, 3 rows
+constexpr real kFar = 1e9;             // chi2 of a point behind the camera
 constexpr unsigned char kValid = 1, kInlier = 2;
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Cam {
-  float fx, fy, cx, cy;
+  real fx, fy, cx, cy;
 };
 
 // The point arrays in dynamic shared memory (ur: the stereo variant's).
@@ -83,38 +93,39 @@ constexpr int point_bytes() {
 
 // LM state, written by warp 0 only.
 struct State {
-  float P[12];       // accepted pose: R row-major (9), t (3)
-  float C[12];       // candidate pose, the next pass's
-  float R[12];       // the candidate that follows a rejection
-  float Hg[27];      // H upper (21) and g sums (6) at P
-  float cost, lam;
+  real P[12];       // accepted pose: R row-major (9), t (3)
+  real C[12];       // candidate pose, the next pass's
+  real R[12];       // the candidate that follows a rejection
+  real Hg[27];      // H upper (21) and g sums (6) at P
+  real cost;
+  float lam;         // float32, as the plain version's damping tensor
 };
 
 struct Terms {
-  float pcx, pcy, pcz, iz, ru, rv, rr, chi2, delta2;
+  real pcx, pcy, pcz, iz, ru, rv, rr, chi2, delta2;
   bool depth_ok, has_ur;
 };
 
 template <bool STEREO>
-__device__ __forceinline__ Terms point_terms(const float (&pose)[12],
+__device__ __forceinline__ Terms point_terms(const real (&pose)[12],
                                              const Cam& c, const Points& s,
-                                             int i, float bf) {
-  const float X = s.x[i], Y = s.y[i], Z = s.z[i];
+                                             int i, real bf) {
+  const real X = s.x[i], Y = s.y[i], Z = s.z[i];
   Terms t;
   t.pcx = pose[0] * X + pose[1] * Y + pose[2] * Z + pose[9];
   t.pcy = pose[3] * X + pose[4] * Y + pose[5] * Z + pose[10];
   t.pcz = pose[6] * X + pose[7] * Y + pose[8] * Z + pose[11];
-  t.depth_ok = t.pcz > 0.05f;
-  t.iz = 1.0f / (t.depth_ok ? t.pcz : 1.0f);
-  const float uhat = c.fx * t.pcx * t.iz + c.cx;
+  t.depth_ok = t.pcz > 0.05;
+  t.iz = 1.0 / (t.depth_ok ? t.pcz : 1.0);
+  const real uhat = c.fx * t.pcx * t.iz + c.cx;
   t.ru = s.u[i] - uhat;
   t.rv = s.v[i] - (c.fy * t.pcy * t.iz + c.cy);
-  float sq = t.ru * t.ru + t.rv * t.rv;
+  real sq = t.ru * t.ru + t.rv * t.rv;
   t.has_ur = false;
-  t.rr = 0.0f;
+  t.rr = 0.0;
   if (STEREO) {
-    t.has_ur = s.ur[i] >= 0.0f;
-    t.rr = t.has_ur ? s.ur[i] - (uhat - bf * t.iz) : 0.0f;
+    t.has_ur = s.ur[i] >= 0.0;
+    t.rr = t.has_ur ? s.ur[i] - (uhat - bf * t.iz) : 0.0;
     sq += t.rr * t.rr;
   }
   t.chi2 = sq * s.iv2[i];
@@ -127,56 +138,56 @@ __device__ __forceinline__ Terms point_terms(const float (&pose)[12],
 // thread (warp 0 adds nothing). REMARK first re-marks each point's inlier
 // flag from its chi2 at this pose.
 template <bool REMARK, bool STEREO>
-__device__ __forceinline__ void normal_pass(const float* pose_s, const Cam& cam,
-                                            const Points& s, int n, float bf,
-                                            bool robust, float (&v)[32]) {
-  float pose[12];
+__device__ __forceinline__ void normal_pass(const real* pose_s, const Cam& cam,
+                                            const Points& s, int n, real bf,
+                                            bool robust, real (&v)[32]) {
+  real pose[12];
 #pragma unroll
   for (int q = 0; q < 12; ++q) pose[q] = pose_s[q];
 #pragma unroll
-  for (int k = 0; k < 32; ++k) v[k] = 0.0f;
+  for (int k = 0; k < 32; ++k) v[k] = 0.0;
   if (threadIdx.x < 32) return;
 #pragma unroll 2
   for (int i = threadIdx.x - 32; i < n; i += kWorkers) {
     const Terms t = point_terms<STEREO>(pose, cam, s, i, bf);
     unsigned char f = s.flag[i];
     if (REMARK) {
-      const float chi2 = t.depth_ok ? t.chi2 : kFar;
+      const real chi2 = t.depth_ok ? t.chi2 : kFar;
       f = (f & kValid) && chi2 <= t.delta2 ? (kValid | kInlier)
                                            : (f & kValid);
       s.flag[i] = f;
     }
     const bool use = (f & kInlier) && t.depth_ok;   // inlier implies valid
-    float w = 1.0f, rho = t.chi2;
+    real w = 1.0, rho = t.chi2;
     if (robust && t.chi2 > t.delta2) {
-      const float sq = sqrtf(t.chi2);
-      const float delta = sqrtf(t.delta2);
+      const real sq = sqrt(t.chi2);
+      const real delta = sqrt(t.delta2);
       w = delta / sq;
-      rho = 2.0f * delta * sq - t.delta2;
+      rho = 2.0 * delta * sq - t.delta2;
     }
     // A point outside the mask adds zeros (selected, so that no inf or NaN
     // of an unused point reaches the sums).
-    w = use ? w * s.iv2[i] : 0.0f;
-    rho = use ? rho : 0.0f;
-    const float iz = use ? t.iz : 0.0f;
-    const float px = use ? t.pcx : 0.0f, py = use ? t.pcy : 0.0f;
-    const float pz = use ? t.pcz : 0.0f;
-    const float ru = use ? t.ru : 0.0f, rv = use ? t.rv : 0.0f;
-    const float a = cam.fx * iz;
-    const float b = -cam.fx * px * iz * iz;
-    const float c = cam.fy * iz;
-    const float d = -cam.fy * py * iz * iz;
-    const float ju[6] = {-a, 0.0f, -b, -(b * py), -(a * pz - b * px), a * py};
-    const float jv[6] = {0.0f, -c, -d, -(-c * pz + d * py), d * px, -c * px};
+    w = use ? w * s.iv2[i] : 0.0;
+    rho = use ? rho : 0.0;
+    const real iz = use ? t.iz : 0.0;
+    const real px = use ? t.pcx : 0.0, py = use ? t.pcy : 0.0;
+    const real pz = use ? t.pcz : 0.0;
+    const real ru = use ? t.ru : 0.0, rv = use ? t.rv : 0.0;
+    const real a = cam.fx * iz;
+    const real b = -cam.fx * px * iz * iz;
+    const real c = cam.fy * iz;
+    const real d = -cam.fy * py * iz * iz;
+    const real ju[6] = {-a, 0.0, -b, -(b * py), -(a * pz - b * px), a * py};
+    const real jv[6] = {0.0, -c, -d, -(-c * pz + d * py), d * px, -c * px};
     int k = 0;
     if (STEREO) {
       // The third row, J_u - (0, 0, e, e y, -e x, 0) with e = bf / z^2;
       // zeros for a mono row.
       const bool third = use && t.has_ur;
-      const float e = third ? bf * iz * iz : 0.0f;
-      const float on = third ? 1.0f : 0.0f;
-      const float rr = third ? t.rr : 0.0f;
-      const float jr[6] = {on * ju[0], on * ju[1], on * ju[2] - e,
+      const real e = third ? bf * iz * iz : 0.0;
+      const real on = third ? 1.0 : 0.0;
+      const real rr = third ? t.rr : 0.0;
+      const real jr[6] = {on * ju[0], on * ju[1], on * ju[2] - e,
                            on * ju[3] - e * py, on * ju[4] + e * px,
                            on * ju[5]};
 #pragma unroll
@@ -204,12 +215,12 @@ __device__ __forceinline__ void normal_pass(const float* pose_s, const Cam& cam,
 // its bit HALF selects, adds its partner's copy of that half, and hands
 // the other half to the partner.
 template <int HALF>
-__device__ __forceinline__ void transpose_step(float (&v)[32], int lane) {
+__device__ __forceinline__ void transpose_step(real (&v)[32], int lane) {
   const bool upper = lane & HALF;
 #pragma unroll
   for (int j = 0; j < HALF; ++j) {
-    const float send = upper ? v[j] : v[j + HALF];
-    const float keep = upper ? v[j + HALF] : v[j];
+    const real send = upper ? v[j] : v[j + HALF];
+    const real keep = upper ? v[j + HALF] : v[j];
     v[j] = keep + __shfl_xor_sync(kFull, send, HALF);
   }
 }
@@ -217,8 +228,8 @@ __device__ __forceinline__ void transpose_step(float (&v)[32], int lane) {
 // Block sum of v[0..31]: on return (after a barrier) s_warp[w][k] holds
 // warp w's sum k. Within a warp, 5 transpose-reduce steps (31 shuffles)
 // leave lane l with the warp's sum of v[l].
-__device__ __forceinline__ void block_partials(float (&v)[32],
-                                               float (*s_warp)[32]) {
+__device__ __forceinline__ void block_partials(real (&v)[32],
+                                               real (*s_warp)[32]) {
   const int lane = threadIdx.x & 31;
   transpose_step<16>(v, lane);
   transpose_step<8>(v, lane);
@@ -230,9 +241,9 @@ __device__ __forceinline__ void block_partials(float (&v)[32],
 }
 
 // Warp 0, lane k: the block's sum k (warps added in a fixed order).
-__device__ __forceinline__ float block_total(float (*s_warp)[32]) {
+__device__ __forceinline__ real block_total(real (*s_warp)[32]) {
   const int lane = threadIdx.x & 31;
-  float x = s_warp[0][lane];
+  real x = s_warp[0][lane];
 #pragma unroll
   for (int w = 1; w < kWarps; ++w) x += s_warp[w][lane];
   return x;
@@ -242,38 +253,38 @@ __device__ __forceinline__ float block_total(float (*s_warp)[32]) {
 // L D L^T (unit L): one reciprocal per pivot and no square root on the
 // chain. Pivots are clamped at 1e-12, as the Pallas kernel's Cholesky
 // clamps its squared pivots (pallas_pose_opt.py:54).
-__device__ __forceinline__ void ldl_solve6(float (&A)[6][6],
-                                           const float (&g)[6], float lam,
-                                           float (&x)[6]) {
+__device__ __forceinline__ void ldl_solve6(real (&A)[6][6],
+                                           const real (&g)[6], float lam,
+                                           real (&x)[6]) {
 #pragma unroll
-  for (int i = 0; i < 6; ++i) A[i][i] += lam * fmaxf(A[i][i], 1e-9f);
-  float L[6][6], E[6][6], inv[6];    // E[j][i] = L[j][i] * D[i]
+  for (int i = 0; i < 6; ++i) A[i][i] += lam * fmax(A[i][i], 1e-9);
+  real L[6][6], E[6][6], inv[6];    // E[j][i] = L[j][i] * D[i]
 #pragma unroll
   for (int i = 0; i < 6; ++i) {
-    float d = A[i][i];
+    real d = A[i][i];
 #pragma unroll
     for (int k = 0; k < i; ++k) d -= L[i][k] * E[i][k];
-    inv[i] = 1.0f / fmaxf(d, 1e-12f);
+    inv[i] = 1.0 / fmax(d, 1e-12);
 #pragma unroll
     for (int j = i + 1; j < 6; ++j) {
-      float s = A[j][i];
+      real s = A[j][i];
 #pragma unroll
       for (int k = 0; k < i; ++k) s -= L[j][k] * E[i][k];
       E[j][i] = s;
       L[j][i] = s * inv[i];
     }
   }
-  float y[6];
+  real y[6];
 #pragma unroll
   for (int i = 0; i < 6; ++i) {
-    float s = g[i];
+    real s = g[i];
 #pragma unroll
     for (int k = 0; k < i; ++k) s -= L[i][k] * y[k];
     y[i] = s;
   }
 #pragma unroll
   for (int i = 5; i >= 0; --i) {
-    float s = y[i] * inv[i];
+    real s = y[i] * inv[i];
 #pragma unroll
     for (int k = i + 1; k < 6; ++k) s -= L[k][i] * x[k];
     x[i] = s;
@@ -281,56 +292,56 @@ __device__ __forceinline__ void ldl_solve6(float (&A)[6][6],
 }
 
 // out = exp([rho, phi]) * pose; pose = [R row-major (9), t (3)].
-__device__ __forceinline__ void retract(const float (&pose)[12],
-                                        const float (&dx)[6],
-                                        float (&out)[12]) {
-  const float wx = dx[3], wy = dx[4], wz = dx[5];
-  const float th2 = wx * wx + wy * wy + wz * wz;
-  const float th = sqrtf(th2);
-  const bool small = th < 1e-6f;
-  float sn, cs;
-  sincosf(th, &sn, &cs);
-  const float ith = 1.0f / th;
-  const float a = small ? 1.0f - th2 / 6.0f : sn * ith;
-  const float b = small ? 0.5f - th2 / 24.0f : (1.0f - cs) * ith * ith;
-  const float c = small ? 1.0f / 6.0f - th2 / 120.0f
+__device__ __forceinline__ void retract(const real (&pose)[12],
+                                        const real (&dx)[6],
+                                        real (&out)[12]) {
+  const real wx = dx[3], wy = dx[4], wz = dx[5];
+  const real th2 = wx * wx + wy * wy + wz * wz;
+  const real th = sqrt(th2);
+  const bool small = th < 1e-6;
+  real sn, cs;
+  sincos(th, &sn, &cs);
+  const real ith = 1.0 / th;
+  const real a = small ? 1.0 - th2 / 6.0 : sn * ith;
+  const real b = small ? 0.5 - th2 / 24.0 : (1.0 - cs) * ith * ith;
+  const real c = small ? 1.0 / 6.0 - th2 / 120.0
                         : (th - sn) * ith * ith * ith;
-  const float W[3][3] = {{0.0f, -wz, wy}, {wz, 0.0f, -wx}, {-wy, wx, 0.0f}};
-  float dR[3][3], V[3][3];
+  const real W[3][3] = {{0.0, -wz, wy}, {wz, 0.0, -wx}, {-wy, wx, 0.0}};
+  real dR[3][3], V[3][3];
 #pragma unroll
   for (int i = 0; i < 3; ++i)
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
-      float w2 = 0.0f;
+      real w2 = 0.0;
 #pragma unroll
       for (int k = 0; k < 3; ++k) w2 += W[i][k] * W[k][j];
-      const float e = i == j ? 1.0f : 0.0f;
+      const real e = i == j ? 1.0 : 0.0;
       dR[i][j] = e + a * W[i][j] + b * w2;   // so3_exp(phi)
       V[i][j] = e + b * W[i][j] + c * w2;    // left Jacobian of phi
     }
-  float Rn[3][3];
+  real Rn[3][3];
 #pragma unroll
   for (int i = 0; i < 3; ++i)
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
-      float s = 0.0f;
+      real s = 0.0;
 #pragma unroll
       for (int k = 0; k < 3; ++k) s += dR[i][k] * pose[3 * k + j];
       Rn[i][j] = s;
     }
   // Gram-Schmidt on the rows; the third row is the cross product (det +1).
-  const float i0 = 1.0f / sqrtf(fmaxf(Rn[0][0] * Rn[0][0] +
+  const real i0 = 1.0 / sqrt(fmax(Rn[0][0] * Rn[0][0] +
                                       Rn[0][1] * Rn[0][1] +
-                                      Rn[0][2] * Rn[0][2], 1e-18f));
-  const float r0[3] = {Rn[0][0] * i0, Rn[0][1] * i0, Rn[0][2] * i0};
-  const float d = Rn[1][0] * r0[0] + Rn[1][1] * r0[1] + Rn[1][2] * r0[2];
-  float r1[3] = {Rn[1][0] - d * r0[0], Rn[1][1] - d * r0[1],
+                                      Rn[0][2] * Rn[0][2], 1e-18));
+  const real r0[3] = {Rn[0][0] * i0, Rn[0][1] * i0, Rn[0][2] * i0};
+  const real d = Rn[1][0] * r0[0] + Rn[1][1] * r0[1] + Rn[1][2] * r0[2];
+  real r1[3] = {Rn[1][0] - d * r0[0], Rn[1][1] - d * r0[1],
                  Rn[1][2] - d * r0[2]};
-  const float i1 = 1.0f / sqrtf(fmaxf(r1[0] * r1[0] + r1[1] * r1[1] +
-                                      r1[2] * r1[2], 1e-18f));
+  const real i1 = 1.0 / sqrt(fmax(r1[0] * r1[0] + r1[1] * r1[1] +
+                                      r1[2] * r1[2], 1e-18));
 #pragma unroll
   for (int i = 0; i < 3; ++i) r1[i] *= i1;
-  const float r2[3] = {r0[1] * r1[2] - r0[2] * r1[1],
+  const real r2[3] = {r0[1] * r1[2] - r0[2] * r1[1],
                        r0[2] * r1[0] - r0[0] * r1[2],
                        r0[0] * r1[1] - r0[1] * r1[0]};
 #pragma unroll
@@ -341,7 +352,7 @@ __device__ __forceinline__ void retract(const float (&pose)[12],
   }
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
-    float s = V[i][0] * dx[0] + V[i][1] * dx[1] + V[i][2] * dx[2];
+    real s = V[i][0] * dx[0] + V[i][1] * dx[1] + V[i][2] * dx[2];
 #pragma unroll
     for (int k = 0; k < 3; ++k) s += dR[i][k] * pose[9 + k];
     out[9 + i] = s;
@@ -351,8 +362,8 @@ __device__ __forceinline__ void retract(const float (&pose)[12],
 // Warp 0: the step from pose st.P with the system st.Hg damped by `lam`,
 // written to `out` (shared) by lane 0.
 __device__ __forceinline__ void propose(const State& st, float lam,
-                                        float* out) {
-  float A[6][6], g[6], dx[6], P[12], C[12];
+                                        real* out) {
+  real A[6][6], g[6], dx[6], P[12], C[12];
   int k = 0;
 #pragma unroll
   for (int r = 0; r < 6; ++r)
@@ -379,13 +390,13 @@ __global__ void __launch_bounds__(kThreads)
 pose_opt_kernel(const float* __restrict__ R0, const float* __restrict__ t0,
                 const float* __restrict__ cam_params,
                 const float* __restrict__ pts, const float* __restrict__ obs,
-                const float* __restrict__ obs_ur, float bf,
+                const float* __restrict__ obs_ur, real bf,
                 const float* __restrict__ inv_s2,
                 const bool* __restrict__ valid, int n, int n_rounds,
                 int n_iters, float* __restrict__ R_out,
                 float* __restrict__ t_out, float* __restrict__ chi2_out) {
   extern __shared__ float s_dyn[];
-  __shared__ float s_warp[kWarps][32];
+  __shared__ real s_warp[kWarps][32];
   __shared__ State st;
 
   const int tid = threadIdx.x;
@@ -417,7 +428,7 @@ pose_opt_kernel(const float* __restrict__ R0, const float* __restrict__ t0,
   if (tid < 3) st.P[9 + tid] = t0[b * 3 + tid];
   __syncthreads();
 
-  float v[32];
+  real v[32];
   for (int rnd = 0; rnd < n_rounds; ++rnd) {
     const bool robust = rnd < n_rounds - 1;
     // The round's first pass, at the accepted pose: cost0, H and g. From
@@ -428,7 +439,7 @@ pose_opt_kernel(const float* __restrict__ R0, const float* __restrict__ t0,
       normal_pass<true, STEREO>(st.P, cam, s, n, bf, robust, v);
     block_partials(v, s_warp);
     if (warp0) {
-      const float x = block_total(s_warp);
+      const real x = block_total(s_warp);
       if (lane < 27) st.Hg[lane] = x;
       if (lane == 27) st.cost = x;
       if (lane == 0) st.lam = 1e-3f;
@@ -445,8 +456,8 @@ pose_opt_kernel(const float* __restrict__ R0, const float* __restrict__ t0,
       normal_pass<false, STEREO>(st.C, cam, s, n, bf, robust, v);
       block_partials(v, s_warp);
       if (warp0) {
-        const float x = block_total(s_warp);
-        const float cost = __shfl_sync(kFull, x, 27);
+        const real x = block_total(s_warp);
+        const real cost = __shfl_sync(kFull, x, 27);
         const bool accept = cost < st.cost;
         const float lam = st.lam * (accept ? 0.5f : 10.0f);
         __syncwarp();
@@ -466,7 +477,7 @@ pose_opt_kernel(const float* __restrict__ R0, const float* __restrict__ t0,
   }
 
   chi2_out += b * n;
-  float pose[12];
+  real pose[12];
 #pragma unroll
   for (int q = 0; q < 12; ++q) pose[q] = st.P[q];
   for (int i = tid; i < n; i += kThreads) {
@@ -478,7 +489,7 @@ pose_opt_kernel(const float* __restrict__ R0, const float* __restrict__ t0,
 }
 
 // Shared memory beside the points: the warp partials and the LM state.
-constexpr int kStaticSmem = (int)(sizeof(float) * kWarps * 32 + sizeof(State));
+constexpr int kStaticSmem = (int)(sizeof(real) * kWarps * 32 + sizeof(State));
 
 template <bool STEREO>
 int max_points() {

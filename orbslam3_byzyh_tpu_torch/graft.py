@@ -29,7 +29,12 @@ stereo configuration (``KITTI_STEREO``); ``kitti_stereo_pair`` and
 ``kitti_stereo_scene`` build its example pair and a map that tracks. The
 stereo and RGB-D systems' configurations and frames for the card's runs
 (``stereo_frames``, ``stereo_golden_config``, ``kitti_golden_config``,
-``tum_rgbd_golden_config``) close the file.
+``tum_rgbd_golden_config``) follow, then the stereo-inertial device path's
+steps (``vi_frame_step``, ``vi_keyframe_step``, ``vi_initialize``); the
+inertial systems' configurations, frames and gates
+(``stereo_inertial_golden_config``, ``mono_inertial_golden_config``,
+``euroc_vi_golden_config``, ``vi_stereo_frames``, ``vi_mono_frames``,
+``vi_gates``) close the file.
 """
 
 from __future__ import annotations
@@ -396,7 +401,8 @@ def euroc_mono_scene(feats_xy, feats_level, feats_desc, feats_angle,
 
 def mono_keyframe_step(state, kf_id, R, t, stamp, feats, bindings,
                        cam_params, n_lm_hwm, cfg: MonoConfig = EUROC_MONO,
-                       do_kf_cull: bool = True, ur=None, bf=None):
+                       do_kf_cull: bool = True, ur=None, bf=None,
+                       do_local_ba: bool = True):
     """What ``MonoSlam._create_keyframe`` runs on the device for a new
     keyframe: ``mapping.keyframe_bundle`` at ``cfg``'s windows, monocular
     (``ur`` all -1), with the local BA on and keyframe culling when
@@ -405,9 +411,11 @@ def mono_keyframe_step(state, kf_id, R, t, stamp, feats, bindings,
     (``xy``, ``level``, ``angle``, ``desc``, ``valid``); ``bindings`` (N,)
     int32 the tracked landmark of each keypoint. A stereo or RGB-D system
     passes the keypoints' right-image u as ``ur`` and its baseline x fx as
-    ``bf`` (a Python float): the bundle then runs its stereo rows. Returns
-    (state', bindings', info, culled) as the JAX package's
-    ``keyframe_bundle`` does."""
+    ``bf`` (a Python float): the bundle then runs its stereo rows. An
+    inertial system passes ``do_local_ba=False`` (and no culling): it runs
+    its own visual-inertial BA after the bundle. Returns (state',
+    bindings', info, culled) as the JAX package's ``keyframe_bundle``
+    does."""
     if ur is None:
         ur = torch.full((cfg.n_features,), -1.0, device=feats.xy.device)
     return mapping.keyframe_bundle(
@@ -417,7 +425,7 @@ def mono_keyframe_step(state, kf_id, R, t, stamp, feats, bindings,
         n_neighbors=cfg.triangulation_neighbors,
         n_free=cfg.local_window + 1, n_window=cfg.ba_window,
         n_lm_window=cfg.ba_lm_window, do_kf_cull=do_kf_cull,
-        do_local_ba=True)
+        do_local_ba=do_local_ba)
 
 
 class MonoMap(NamedTuple):
@@ -1314,7 +1322,7 @@ class ViConfig(NamedTuple):
     ``MonoInertialSlam``'s defaults and ``StereoInertialSlam``'s gates)."""
 
     rig: RigConfig
-    imu: object                   # pipeline.inertial_system.ImuConfig
+    imu: object                   # ops.imu.ImuConfig
     viba_window: int = 24         # local VI-BA keyframes
     viba_free: int = 10           # of which the newest are free
     viba_landmarks: int = 4096    # VI-BA landmark slots
@@ -1332,7 +1340,7 @@ EUROC_T_BC = np.array(
 
 
 def _euroc_stereo_inertial() -> ViConfig:
-    from .pipeline.inertial_system import ImuConfig
+    from .ops.imu import ImuConfig
     return ViConfig(
         rig=RigConfig(
             mono=MonoConfig(width=752, height=480, fx=436.2443, fy=436.2443,
@@ -1888,3 +1896,193 @@ def euroc_vi_init(cfg: ViConfig = EUROC_STEREO_INERTIAL, case: str = "stereo",
                    n_live_kf, seed, R_vw,
                    1.0 if case == "stereo" else VI_INIT_SCALE,
                    case == "stereo", view_points, perturb, np.zeros(6))
+
+
+# --- The inertial systems ---------------------------------------------------
+
+VI_STEREO_FRAMES = (Path(__file__).resolve().parents[1] / "tests" / "golden"
+                    / "frames_vi_stereo.npz")
+VI_MONO_FRAMES = (Path(__file__).resolve().parents[1] / "tests" / "golden"
+                  / "frames_vi_mono.npz")
+
+
+class ViFrames(NamedTuple):
+    """The inertial runs' input (``scripts/make_torch_vi_frames.py``):
+    ``SynthWorld(motion="excited")`` rendered at 10 fps with its 200 Hz IMU
+    samples, the noise drawn as the JAX package's tests draw it."""
+
+    left: np.ndarray         # (F, 480, 640) uint8, the (left) frames
+    right: np.ndarray | None  # (F, 480, 640) uint8; None for mono
+    stamps: np.ndarray       # (F,) float64 s
+    R: np.ndarray            # (F, 3, 3) true world->camera poses
+    t: np.ndarray            # (F, 3)
+    centres: np.ndarray      # (F, 3) float64 true camera centres
+    vel: np.ndarray          # (F, 3) float64 true world velocities
+    imu_t: np.ndarray        # (M,) float64 sample stamps
+    imu_gyr: np.ndarray      # (M, 3) float32
+    imu_acc: np.ndarray      # (M, 3) float32
+    imu_start: np.ndarray    # (F + 1,) frame i's samples: [start[i], start[i+1])
+    camera: np.ndarray       # fx, fy, cx, cy, width, height
+
+    def imu(self, i: int):
+        """Frame ``i``'s IMU batch (ts, gyr, acc) as ``track`` takes it,
+        or None (the first frame)."""
+        lo, hi = self.imu_start[i], self.imu_start[i + 1]
+        if hi <= lo:
+            return None
+        return self.imu_t[lo:hi], self.imu_gyr[lo:hi], self.imu_acc[lo:hi]
+
+
+def _vi_frames(path, mono: bool) -> ViFrames:
+    with np.load(path) as z:
+        d = {k: z[k] for k in z.files}
+    return ViFrames(left=d["frames"] if mono else d["left"],
+                    right=None if mono else d["right"],
+                    **{k: d[k] for k in ViFrames._fields[2:]})
+
+
+def vi_stereo_frames(path=VI_STEREO_FRAMES) -> ViFrames:
+    """tests/test_stereo_inertial.py's run: rectified pairs of
+    ``SynthWorld(seed=11, motion="excited")`` (baseline 0.2 m) at t =
+    0.0-3.9 s, IMU noise from ``default_rng(5)``."""
+    return _vi_frames(path, mono=False)
+
+
+def vi_mono_frames(path=VI_MONO_FRAMES) -> ViFrames:
+    """tests/test_inertial_system.py's run: ``SynthWorld(seed=3,
+    motion="excited")`` at t = 0.0-6.4 s, IMU noise from
+    ``default_rng(7)``."""
+    return _vi_frames(path, mono=True)
+
+
+class ViSlamSetup(NamedTuple):
+    """An inertial system's arguments: ``cls(config, imu, **viba,
+    device=...)``."""
+
+    config: object           # SlamConfig / StereoConfig
+    imu: object              # ops.imu.ImuConfig
+    viba: dict               # viba_window, viba_free, viba_landmarks, full_viba_kf
+
+
+# The JAX package's inertial tests' VI-BA sizes (12 keyframes, 6 free, 1024
+# landmark slots, a 32-keyframe full VI-BA).
+VI_TEST_VIBA = dict(viba_window=12, viba_free=6, viba_landmarks=1024,
+                    full_viba_kf=32)
+
+
+def _identity_imu(imu=None):
+    from .ops.imu import ImuConfig
+    base = ImuConfig(T_bc=np.eye(4, dtype=np.float32)) if imu is None else imu
+    return dataclasses.replace(base, T_bc=np.eye(4, dtype=np.float32))
+
+
+def stereo_inertial_golden_config(**changes) -> ViSlamSetup:
+    """tests/test_stereo_inertial.py's configuration: the world's 640x480
+    pinhole (fx = fy = 400), bf = 0.2 x 400 = 80, ThDepth 35, 1024
+    features, 48 keyframe / 4096 landmark slots, 8 observations, 10 fps,
+    TrackedMapPoints(1); the IMU at ``ImuConfig``'s defaults with T_bc = I;
+    VI-BA 12 / 6 / 1024 / 32. ``changes`` replace config fields."""
+    return ViSlamSetup(stereo_golden_config(max_kf=48, **changes),
+                       _identity_imu(), dict(VI_TEST_VIBA))
+
+
+def mono_inertial_golden_config(**changes) -> ViSlamSetup:
+    """tests/test_inertial_system.py's configuration: the world's pinhole,
+    1536 features, 64 keyframe / 4096 landmark slots, 8 observations, 10
+    fps, the 60-match init gate, TrackedMapPoints(1); the IMU at
+    ``ImuConfig``'s defaults with T_bc = I; VI-BA 12 / 6 / 1024 / 32."""
+    return ViSlamSetup(golden_slam_config(max_kf=64, **changes),
+                       _identity_imu(), dict(VI_TEST_VIBA))
+
+
+def euroc_vi_golden_config(**changes) -> ViSlamSetup:
+    """The stereo VI frames padded to 752x480 (:func:`pad_frames`) at
+    :data:`EUROC_STEREO_INERTIAL`'s capacity: 1200 features, 1024 keyframe
+    / 65536 landmark slots, 12 observations, the system's windows, ThDepth
+    60, the EuRoC IMU's noise and VI-BA 24 / 10 / 4096 / 64. Cut to the
+    synthetic world: its pinhole (fx = fy = 400, cx = 320, cy = 240) and
+    bf = 80, T_bc = I, 10 fps, TrackedMapPoints(1)."""
+    from .pipeline.stereo_system import StereoConfig
+    e, c = EUROC_MONO, EUROC_STEREO_INERTIAL
+    m = c.rig.mono
+    cfg = StereoConfig(fx=400.0, fy=400.0, cx=320.0, cy=240.0,
+                       width=m.width, height=m.height,
+                       n_features=m.n_features, max_kf=e.max_kf,
+                       max_lm=e.max_lm, max_obs=e.max_obs, fps=10,
+                       local_window=e.local_window, ba_window=e.ba_window,
+                       ba_lm_window=e.ba_lm_window,
+                       local_kf_window=e.n_local_kf,
+                       local_lm_window=e.n_local_lm,
+                       recent_kf_window=e.recent_kf, kf_ref_min_obs=1,
+                       bf=80.0, th_depth=c.rig.th_depth)
+    return ViSlamSetup(dataclasses.replace(cfg, **changes),
+                       _identity_imu(c.imu),
+                       dict(viba_window=c.viba_window,
+                            viba_free=c.viba_free,
+                            viba_landmarks=c.viba_landmarks,
+                            full_viba_kf=c.full_viba_kf))
+
+
+# The inertial runs' gates (tests/test_stereo_inertial.py:59-82,
+# tests/test_inertial_system.py:55-127).
+VI_STEREO_MIN_FRAMES = 35
+VI_STEREO_ATE_GATE_M = 0.15
+VI_SPEED_TOL_MPS = 0.3
+VI_MONO_MIN_FRAMES = 50
+VI_MONO_POST_S = 3.0
+VI_MONO_SCALE_TOL = 0.25
+VI_MONO_ATE_GATE_M = 0.30
+VI_MONO_GRAVITY_DEG = 10.0
+# The JAX package's systems on the same frames at the same settings
+# (``scripts/vi_reference_jax.py stereo | mono`` on the CPU): the stereo
+# ATE without scale alignment (40 frames), and the mono ATE after 3 s,
+# Horn-scaled (56 frames, scale 1.0888, gravity 0.67 deg). The stereo
+# runs' gate: under 1.5 x it + 0.002 m; the mono value is reported beside.
+VI_STEREO_JAX_ATE_M = 0.006702072395316809
+VI_STEREO_JAX_ATE_GATE_M = 1.5 * VI_STEREO_JAX_ATE_M + 0.002
+VI_MONO_JAX_ATE_M = 0.014323114190358425
+
+
+def vi_gates(kind: str, traj, t0: float, frames: ViFrames, v_est) -> dict:
+    """The inertial tests' measures of a trajectory ``traj`` (the system's
+    (stamp, R_cw, t_cw) list, stamps relative to ``t0``) against the
+    fixture ``frames``; ``v_est`` the last body velocity. ``kind``
+    "stereo": the camera-centre ATE without scale alignment; "mono": after
+    ``VI_MONO_POST_S``, Horn-scaled, its scale and the gravity axis's
+    angle, and over all frames the largest error and its p90. Both: the
+    speed error at the last frame. Returns a dict; ``ok`` holds the gate
+    (the JAX comparison is the caller's)."""
+    from .utils import evaluate
+    stamps = np.array([s for s, _, _ in traj], np.float64) + t0
+    est = evaluate.camera_centers(np.stack([R for _, R, _ in traj]),
+                                  np.stack([t for _, _, t in traj])).astype(
+                                      np.float64)
+    idx = np.array([int(np.argmin(np.abs(frames.stamps - s)))
+                    for s in stamps])
+    gt = frames.centres[idx]
+    v_gt = frames.vel[idx[-1]]
+    out = {"frames": len(traj), "speed_err_mps": float(abs(
+        np.linalg.norm(np.asarray(v_est, np.float64))
+        - np.linalg.norm(v_gt)))}
+    if kind == "stereo":
+        _, _, _, ate = evaluate.horn_align(est, gt, with_scale=False)
+        out["ate_m"] = float(ate)
+        out["ok"] = bool(len(traj) >= VI_STEREO_MIN_FRAMES
+                         and ate < VI_STEREO_ATE_GATE_M
+                         and out["speed_err_mps"] < VI_SPEED_TOL_MPS)
+        return out
+    post = stamps >= VI_MONO_POST_S
+    s, R, _, ate = evaluate.horn_align(est[post], gt[post], with_scale=True)
+    s_all, R_all, t_all, _ = evaluate.horn_align(est, gt, with_scale=True)
+    err = np.linalg.norm(s_all * est @ R_all.T + t_all - gt, axis=-1)
+    p90 = float(np.quantile(err, 0.90))
+    grav = float(np.degrees(np.arccos(np.clip(R[2, 2], -1, 1))))
+    out.update(post_frames=int(post.sum()), scale=float(s), ate_m=float(ate),
+               gravity_deg=grav, max_err_m=float(err.max()), p90_err_m=p90)
+    out["ok"] = bool(len(traj) >= VI_MONO_MIN_FRAMES and post.sum() >= 20
+                     and abs(s - 1.0) < VI_MONO_SCALE_TOL
+                     and ate < VI_MONO_ATE_GATE_M
+                     and grav < VI_MONO_GRAVITY_DEG
+                     and err.max() < max(4.0 * p90, 0.15)
+                     and out["speed_err_mps"] < VI_SPEED_TOL_MPS)
+    return out

@@ -19,15 +19,45 @@ dimensions (one window per batch row).
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..utils import cuda_graph
 from . import lie
 
 GRAVITY = 9.81  # IMU::GRAVITY_VALUE
+
+
+@dataclasses.dataclass
+class ImuConfig:
+    """IMU calibration (IMU::Calib). ``T_bc``: 4x4 body <- camera
+    (``IMU.T_b_c1``). The noise densities are continuous-time; the
+    per-sample discrete covariance scales by the rate."""
+
+    T_bc: np.ndarray
+    gyro_noise: float = 1.7e-4
+    acc_noise: float = 2.0e-3
+    gyro_walk: float = 1.9e-5
+    acc_walk: float = 3.0e-3
+    freq: float = 200.0
+
+    def noise_cov(self) -> np.ndarray:
+        d = np.array([self.gyro_noise ** 2 * self.freq] * 3
+                     + [self.acc_noise ** 2 * self.freq] * 3, np.float32)
+        return np.diag(d)
+
+    def walk_cov(self) -> np.ndarray:
+        d = np.array([self.gyro_walk ** 2 / self.freq] * 3
+                     + [self.acc_walk ** 2 / self.freq] * 3, np.float32)
+        return np.diag(d)
+
+    def walk_var(self) -> np.ndarray:
+        return np.array([self.gyro_walk ** 2] * 3 + [self.acc_walk ** 2] * 3,
+                        np.float32)
 
 
 @functools.cache

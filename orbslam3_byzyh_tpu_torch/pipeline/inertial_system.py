@@ -2,7 +2,8 @@
 visual-inertial bundle adjustments.
 
 Port of the module-level parts of ``orbslam3_byzyh_tpu/pipeline/
-inertial_system.py`` (``FRAME_STEPS``, ``KF_STEPS``, ``ImuConfig``,
+inertial_system.py`` (``FRAME_STEPS``, ``KF_STEPS``, ``ImuConfig`` (kept in
+``ops/imu.py``, imported here),
 ``ImuBuffer``, ``make_steps``, ``body_from_cam``, ``cam_from_body``,
 ``_gather_viba_visual``, ``_scatter_viba``) and, as free functions, the
 device work of ``MonoInertialSlam``'s methods:
@@ -21,10 +22,14 @@ device work of ``MonoInertialSlam``'s methods:
 
 The per-keyframe inertial arrays travel in an :class:`InertialMap`: the
 map state, the device-resident velocities and biases, and the host-side
-chain (``kf_prev``), preintegrations and stamps. The system class that
-holds the IMU schedule, the chain culling and the trajectory log is not
-ported yet. Every function here runs on the tensors' device; the host
-reads are the ones named in each docstring.
+chain (``kf_prev``), preintegrations and stamps. Every function here runs
+on the tensors' device; the host reads are the ones named in each
+docstring.
+
+:class:`MonoInertialSlam` (the JAX class of the same name) is the system
+over them: the frame loop with its IMU buffer, the keyframe chain, the
+IMU schedule, the chain-aware culling and the trajectory rescale. The
+stereo-inertial system is ``pipeline/stereo_inertial.py``.
 """
 
 from __future__ import annotations
@@ -38,41 +43,15 @@ import torch
 from .. import device as device_mod
 from ..models import map_state as ms
 from ..ops import imu, matching
+from ..ops.imu import ImuConfig  # noqa: F401  (the system's argument)
 from ..solver import inertial, inertial_ba
-from ..utils import cuda_graph
-from . import tracking
+from ..utils import cuda_graph, verbose
+from . import mapping, tracking
+from . import system as system_mod
 
 # Preintegration capacities of the JAX package (the windows' static shapes).
 FRAME_STEPS = 32      # samples per camera frame (200 Hz / 20 fps = ~10)
 KF_STEPS = 512        # samples per keyframe interval (<= ~2.5 s)
-
-
-@dataclasses.dataclass
-class ImuConfig:
-    """IMU calibration (IMU::Calib). ``T_bc``: 4x4 body <- camera
-    (``IMU.T_b_c1``). The noise densities are continuous-time; the
-    per-sample discrete covariance scales by the rate."""
-
-    T_bc: np.ndarray
-    gyro_noise: float = 1.7e-4
-    acc_noise: float = 2.0e-3
-    gyro_walk: float = 1.9e-5
-    acc_walk: float = 3.0e-3
-    freq: float = 200.0
-
-    def noise_cov(self) -> np.ndarray:
-        d = np.array([self.gyro_noise ** 2 * self.freq] * 3
-                     + [self.acc_noise ** 2 * self.freq] * 3, np.float32)
-        return np.diag(d)
-
-    def walk_cov(self) -> np.ndarray:
-        d = np.array([self.gyro_walk ** 2 / self.freq] * 3
-                     + [self.acc_walk ** 2 / self.freq] * 3, np.float32)
-        return np.diag(d)
-
-    def walk_var(self) -> np.ndarray:
-        return np.array([self.gyro_walk ** 2] * 3 + [self.acc_walk ** 2] * 3,
-                        np.float32)
 
 
 class ImuBuffer:
@@ -607,3 +586,596 @@ def inertial_refit(imap: InertialMap, kf_id: int, prior_g: float,
         kf_vel=imap.kf_vel.index_put((rows,), vel),
         kf_bg=imap.kf_bg.index_put((rows,), res.bg.expand(n, 3)),
         kf_ba=imap.kf_ba.index_put((rows,), res.ba.expand(n, 3))), fit
+
+
+# --- The monocular-inertial system ------------------------------------------
+
+
+class MonoInertialSlam(system_mod.MonoSlam):
+    """Monocular-inertial SLAM (System::TrackMonocular with an IMU) on
+    ``device`` (``None``: the card; raises without one).
+
+    The host frame loop of the JAX package's ``MonoInertialSlam`` over the
+    functions above: the IMU buffer, the temporal keyframe chain
+    (``kf_prev``) with its preintegrations (``kf_preint``) and host stamps
+    (``kf_stamp``), the per-keyframe velocities and biases on the device
+    (``kf_vel``, ``kf_bg``, ``kf_ba``), the IMU schedule (the init, VIBA1,
+    VIBA2, the monocular scale refinement), the chain-aware keyframe
+    culling and the trajectory rescale. Loop closing and map merging
+    (``_loops_allowed``, ``_merge_maps``, ``_on_map_corrected``, the
+    cross-map relocalization's fresh chain) wait for ROADMAP item 12: a
+    vocabulary raises in ``MonoSlam``.
+
+    Host reads, beside ``MonoSlam``'s: a tracked inertial frame's one
+    packed ``info`` (``track_inertial``), with a carried prior the
+    ``eigh`` of its square root, queued before the frame's extraction
+    (``_queue_prior``); a RECENTLY_LOST frame's predicted pose; each cull
+    one packed read (the candidate, the liveness, the biases); the init
+    and each refit their scale with the biases; the scale refinement its
+    scale. The JAX system reads the keyframe's pose after every inertial
+    keyframe (``inertial_system.py:1105-1109``) and, where its host mirror
+    is empty, a keyframe's stamp (``:319-324``); here the body is rebuilt
+    on the device and ``kf_stamp`` is filled on every keyframe, so neither
+    read exists."""
+
+    def __init__(self, config, imu_cfg: ImuConfig, viba_window: int = 24,
+                 viba_free: int = 10, viba_landmarks: int = 4096,
+                 full_viba_kf: int = 64, device=None):
+        super().__init__(config, device)
+        self.imu_cfg = imu_cfg
+        bf = getattr(config, "bf", None)
+        self.ctx = make_context(
+            imu_cfg, config.cam_params(), bf,
+            config.depth_threshold if bf is not None else 0.0,
+            config.width, config.height, self._window_kwargs(),
+            config.kf_ref_min_obs, viba_window, viba_free, viba_landmarks,
+            full_viba_kf, device=self.device)
+        self.W = viba_window
+        self.W_free = viba_free
+        self.L_slots = viba_landmarks
+        self.full_viba_kf = full_viba_kf
+        # The sensor's init gates and bias priors (LocalMapping.cc:236-293):
+        # mono (1e2, 1e10), 2 s; the stereo system sets (1e2, 1e5), 1 s and
+        # a fixed scale.
+        self.imu_init_prior = (1e2, 1e10)
+        self.imu_init_min_time = 2.0
+        self.imu_init_min_kf = 10
+        self.imu_fix_scale = False
+        self.buf = ImuBuffer()
+        mk = config.max_kf
+        dev = self.device
+        self.kf_stamp = np.full(mk, np.nan, np.float64)
+        self.kf_vel = torch.zeros((mk, 3), device=dev)
+        self.kf_bg = torch.zeros((mk, 3), device=dev)
+        self.kf_ba = torch.zeros((mk, 3), device=dev)
+        self.kf_prev = np.full(mk, -1, np.int32)     # the temporal chain
+        self.kf_preint = [None] * mk                 # preint prev -> this
+        self.imu_ready = False
+        self.viba_stage = 0                          # 0 init, 1 VIBA1, 2 VIBA2
+        self._next_scale_refine = 25.0
+        self.map_first_kf = 0
+        self._body = None           # (R_wb, p_w, v_w) tensors once ready
+        self._bias = np.zeros(6, np.float32)
+        self._last_stamp = None
+        # ConstraintPoseImu: the last frame's H_marg, None after a
+        # keyframe, a rebase or a lost frame.
+        self._pose_prior_H = None
+        self._pending_cull = None
+        self._imu_init_failures = 0
+
+    # ------------------------------------------------------------------
+    def _imap(self) -> InertialMap:
+        return InertialMap(self.state, self.kf_vel, self.kf_bg, self.kf_ba,
+                           self.kf_prev, self.kf_preint, self.kf_stamp)
+
+    def _set_imap(self, imap: InertialMap):
+        self.state = imap.state
+        self.kf_vel, self.kf_bg, self.kf_ba = (imap.kf_vel, imap.kf_bg,
+                                               imap.kf_ba)
+
+    def _preintegrate(self, t0: float, t1: float, bias, n_pad: int):
+        return preintegrate(*self.buf.window(t0, t1), t0, t1, bias, n_pad,
+                            self.ctx)[0]
+
+    def _chain(self, kf_id: int, max_len: int = 100000) -> list:
+        return chain(self.kf_prev, kf_id, max_len)
+
+    def _chain_length(self, kf_id: int) -> int:
+        return len(self._chain(kf_id))
+
+    def _trajectory_kf_stamp(self, kf_id: int) -> float:
+        """A keyframe's stamp from the host mirror (filled on every
+        keyframe, the init's with the device's float32 value)."""
+        return float(self.kf_stamp[kf_id])
+
+    def _body_of(self, kf_id: int) -> tuple:
+        """(R_wb, p_w, v_w) of keyframe ``kf_id``, built on the device."""
+        Rb, pb = body_from_cam(self.state.kfs.R[kf_id],
+                               self.state.kfs.t[kf_id], self.ctx.R_bc,
+                               self.ctx.t_bc)
+        return Rb, pb, self.kf_vel[kf_id]
+
+    def _queue_prior(self):
+        """The carried prior's square root, queued before the frame's own
+        work: its ``eigh`` then waits only for the last frame's solve,
+        which its read already waited for."""
+        if (self.status == system_mod.NOT_INITIALIZED or not self.imu_ready
+                or self._pose_prior_H is None):
+            return None
+        return inertial.prior_sqrt(self._pose_prior_H)
+
+    def _append_imu(self, imu_data):
+        if imu_data is not None and len(imu_data[0]) > 0:
+            self.buf.append(np.asarray(imu_data[0], np.float64) - self.t0,
+                            imu_data[1], imu_data[2])
+
+    # ------------------------------------------------------------------
+    def track(self, img: np.ndarray, stamp: float, imu_data=None):
+        """Process one frame and its IMU batch (ts, gyr, acc: the samples in
+        (t_prev, t]); returns Tcw (R, t) as numpy, or None."""
+        stamp = self._rel_stamp(stamp)
+        self._kf_host_pending = False
+        if self._check_timestamp_jump(stamp):
+            return None
+        self._append_imu(imu_data)
+        self._cur_stamp = stamp
+        prior_L = self._queue_prior()
+        feats = self._extract(img)
+        if self.status == system_mod.NOT_INITIALIZED:
+            pose = self._try_initialize(feats, stamp)
+            if pose is not None:
+                self._on_map_created(stamp)
+        elif self.imu_ready:
+            pose = self._track_inertial(feats, stamp, prior_L)
+        else:
+            pose = self._track_frame(feats, stamp)
+        self._last_stamp = stamp
+        if pose is not None:
+            self._log_frame(stamp, pose)
+        return pose
+
+    def _on_map_created(self, stamp: float):
+        """The two-keyframe initial map exists: the chain starts at
+        keyframe 0, keyframe 1 carries the preintegration between them.
+        Their stamps are the device's float32 values, which the JAX system
+        reads back when it first needs them."""
+        self.map_first_kf = 0
+        self.kf_stamp[0] = float(np.float32(self._init_stamp))
+        self.kf_stamp[1] = float(np.float32(stamp))
+        self.kf_prev[1] = 0
+        self.kf_preint[1] = self._preintegrate(
+            self.kf_stamp[0], stamp, np.zeros(6, np.float32), KF_STEPS)
+
+    # ------------------------------------------------------------------
+    # Keyframes: the inertial bookkeeping around the parent's work.
+    # ------------------------------------------------------------------
+    def _need_new_keyframe(self, n_inliers: int,
+                           ref_matches: int | None = None) -> bool:
+        if not self.imu_ready and self.n_kf >= 1 and self.last_kf_id >= 0:
+            # Before the IMU init the 0.25 s cadence is the only rule
+            # (Tracking.cc:4393-4400).
+            dt = self._cur_stamp - self._trajectory_kf_stamp(self.last_kf_id)
+            return dt >= 0.25 and self._kf_slot_available()
+        if super()._need_new_keyframe(n_inliers, ref_matches):
+            return True
+        # After it (Tracking.cc:4501-4522): c3, a keyframe at least every
+        # 0.5 s; c4, mono-inertial also on thin tracking or RECENTLY_LOST.
+        if self.last_kf_id < 0:
+            return False
+        dt = self._cur_stamp - self._trajectory_kf_stamp(self.last_kf_id)
+        c3 = dt >= 0.5
+        c4 = self._depth is None and (
+            15 < n_inliers < 75 or self.status == system_mod.RECENTLY_LOST)
+        return (c3 or c4) and self._kf_slot_available()
+
+    _bundle_local_ba = False
+
+    def _create_keyframe(self, feats, track_res, stamp, R_np, t_np):
+        """Drain first (it may apply a lagging cull), then this keyframe's
+        chain link, its window's preintegration (``KF_STEPS``), its velocity
+        and bias rows, then the parent's keyframe work (the bundle without
+        its BA, ``_local_refine``, the culls; the stereo depth landmarks),
+        then the IMU schedule. Returns the slot, or None."""
+        self._drain_pending()
+        if not self._kf_slot_available():
+            return None
+        prev = self.last_kf_id
+        kf_id = self.n_kf
+        self.kf_stamp[kf_id] = stamp
+        self.kf_prev[kf_id] = prev
+        if prev >= 0:
+            self.kf_preint[kf_id] = self._preintegrate(
+                self._trajectory_kf_stamp(prev), stamp, self._bias,
+                KF_STEPS)
+        if self.imu_ready:
+            dev = self.device
+            v = (self._body[2] if self._body is not None
+                 else torch.zeros(3, device=dev))
+            row = ms.slot_index(kf_id, dev)
+            b = device_mod.upload(self._bias, dev)
+            self.kf_vel = self.kf_vel.index_put((row,), v[None])
+            self.kf_bg = self.kf_bg.index_put((row,), b[None, :3])
+            self.kf_ba = self.kf_ba.index_put((row,), b[None, 3:])
+        got = super()._create_keyframe(feats, track_res, stamp, R_np, t_np)
+        if got is None:
+            # No keyframe was made (the map is full): no chain link either.
+            self.kf_prev[kf_id] = -1
+            self.kf_preint[kf_id] = None
+            self.kf_stamp[kf_id] = np.nan
+            return None
+        self._imu_schedule(kf_id, stamp)
+        return kf_id
+
+    def _local_refine(self, kf_id: int, counts, order):
+        if not self.imu_ready:
+            return super()._local_refine(kf_id, counts, order)
+        self._set_imap(local_inertial_ba(self._imap(), kf_id,
+                                         self.map_first_kf, self.ctx))
+
+    # ------------------------------------------------------------------
+    # The chain-aware keyframe culling (LocalMapping.cc:1177-1240).
+    # ------------------------------------------------------------------
+    def _successors(self, n: int) -> np.ndarray:
+        nxt = np.full(self.cfg.max_kf, -1, np.int32)
+        for j in range(n):
+            p = int(self.kf_prev[j])
+            if p >= 0:
+                nxt[p] = j
+        return nxt
+
+    def _maybe_cull_keyframes(self, kf_id: int):
+        """Inertial KeyFrameCulling: a redundant chain keyframe may go only
+        if its successor's preintegration gap stays under 3 s; the
+        successor's preintegration is then re-integrated across the gap
+        from the buffer's raw samples. The redundancy score is dispatched
+        here and read at the next keyframe's drain (a read now would wait
+        for the whole keyframe's device queue)."""
+        if self.n_kf < 8:
+            return
+        n = self.n_kf
+        nxt = self._successors(n)
+        recent = set(self._chain(kf_id)[-3:])
+        stamps = self.kf_stamp
+        eligible = np.zeros(self.cfg.max_kf, bool)
+        for k in range(n):
+            if k == self.map_first_kf or k in recent:
+                continue
+            p, nx = int(self.kf_prev[k]), int(nxt[k])
+            if p < 0 or nx < 0:
+                continue
+            if (np.isnan(stamps[nx]) or np.isnan(stamps[p])
+                    or stamps[nx] - stamps[p] >= 3.0):   # LocalMapping.cc:1228
+                continue
+            eligible[k] = True
+        if not eligible.any():
+            return
+        self._pending_cull = mapping.cull_candidate(
+            self.state, device_mod.upload(eligible, self.device))
+
+    def _apply_pending_cull(self):
+        """The lagging cull decision, in one packed read with the liveness
+        and the biases, re-validated against the current chain."""
+        pend = self._pending_cull
+        if pend is None:
+            return
+        self._pending_cull = None
+        out, valid, bg, ba = device_mod.read(pend, self.state.kfs.valid,
+                                             self.kf_bg, self.kf_ba)
+        best = int(out[0])
+        if out[1] < 0.9:
+            return
+        if best == self.map_first_kf or int(self.kf_prev[best]) < 0:
+            return
+        if valid[best] <= 0:
+            return
+        nx = -1
+        for j in range(self.n_kf):
+            if int(self.kf_prev[j]) == best:
+                nx = j
+                break
+        if nx < 0 or best in self._chain(self.last_kf_id)[-3:]:
+            return
+        self._cull_chain_keyframe(best, nx, np.concatenate([bg[nx], ba[nx]]),
+                                  valid > 0)
+
+    def _drain_pending(self):
+        super()._drain_pending()
+        self._apply_pending_cull()
+
+    def _cull_chain_keyframe(self, best: int, nx: int, bias_nx: np.ndarray,
+                             valid: np.ndarray):
+        """Drop chain keyframe ``best`` (``valid``: the liveness before,
+        ``bias_nx``: its successor's [bg, ba], both host values): the
+        successor's preintegration re-integrated over (t_prev, t_next] at
+        its bias (MergePrevious with Reintegrate's exactness), the chain
+        relinked, the spanning tree and the frame records reattached."""
+        stamps = self.kf_stamp
+        p = int(self.kf_prev[best])
+        self.kf_preint[nx] = self._preintegrate(
+            float(stamps[p]), float(stamps[nx]), bias_nx, KF_STEPS)
+        self.kf_prev[nx] = p
+        self.kf_prev[best] = -1
+        self.kf_preint[best] = None
+        self.state = mapping.drop_keyframe(self.state, best)
+        after = valid.copy()
+        after[best] = False
+        self.kf_parent[:] = self._resolve_dead_parents(self.kf_parent, after)
+        if any(r == best for r in self._traj.refs):
+            dead = np.zeros(self.cfg.max_kf, bool)
+            dead[best] = True
+            parent_of = np.full(self.cfg.max_kf, -1, np.int64)
+            parent_of[best] = p
+            self._traj.rebase(dead, parent_of, *self._host_poses())
+
+    def _force_cull_keyframes(self, n: int) -> int:
+        """The capacity valve, chain-aware: up to ``n`` redundancy-ranked
+        culls with the preintegration re-integrated across each gap; the
+        chain gap may reach 10 s; the map's first keyframe, keyframe 0 and
+        the 8 newest live ones are protected."""
+        count = 0
+        for _ in range(n):
+            nk = self.n_kf
+            stamps = self.kf_stamp
+            nxt = self._successors(nk)
+            valid = device_mod.read(self.state.kfs.valid)[0] > 0
+            recent = set(np.flatnonzero(valid)[-8:].tolist())
+            eligible = np.zeros(self.cfg.max_kf, bool)
+            for k in range(nk):
+                if k == self.map_first_kf or k == 0 or k in recent:
+                    continue
+                p, nx = int(self.kf_prev[k]), int(nxt[k])
+                if p < 0 or nx < 0:
+                    continue
+                if (np.isnan(stamps[nx]) or np.isnan(stamps[p])
+                        or stamps[nx] - stamps[p] >= 10.0):
+                    continue
+                eligible[k] = True
+            if not eligible.any():
+                break
+            out, bg, ba = device_mod.read(mapping.cull_candidate(
+                self.state, device_mod.upload(eligible, self.device),
+                min_seen=0), self.kf_bg, self.kf_ba)
+            best = int(out[0])
+            if out[1] < 0 or not eligible[best]:
+                break
+            nx = int(nxt[best])
+            self._cull_chain_keyframe(best, nx, np.concatenate([bg[nx],
+                                                                ba[nx]]),
+                                      valid)
+            count += 1
+        return count
+
+    def _on_keyframes_compacted(self, old2new: np.ndarray):
+        """Remap the per-keyframe inertial arrays after the compaction."""
+        mk = self.cfg.max_kf
+        live = np.flatnonzero(old2new >= 0)
+        new_ids = old2new[live]
+        rows = device_mod.upload(np.stack([live, new_ids]).astype(np.int64),
+                                 self.device)
+        for name in ("kf_vel", "kf_bg", "kf_ba"):
+            arr = getattr(self, name)
+            setattr(self, name, torch.zeros_like(arr).index_put(
+                (rows[1],), arr[rows[0]]))
+        stamps_new = np.full(mk, np.nan, np.float64)
+        stamps_new[new_ids] = self.kf_stamp[live]
+        self.kf_stamp = stamps_new
+        prev_new = np.full(mk, -1, np.int32)
+        preint_new = [None] * mk
+        for old, new in zip(live, new_ids):
+            p = int(self.kf_prev[old])
+            prev_new[new] = old2new[p] if p >= 0 else -1
+            preint_new[new] = self.kf_preint[old]
+        self.kf_prev = prev_new
+        self.kf_preint = preint_new
+        self.map_first_kf = max(int(old2new[self.map_first_kf]), 0)
+
+    # ------------------------------------------------------------------
+    # The IMU init and the VI-BA schedule (LocalMapping.cc:236-294).
+    # ------------------------------------------------------------------
+    def _imu_schedule(self, kf_id: int, stamp: float):
+        span = stamp - self._trajectory_kf_stamp(self.map_first_kf)
+        if not self.imu_ready:
+            if (self._chain_length(kf_id) >= self.imu_init_min_kf
+                    and span >= self.imu_init_min_time):
+                self._initialize_imu(kf_id)
+            return
+        if self.viba_stage == 1 and span > 5.0:
+            # VIBA1: InitializeIMU(1, 1e5) then the full VI-BA
+            # (LocalMapping.cc:274-276).
+            self._inertial_refit(kf_id, prior_g=1.0, prior_a=1e5)
+            self._full_inertial_ba(kf_id, prior_g=1.0, prior_a=1e5)
+            self.viba_stage = 2
+            self._refresh_inertial_context(kf_id)
+        elif self.viba_stage == 2 and span > 15.0:
+            # VIBA2: InitializeIMU(0, 0) (LocalMapping.cc:288-290).
+            self._inertial_refit(kf_id, prior_g=0.0, prior_a=0.0)
+            self._full_inertial_ba(kf_id, prior_g=0.0, prior_a=0.0)
+            self.viba_stage = 3
+            self._refresh_inertial_context(kf_id)
+        elif (self.viba_stage >= 3 and not self.imu_fix_scale
+                and span > self._next_scale_refine):
+            # The monocular scale check at 25, 35, ... s (ScaleRefinement,
+            # LocalMapping.cc:1846, :298-308).
+            self._scale_refinement(kf_id)
+            self._next_scale_refine += 10.0
+
+    def _refresh_inertial_context(self, kf_id: int):
+        """Re-seed the frame context from the newest keyframe ``kf_id``
+        after a full VI-BA moved the map: the body (on the device), the
+        matching pose, the prior dropped; and in one read the keyframe's
+        biases (the frames' new linearization bias, UpdateFrameIMU) with
+        its pose for the ref cache."""
+        self._body = self._body_of(kf_id)
+        if self._last is not None:
+            self._last["R"] = self.state.kfs.R[kf_id]
+            self._last["t"] = self.state.kfs.t[kf_id]
+        self._vel = None
+        self._pose_prior_H = None
+        bg, ba, R, t = device_mod.read(self.kf_bg[kf_id], self.kf_ba[kf_id],
+                                       self.state.kfs.R[kf_id],
+                                       self.state.kfs.t[kf_id])
+        self._bias = np.concatenate([bg, ba])
+        self._set_ref_cache(kf_id, R, t)
+
+    def _rebase_gravity_scale(self, R_gw: torch.Tensor, s: float):
+        """x' = s R_gw x on the map (``rebase_gravity_scale``), the frame
+        records' rescale, and the prior dropped."""
+        self.state = rebase_gravity_scale(self.state, R_gw, s)
+        self._traj.rescale(s)
+        self._pose_prior_H = None
+
+    def _scale_refinement(self, kf_id: int):
+        """The scale and gravity re-fit with the biases pinned
+        (InertialOptimization's scale variant, Optimizer.cc:4067); applied
+        when |s - 1| > 0.002 (LocalMapping.cc:1866). One read: s."""
+        ids = self._chain(kf_id)
+        if len(ids) < 4 or any(self.kf_preint[k] is None for k in ids[1:]):
+            return
+        rows = device_mod.upload(np.asarray(ids, np.int64), self.device)
+        R_wb, p_w = body_from_cam_batch(self.state.kfs.R[rows],
+                                        self.state.kfs.t[rows],
+                                        self.ctx.R_bc, self.ctx.t_bc)
+        res = inertial.inertial_only_optimization(
+            R_wb, p_w, imu.stack([self.kf_preint[k] for k in ids[1:]]),
+            prior_g=1e10, prior_a=1e10, fix_scale=False)
+        s = float(device_mod.read(res.scale)[0])
+        if not np.isfinite(s) or s < 1e-1 or abs(s - 1.0) <= 0.002:
+            return
+        R_gw = res.R_wg.T
+        self._rebase_gravity_scale(R_gw, s)
+        self.kf_vel = self.kf_vel.index_put(
+            (rows,), s * self.kf_vel[rows] @ R_gw.T)
+        if self._body is not None:
+            self._body = self._body_of(kf_id)
+        if self._last is not None:
+            self._last["R"] = self.state.kfs.R[kf_id]
+            self._last["t"] = self.state.kfs.t[kf_id]
+        self._vel = None
+        self._refresh_ref_cache()
+
+    def _inertial_refit(self, kf_id: int, prior_g: float, prior_a: float):
+        """InertialOptimization + ApplyScaledRotation (``inertial_refit``)
+        with the frame records' rescale. Returns the scale, or None when
+        the chain is too short to solve."""
+        imap, fit = inertial_refit(self._imap(), kf_id, prior_g, prior_a,
+                                   self.imu_fix_scale, self.ctx)
+        if fit.solve is None:
+            return None
+        if not np.isfinite(fit.scale) or fit.scale < 1e-1:
+            return fit.scale
+        self._set_imap(imap)
+        self._traj.rescale(fit.scale)
+        self._pose_prior_H = None
+        self._bias = fit.bias.astype(np.float32)
+        return fit.scale
+
+    def _full_inertial_ba(self, kf_id: int, prior_g: float, prior_a: float):
+        self._set_imap(full_inertial_ba(self._imap(), kf_id, prior_g,
+                                        prior_a, self.ctx))
+
+    def _initialize_imu(self, kf_id: int):
+        """InitializeIMU (LocalMapping.cc:1516): the refit, then the full
+        VI-BA under the init's bias prior. Five non-finite solves condemn
+        the active map (mbBadImu, LocalMapping.cc:186-193)."""
+        scale = self._inertial_refit(kf_id, *self.imu_init_prior)
+        if scale is None:
+            return
+        if not np.isfinite(scale):
+            self._imu_init_failures += 1
+            if self._imu_init_failures >= 5:
+                verbose.print_mess("bad IMU detected: resetting active map")
+                self._imu_init_failures = 0
+                self._handle_lost(None, None)
+            return
+        if scale < 1e-1:
+            return
+        self.imu_ready = True
+        self.viba_stage = 1
+        self._full_inertial_ba(kf_id, *self.imu_init_prior)
+        self._body = self._body_of(kf_id)
+        if self._last is not None:
+            self._last["R"] = self.state.kfs.R[kf_id]
+            self._last["t"] = self.state.kfs.t[kf_id]
+        self._vel = None
+        self._refresh_ref_cache()
+
+    # ------------------------------------------------------------------
+    # The inertial frame (Track with an IMU).
+    # ------------------------------------------------------------------
+    def _track_inertial(self, feats, stamp, prior_L=None):
+        """``track_inertial`` and the host's side of it: RECENTLY_LOST
+        dead-reckons on the IMU prediction for the grace period; a tracked
+        frame carries its ``H_marg`` as the next frame's prior; a keyframe
+        drops it and rebuilds the body from the keyframe on the device."""
+        last = self._last
+        res = track_inertial(
+            feats, self._ur, self._depth, last["bindings"],
+            last["feats"].desc, last["feats"].angle, self.state.lms,
+            self.state.obs, self.n_kf, self.last_kf_id, self._body,
+            self._bias, self.buf.window(self._last_stamp, stamp),
+            self._last_stamp, stamp, self.ctx, prior_H=self._pose_prior_H,
+            prior_L=prior_L)
+        info = res.info
+        n_inliers = int(info[0])
+        ref_matches = max(int(info[1]), 1)
+        self._close_counts = ((int(info[20]), int(info[21]))
+                              if self._depth is not None else (0, 0))
+        if n_inliers < 15:
+            # RECENTLY_LOST: the IMU dead-reckoning grace (Tracking.cc:2925).
+            self._pose_prior_H = None
+            self.status = system_mod.RECENTLY_LOST
+            self.lost_frames += 1
+            self._body = (res.R_pred, res.p_pred, res.v_pred)
+            if self.lost_frames > self.lost_grace:
+                self._handle_lost(feats, stamp)
+                return None
+            Rc, tc = device_mod.read(*cam_from_body(
+                res.R_pred, res.p_pred, self.ctx.R_cb, self.ctx.t_cb))
+            self._last = dict(feats=feats, bindings=res.track.bindings,
+                              R=Rc, t=tc, stamp=stamp)
+            return (Rc, tc)
+
+        self.status = system_mod.OK
+        self.lost_frames = 0
+        pr = res.pose_inertial
+        self._body = (pr.R, pr.p, pr.v)
+        self._bias = info[14:20].astype(np.float32)
+        self._pose_prior_H = pr.H_marg
+        R_np = info[2:11].reshape(3, 3).astype(np.float32)
+        t_np = info[11:14].astype(np.float32)
+        self.state = self.state._replace(lms=self.state.lms._replace(
+            n_found=res.n_found, n_visible=res.n_visible))
+        self._last = dict(feats=feats, bindings=res.bindings, R=R_np,
+                          t=t_np, stamp=stamp)
+        self.frames_since_kf += 1
+        if not self.localization_only and self._need_new_keyframe(
+                n_inliers, ref_matches):
+            pose = device_mod.upload(np.concatenate([R_np.ravel(), t_np]),
+                                     self.device)
+            tr = tracking.TrackResult(R=pose[:9].reshape(3, 3), t=pose[9:],
+                                      bindings=res.bindings,
+                                      n_inliers=pr.n_inliers)
+            self._create_keyframe(feats, tr, stamp, R_np, t_np)
+            # The bundle and the VI-BA may have moved the keyframe: the body
+            # follows it (on the device), and the prior's linearization
+            # point moved.
+            self._pose_prior_H = None
+            self._body = self._body_of(self.last_kf_id)
+        return (R_np, t_np)
+
+    # ------------------------------------------------------------------
+    def _reset_inertial_machinery(self):
+        self.imu_ready = False
+        self.viba_stage = 0
+        self._next_scale_refine = 25.0
+        self._body = None
+        self._bias = np.zeros(6, np.float32)
+        self._pose_prior_H = None
+        self._pending_cull = None
+        self.kf_prev[:] = -1
+        self.kf_preint = [None] * self.cfg.max_kf
+        self.kf_stamp[:] = np.nan
+
+    def _handle_lost(self, feats, stamp):
+        super()._handle_lost(feats, stamp)
+        self._reset_inertial_machinery()

@@ -555,8 +555,13 @@ class MonoSlam:
         self.state = state
         self.n_kf = n_valid
         self.last_kf_id = int(old2new[self.last_kf_id])
+        self._on_keyframes_compacted(old2new)
         self._refresh_ref_cache()
         return True
+
+    def _on_keyframes_compacted(self, old2new: np.ndarray):
+        """Subclass hook: remap any per-keyframe side arrays after the
+        compaction (``old2new`` numpy, -1 for a dead slot)."""
 
     def _force_cull_keyframes(self, n: int) -> int:
         """Drop up to ``n`` keyframes in redundancy order, ignoring the 0.9
@@ -627,7 +632,14 @@ class MonoSlam:
 
     # ------------------------------------------------------------------
     # The per-keyframe mapping work: one device dispatch, read lazily.
+    # Visual systems run the windowed local BA and the keyframe culling
+    # inside the bundle; inertial systems (``_bundle_local_ba = False``)
+    # run their LocalInertialBA and chain-aware culling right after it,
+    # through ``_local_refine`` and ``_maybe_cull_keyframes`` (their
+    # schedule needs the temporal chain).
     # ------------------------------------------------------------------
+    _bundle_local_ba = True
+
     def _create_keyframe(self, feats, track_res, stamp, R_np, t_np):
         """CreateNewKeyFrame and the LocalMapping work for this keyframe:
         one dispatch of ``graft.mono_keyframe_step`` (with the frame's
@@ -642,8 +654,9 @@ class MonoSlam:
         state, bindings, info, culled = graft.mono_keyframe_step(
             self.state, kf_id, track_res.R, track_res.t, stamp, feats,
             track_res.bindings, self.cam_params, self.n_lm, cfg=self.mcfg,
-            do_kf_cull=self.n_kf >= 8, ur=self._ur,
-            bf=st["bf"] if st["use_stereo"] else None)
+            do_kf_cull=self._bundle_local_ba and self.n_kf >= 8,
+            ur=self._ur, bf=st["bf"] if st["use_stereo"] else None,
+            do_local_ba=self._bundle_local_ba)
         self.state = state
         self.n_kf = kf_id + 1
         self.frames_since_kf = 0
@@ -654,6 +667,13 @@ class MonoSlam:
         # The reference pose cache holds the tracked pose until the
         # bundle's is read.
         self._ref_cache = (kf_id, R_np, t_np)
+        if not self._bundle_local_ba:
+            # The host-scheduled refinement and culling (no read).
+            self._local_refine(kf_id, None, None)
+            self.state = mapping.cull_landmarks(self.state, kf_id)
+            self._maybe_cull_keyframes(kf_id)
+            self._last["R"] = self.state.kfs.R[kf_id]
+            self._last["t"] = self.state.kfs.t[kf_id]
         self._pending_kf = dict(
             kf_id=kf_id, ref_gen=self._ref_cache_gen,
             out=torch.cat([info, culled.to(torch.float32),
@@ -690,6 +710,24 @@ class MonoSlam:
             if any(r >= 0 and culled[r] for r in self._traj.refs):
                 self._traj.rebase(culled, self._nearest_live_parent(valid),
                                   *self._host_poses())
+
+    def _local_refine(self, kf_id: int, counts, order):
+        """The local BA after a new keyframe when the bundle ran none
+        (LocalBundleAdjustment): the covisibility-windowed BA. The inertial
+        systems override it with their LocalInertialBA."""
+        self.state = mapping.windowed_local_ba(
+            self.state, kf_id, self.cam_params,
+            n_free=self.cfg.local_window + 1, n_window=self.cfg.ba_window,
+            n_lm_window=self.cfg.ba_lm_window, **self._ba_kwargs())
+
+    def _maybe_cull_keyframes(self, kf_id: int):
+        """KeyFrameCulling when the bundle ran none (the inertial systems
+        override it with their chain-aware culling)."""
+        if self.n_kf >= 8:
+            before = device_mod.read(self.state.kfs.valid)[0] > 0
+            self.state = mapping.cull_keyframes(self.state, kf_id)
+            self._rebase_culled(before,
+                                device_mod.read(self.state.kfs.valid)[0] > 0)
 
     # ------------------------------------------------------------------
     # Map lifecycle (Atlas flow)

@@ -30,6 +30,9 @@ from torch.utils import _pytree as pytree
 
 MAX_GRAPHS = 32
 _GRAPHS: collections.OrderedDict = collections.OrderedDict()
+# Graphs captured since the process began (a capture after an eviction
+# counts again): what a caller's run captured is the difference.
+CAPTURES = [0]
 _ENABLED = [True]
 # Warm-up runs before a capture (lazy library handles, workspaces, the
 # callee's own caches are made outside the graph).
@@ -106,6 +109,7 @@ def call(name: str, fn, *args):
     entry = _GRAPHS.get(key)
     if entry is None:
         entry = _GRAPHS[key] = _capture(fn, leaves, spec)
+        CAPTURES[0] += 1
         while len(_GRAPHS) > MAX_GRAPHS:
             _GRAPHS.popitem(last=False)[1][1].reset()
     _GRAPHS.move_to_end(key)

@@ -34,7 +34,14 @@ by name; the table goes to ``--out``, no trace). ``--entry stereo``: the
 same for ``StereoSlam`` at the KITTI stereo capacity on the stereo frames
 (``graft.kitti_golden_config()``, ``graft.kitti_frames``) and for
 ``RgbdSlam`` at TUM1's settings (``graft.tum_rgbd_golden_config()``), with
-the stereo extraction and the depth landmarks as stages. ``--entry vi``:
+the stereo extraction and the depth landmarks as stages. ``--entry
+vi-system``: the same for ``StereoInertialSlam`` at the EuRoC
+stereo-inertial capacity on the stereo VI frames
+(``graft.euroc_vi_golden_config()``), each frame with its IMU batch, by
+the kinds of ``chip_smoke.py`` phase 13 (uninitialised, init, visual,
+inertial, keyframe, the keyframe that runs the IMU init or VIBA1), with the
+inertial frame step, the preintegrations, the local BA, the IMU init's
+refit and full VI-BA and the cull's read as stages. ``--entry vi``:
 ``graft.vi_frame_step`` at the EuRoC stereo-inertial configuration on
 ``graft.euroc_vi_scene`` (its "keyframe" and "prior" cases), split by stage,
 each stage function synchronised before and after it: the prior's square
@@ -69,8 +76,8 @@ import time
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--entry", choices=("tracking", "mono", "keyframe", "init",
-                                        "system", "stereo", "vi", "both",
-                                        "all"),
+                                        "system", "stereo", "vi",
+                                        "vi-system", "both", "all"),
                     default="all")
     ap.add_argument("--sequences", type=int, default=2)
     ap.add_argument("--frames", type=int, default=20)
@@ -260,6 +267,8 @@ def main() -> int:
             profile_system(args, dev, card, timed, cell)
     if args.entry == "vi":
         profile_vi(args, dev, card)
+    if args.entry == "vi-system":
+        profile_system(args, dev, card, timed, "euroc_vi")
     return 0
 
 
@@ -413,10 +422,13 @@ KERNEL_NAMES = (("K1", "brief_kernel"), ("K2", "match_kernel"),
 def profile_system(args, dev, card, timed, cell: str = "mono") -> None:
     """A system's frames by kind: stage times and a profile. ``cell``:
     "mono" (MonoSlam at EuRoC capacity), "kitti" (StereoSlam at KITTI
-    capacity) or "rgbd" (RgbdSlam at TUM1's settings)."""
+    capacity), "rgbd" (RgbdSlam at TUM1's settings) or "euroc_vi"
+    (StereoInertialSlam at the EuRoC stereo-inertial capacity)."""
     import torch
 
     from orbslam3_byzyh_tpu_torch import graft
+    from orbslam3_byzyh_tpu_torch.pipeline import inertial_system as vi
+    from orbslam3_byzyh_tpu_torch.pipeline import stereo_inertial
     from orbslam3_byzyh_tpu_torch.pipeline import stereo_system, system
     from orbslam3_byzyh_tpu_torch.pipeline import tracking
 
@@ -426,10 +438,34 @@ def profile_system(args, dev, card, timed, cell: str = "mono") -> None:
               ("init", graft, "mono_initialize"),
               ("keyframe bundle", graft, "mono_keyframe_step"),
               ("bundle read", system.MonoSlam, "_drain_pending")]
+    imus = None
+    make = None
     if cell == "mono":
         gold = graft.golden_frames()
         stamps, frames = gold.stamps, graft.pad_frames(gold.frames)
         cls, cfg = system.MonoSlam, graft.euroc_golden_config()
+    elif cell == "euroc_vi":
+        vs = graft.vi_stereo_frames()
+        stamps = vs.stamps
+        imus = [vs.imu(i) for i in range(len(stamps))]
+        frames = list(zip(graft.pad_frames(vs.left),
+                          graft.pad_frames(vs.right)))
+        setup = graft.euroc_vi_golden_config()
+        cls = stereo_inertial.StereoInertialSlam
+        make = lambda: cls(setup.config, setup.imu, **setup.viba,
+                           device=dev)
+        stages = [("stereo extract", graft, "stereo_extract"),
+                  ("visual frame step", tracking, "frame_step"),
+                  ("inertial frame step", vi, "track_inertial"),
+                  ("init", stereo_system.StereoSlam, "_stereo_initialize"),
+                  ("keyframe preintegration", vi.MonoInertialSlam,
+                   "_preintegrate"),
+                  ("keyframe bundle", graft, "mono_keyframe_step"),
+                  ("local BA", vi.MonoInertialSlam, "_local_refine"),
+                  ("imu init refit", vi.MonoInertialSlam, "_inertial_refit"),
+                  ("full VI-BA", vi.MonoInertialSlam, "_full_inertial_ba"),
+                  ("cull read", vi.MonoInertialSlam, "_apply_pending_cull"),
+                  ("bundle read", system.MonoSlam, "_drain_pending")]
     else:
         sf = graft.stereo_frames()
         stamps = sf.stamps
@@ -453,7 +489,7 @@ def profile_system(args, dev, card, timed, cell: str = "mono") -> None:
 
     def sequence(staged):
         """One sequence: per frame (kind, track ms, stage ms)."""
-        slam = cls(cfg, device=dev)
+        slam = make() if make is not None else cls(cfg, device=dev)
         originals = [(o, n, getattr(o, n)) for _, o, n in stages]
         if staged:
             for (label, _, _), (o, n, fn) in zip(stages, originals):
@@ -464,16 +500,25 @@ def profile_system(args, dev, card, timed, cell: str = "mono") -> None:
                                                      step(*a, **kw))[1]
         out = []
         try:
-            for img, stamp in zip(frames, stamps):
+            for i, (img, stamp) in enumerate(zip(frames, stamps)):
                 uninit = slam.status == system.NOT_INITIALIZED
                 n_b = len(bundles)
+                ready = getattr(slam, "imu_ready", False)
+                stage = getattr(slam, "viba_stage", 0)
                 spent.clear()
-                args_ = img if isinstance(img, tuple) else (img,)
-                _, total = timed(lambda: slam.track(*args_, float(stamp)))
+                args_ = ((img if isinstance(img, tuple) else (img,))
+                         + (float(stamp),)
+                         + (() if imus is None else (imus[i],)))
+                _, total = timed(lambda: slam.track(*args_))
                 if uninit:
                     kind = ("uninitialised"
                             if slam.status == system.NOT_INITIALIZED
                             else "init")
+                elif imus is not None:
+                    kind = ("imu_keyframe" if len(bundles) > n_b
+                            and slam.viba_stage != stage
+                            else "keyframe" if len(bundles) > n_b
+                            else "inertial" if ready else "visual")
                 else:
                     kind = "keyframe" if len(bundles) > n_b else "tracked"
                 out.append((kind, total, dict(spent)))
@@ -488,7 +533,8 @@ def profile_system(args, dev, card, timed, cell: str = "mono") -> None:
     rows = []
     for _ in range(args.sequences):
         rows += sequence(True)
-    for kind in ("uninitialised", "init", "tracked", "keyframe"):
+    for kind in ("uninitialised", "init", "tracked", "visual", "inertial",
+                 "keyframe", "imu_keyframe"):
         rs = [r for r in rows if r[0] == kind]
         if not rs:
             continue
@@ -532,6 +578,10 @@ def profile_system(args, dev, card, timed, cell: str = "mono") -> None:
         count = sum(e.count for e in mine)
         print(f"[{cell} system kernel] {kname} {name}: {us / n:.1f} us/frame "
               f"device time, {count} launches in the sequence ({card})")
+    if imus is not None:
+        from orbslam3_byzyh_tpu_torch.utils import cuda_graph
+        print(f"[{cell} system profile] {len(cuda_graph._GRAPHS)} CUDA graphs "
+              f"kept, {cuda_graph.CAPTURES[0]} captured in the process")
     out = os.path.join(args.out, "system" if cell == "mono" else cell)
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(out, "key_averages.txt"), "w") as fh:
