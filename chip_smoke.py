@@ -73,6 +73,25 @@ nvcc (in parallel) and drives the port's entry points through them:
     against their operations run one by one; every K1, K2, K3 and K3s
     launch of the frame steps held against its plain version.
 
+  * phase "13 inertial system": ``StereoInertialSlam`` and
+    ``MonoInertialSlam`` on the committed VI frames, cells (d), (e) and (f)
+    (the stereo frames at the EuRoC stereo-inertial capacity).
+
+  * phase "14 fisheye": the non-rectified stereo path and the
+    Kannala-Brandt camera. (a) ``graft.fisheye_stereo_extract`` at TUM-VI
+    512's 1000 features on the stereo-inertial fixture's first pair warped
+    to TUM-VI's 512x512 KB8 pair (``graft.tumvi_kb8_pair``): K1 twice and
+    K2's 1000 x 1000 none launch held bit for bit, the match against the
+    CPU plain path on the same features, the depths against the render's,
+    the synchronisations named, 50 timed calls; (g) ``FisheyeStereoSlam``
+    on ``graft.fisheye_frames()`` at tests/test_fisheye_stereo_system.py's
+    configuration, held to that test's gate and the JAX run's ATE; (h)
+    ``FisheyeStereoInertialSlam`` on the warped stereo-inertial frames at
+    TUM-VI 512's capacity (1024 / 65536 / 12 slots, VI-BA 24 / 10 / 4096 /
+    64), held to (d)'s gates and the JAX run's ATE; every launch of (g)'s
+    and (h)'s first sequence held against its plain version, timed
+    sequences by frame kind.
+
 Every kernel is held against its plain PyTorch version on the card: on
 synthetic inputs at both paths' shapes, and on the very inputs each path
 gave it (its wrapper's calls are recorded and replayed). K3 and K3s are
@@ -185,6 +204,16 @@ N_WARMUP_VI = 10
 # Phase 13: the inertial systems' timed sequences after one warm-up
 # sequence, per cell.
 N_TIMED_VI_SEQUENCES = 2
+# Phase 14 (a): a match decision may differ between the card and the CPU
+# only where a float gate (parallax, depth, reprojection) lies within this
+# relative distance of its threshold: the DLT's float32 SVD (cuSOLVER
+# against LAPACK) moves the point by up to about 1e-5 relative.
+FISHEYE_FLIP_MARGIN = 1e-4
+# Phase 14 (a): the matched depths' median relative error against the
+# render's depth (test_stereo.py:136-138's gate for this function: the
+# match triangulates the keypoints as detected, with no sub-pixel
+# refinement, and a pixel is 4-10 % of the world's 9-27 px disparities).
+FISHEYE_DEPTH_MEDIAN_TOL = 0.08
 # The JAX inertial systems' reads of device values in each kind of frame
 # (orbslam3_byzyh_tpu/pipeline/inertial_system.py unless named), beside
 # the port's synchronisations.
@@ -901,16 +930,21 @@ def phase_inertial(dev, card, sk, check_call, timed, shape_of) -> dict:
     return out
 
 
-def phase_inertial_system(dev, card, sk, check_call, shape_of) -> dict:
+def phase_inertial_system(dev, card, sk, check_call, shape_of,
+                          name: str = "13 inertial system", cells=None,
+                          jax_ate=None) -> dict:
     """Phase "13 inertial system": ``StereoInertialSlam`` and
     ``MonoInertialSlam`` on the committed VI frames, (d) the stereo golden
     cell, (e) the mono golden cell, (f) the stereo frames at the EuRoC
     stereo-inertial capacity. Per cell: one warm-up sequence with every
-    K1, K2, K3 and K3s launch held against its plain version, held to its
-    gates; then timed sequences (frame latency by kind, frames/s, launches,
-    CUDA graphs captured); then one sequence counting the synchronisations
-    by kind. Returns the results and each kernel's first held call per
-    cell."""
+    K1, K2, K3 and K3s launch held against its plain version (K3s where
+    the system has stereo rows), held to its gates; then timed sequences
+    (frame latency by kind, frames/s, launches, CUDA graphs captured); then
+    one sequence counting the synchronisations by kind. ``cells`` (name ->
+    (class, setup, frames, images, "stereo" | "mono")) and ``jax_ate`` (a
+    stereo cell's JAX reference ATE, default the (d) run's) run other
+    cells under phase ``name``. Returns the results and each kernel's first
+    held call per cell."""
     from orbslam3_byzyh_tpu_torch import graft
     from orbslam3_byzyh_tpu_torch.ops import cuda_brief, cuda_match
     from orbslam3_byzyh_tpu_torch.pipeline import inertial_system as vi
@@ -920,9 +954,9 @@ def phase_inertial_system(dev, card, sk, check_call, shape_of) -> dict:
     from orbslam3_byzyh_tpu_torch.solver import cuda_pose_opt
     from orbslam3_byzyh_tpu_torch.utils import cuda_graph
 
-    name = "13 inertial system"
+    jax_ate = jax_ate or {}
     vs, vm = graft.vi_stereo_frames(), graft.vi_mono_frames()
-    cells = {
+    cells = cells or {
         "d_stereo_vi": (StereoInertialSlam,
                         graft.stereo_inertial_golden_config(), vs,
                         list(zip(vs.left, vs.right)), "stereo"),
@@ -1011,13 +1045,13 @@ def phase_inertial_system(dev, card, sk, check_call, shape_of) -> dict:
                  live_landmarks=int(slam.state.lms.valid.sum()))
         ok = g["ok"] and slam.imu_ready
         if kind == "stereo":
-            g["jax_ate_m"] = graft.VI_STEREO_JAX_ATE_M
-            ok = ok and g["ate_m"] < graft.VI_STEREO_JAX_ATE_GATE_M
+            g["jax_ate_m"] = jax_ate.get(cell, graft.VI_STEREO_JAX_ATE_M)
+            jax_gate = 1.5 * g["jax_ate_m"] + 0.002
+            ok = ok and g["ate_m"] < jax_gate
             limit = (f"imu_ready, >= {graft.VI_STEREO_MIN_FRAMES} frames, "
                      f"ATE < {graft.VI_STEREO_ATE_GATE_M} m and < "
-                     f"{graft.VI_STEREO_JAX_ATE_GATE_M:.5f} m (1.5 x the "
-                     f"JAX run's + 0.002), speed within "
-                     f"{graft.VI_SPEED_TOL_MPS} m/s")
+                     f"{jax_gate:.5f} m (1.5 x the JAX run's + 0.002), "
+                     f"speed within {graft.VI_SPEED_TOL_MPS} m/s")
         else:
             g["jax_ate_m"] = graft.VI_MONO_JAX_ATE_M
             ok = ok and slam.viba_stage >= 2
@@ -1049,7 +1083,8 @@ def phase_inertial_system(dev, card, sk, check_call, shape_of) -> dict:
             warm = gate(cell, kind, slam, frames, traj)
             warm.update(seconds=sec,
                         graphs_captured=cuda_graph.CAPTURES[0] - cap0)
-            used = [n for n in sk if n != "K3s" or kind == "stereo"]
+            # K3s runs where the system has stereo rows (a right-image u).
+            used = [n for n in sk if n != "K3s" or slam._ur is not None]
             require(all(checked[cell][n]["calls"] > 0 for n in used),
                     f"{cell}: kernels launched {checked[cell]}")
             phase(name, f"{cell}: warm-up sequence, every launch held "
@@ -1132,6 +1167,364 @@ def phase_inertial_system(dev, card, sk, check_call, shape_of) -> dict:
         graft.mono_keyframe_step = keyframe_step
     out["graphs_kept"] = len(cuda_graph._GRAPHS)
     return out, held
+
+
+def fisheye_margins(xy_l, lvl_l, xy_r, lvl_r, bj, cam_l, cam_r, R_rl,
+                    t_rl) -> np.ndarray:
+    """Per left keypoint, in float64 from a float64 DLT of it and its best
+    right keypoint: the smallest relative distance of one of
+    ``fisheye_stereo_match``'s float gates (parallax cos 0.9998, the depth
+    in each camera, the reprojection chi2 5.991 sigma^2 in each view) to
+    its threshold."""
+    f = lambda a: np.asarray(a.detach().cpu() if isinstance(a, torch.Tensor)
+                             else a, np.float64)
+    j = np.clip(f(bj).astype(np.int64), 0, None)
+    xl, xr = f(xy_l), f(xy_r)[j]
+    cl, cr, R, t = f(cam_l), f(cam_r), f(R_rl), f(t_rl)
+    r1 = np.stack([(xl[:, 0] - cl[2]) / cl[0], (xl[:, 1] - cl[3]) / cl[1],
+                   np.ones(len(xl))], -1)
+    r2 = np.stack([(xr[:, 0] - cr[2]) / cr[0], (xr[:, 1] - cr[3]) / cr[1],
+                   np.ones(len(xr))], -1)
+    r2l = r2 @ R
+    cos = (r1 * r2l).sum(-1) / (np.linalg.norm(r1, axis=-1)
+                                * np.linalg.norm(r2l, axis=-1))
+    P1 = np.hstack([np.eye(3), np.zeros((3, 1))])
+    P2 = np.hstack([R, t[:, None]])
+    A = np.stack([r1[:, 0, None] * P1[2] - P1[0],
+                  r1[:, 1, None] * P1[2] - P1[1],
+                  r2[:, 0, None] * P2[2] - P2[0],
+                  r2[:, 1, None] * P2[2] - P2[1]], 1)
+    Xh = np.linalg.svd(A)[2][:, 3]
+    X = Xh[:, :3] / Xh[:, 3:]
+    X2 = X @ R.T + t
+    out = [np.abs(cos - 0.9998) / 0.9998,
+           np.abs(X[:, 2]) / np.linalg.norm(X, axis=-1),
+           np.abs(X2[:, 2]) / np.linalg.norm(X2, axis=-1)]
+    for Xc, xo, c, lv in ((X, xl, cl, f(lvl_l)), (X2, xr, cr, f(lvl_r)[j])):
+        uv = np.stack([c[0] * Xc[:, 0] / Xc[:, 2] + c[2],
+                       c[1] * Xc[:, 1] / Xc[:, 2] + c[3]], -1)
+        th = 5.991 * 1.2 ** (2 * lv)
+        out.append(np.abs(((uv - xo) ** 2).sum(-1) - th) / th)
+    return np.min(out, axis=0)
+
+
+def phase_fisheye(dev, card, sk, check_call, timed, shape_of) -> dict:
+    """Phase "14 fisheye": the non-rectified stereo path and the
+    Kannala-Brandt camera. (a) the TUM-VI 512 extraction step
+    (``graft.fisheye_stereo_extract``: K1 on each raw 512x512 KB8 image,
+    the keypoints rectified onto each camera's virtual pinhole, K2's none
+    mode over 1000 x 1000 descriptors, the DLT and its gates) on the
+    stereo-inertial fixture's first pair warped to TUM-VI's pair: every
+    launch held against its plain version, the match against the CPU plain
+    path on the same features, the depths against the render's, the
+    synchronisations named, 50 timed calls; (b) cell (g),
+    ``FisheyeStereoSlam`` on the fisheye fixture at the JAX test's
+    configuration: a warm-up sequence with every launch held, its gates
+    (test_fisheye_stereo_system.py's and the JAX run's ATE), timed
+    sequences by frame kind, one sequence counting synchronisations; (c)
+    cell (h), ``FisheyeStereoInertialSlam`` on the warped stereo-inertial
+    frames at TUM-VI 512's capacity, run as phase 13 runs its cells.
+    Returns the results, the held calls of (a) and of (b), and each
+    kernel's first held call in (c)."""
+    from orbslam3_byzyh_tpu_torch import graft
+    from orbslam3_byzyh_tpu_torch.ops import cuda_brief, cuda_match, stereo
+    from orbslam3_byzyh_tpu_torch.pipeline import system as system_mod
+    from orbslam3_byzyh_tpu_torch.pipeline.stereo_inertial import \
+        FisheyeStereoInertialSlam
+    from orbslam3_byzyh_tpu_torch.pipeline.stereo_system import \
+        FisheyeStereoSlam
+    from orbslam3_byzyh_tpu_torch.solver import cuda_pose_opt
+
+    name = "14 fisheye"
+    out = {}
+
+    # -- (a) the TUM-VI 512 extraction step ---------------------------------
+    vs = graft.vi_stereo_frames()
+    left, right = graft.tumvi_kb8_pair(vs.left[0], vs.right[0])
+    setup = graft.tumvi_vi_golden_config()
+    rig = graft.fisheye_rig_config(setup.config)
+    tens = graft.fisheye_rig_tensors(rig, dev)
+    img_l = torch.from_numpy(left).to(dev).float()
+    img_r = torch.from_numpy(right).to(dev).float()
+    torch.cuda.synchronize()
+    with recorded(cuda_brief, "brief_descriptors_kernel") as k1_calls, \
+            recorded(cuda_match, "hamming_best2_kernel") as k2_calls:
+        for k in sk.values():
+            k.launches = 0
+        fl, fr, m = graft.fisheye_stereo_extract(img_l, img_r, rig, tens)
+        torch.cuda.synchronize()
+        launches = {n: k.launches for n, k in sk.items()}
+    require(launches == {"K1": 2, "K2": 1, "K3": 0, "K3s": 0},
+            f"fisheye_stereo_extract launches {launches}")
+    n_feat = rig.mono.n_features
+    k2_shape = shape_of("K2", *k2_calls[0])
+    require((k2_shape["N"], k2_shape["M"], k2_shape["mode"])
+            == (n_feat, n_feat, "none"), f"K2's call {k2_shape}")
+    a_calls = {n: [] for n in sk}
+    for n, calls in (("K1", k1_calls), ("K2", k2_calls)):
+        for a, kw in calls:
+            err, (b_ms, b_by, b_txt) = check_call(n, a, kw)
+            entry = {"call": "fisheye extraction step",
+                     "shape": shape_of(n, a, kw), "max_abs_err": err,
+                     "bound_ms": b_ms, "bound_by": b_by, "bound": b_txt}
+            entry.update(timed(n, a, kw, plain_reps=20))
+            a_calls[n].append(entry)
+            phase(name, f"(a) {n} {entry['shape']}: identical to plain; "
+                  f"launch alone {entry['ms']:.4f} ms, wrapper "
+                  f"{entry['wrapper_ms']:.4f} ms, plain "
+                  f"{entry['plain_ms']:.4f} ms, bound {b_ms:.5f} ms by "
+                  f"{b_by} ({card})")
+    # The match's CPU plain path on the card's features.
+    cpu = lambda x: x.detach().cpu()
+    m_cpu = stereo.fisheye_stereo_match(
+        *(cpu(x) for x in (fl.xy, fl.level, fl.desc, fl.valid, fr.xy,
+                           fr.level, fr.desc, fr.valid, tens.cam_l,
+                           tens.cam_r, tens.R_rl, tens.t_rl)))
+    ok_g, ok_c = cpu(m.valid).numpy(), m_cpu.valid.numpy()
+    mj_g, mj_c = cpu(m.match_j).numpy(), m_cpu.match_j.numpy()
+    diff = np.flatnonzero((ok_g != ok_c) | (mj_g != mj_c))
+    bj = cuda_match.hamming_best2_plain(cpu(fl.desc), cpu(fr.desc),
+                                        cpu(fl.valid), cpu(fr.valid))[2]
+    if len(diff):
+        margin = fisheye_margins(fl.xy, fl.level, fr.xy, fr.level, bj,
+                                 tens.cam_l, tens.cam_r, tens.R_rl,
+                                 tens.t_rl)
+        near = margin < FISHEYE_FLIP_MARGIN
+        shared = np.isin(bj.numpy(), bj.numpy()[near])
+        for i in diff:
+            phase(name, f"(a) row {i}: card {ok_g[i]} {mj_g[i]}, CPU "
+                  f"{ok_c[i]} {mj_c[i]}, gate margin {margin[i]:.2e}")
+        require(np.all(near[diff] | shared[diff]),
+                f"(a) card and CPU disagree beyond the gates' margins on "
+                f"rows {diff.tolist()}")
+    both = ok_g & ok_c
+    d_g, d_c = cpu(m.depth).numpy(), m_cpu.depth.numpy()
+    depth_rel = float((np.abs(d_g[both] - d_c[both])
+                       / np.abs(d_c[both])).max()) if both.any() else 0.0
+    require(depth_rel <= 1e-4, f"(a) depth {depth_rel:.2e} from the CPU's")
+    # Every right keypoint is taken at most once (the mutual filter), so
+    # duplicate columns cannot race.
+    taken = mj_g[ok_g]
+    require(len(np.unique(taken)) == len(taken), "(a) a right keypoint "
+            "matched twice")
+    # The depths against the render's: each matched keypoint's virtual-
+    # pinhole pixel lies in the render's pinhole (the same focal length),
+    # shifted by the principal points.
+    fg = graft.fisheye_frames()
+    true_z = fg.vi_depth0.astype(np.float64) / fg.depth_factor
+    cx_r, cy_r = (float(x) for x in vs.camera[2:4])
+    xy = cpu(fl.xy).numpy().astype(np.float64)
+    u = np.round(xy[:, 0] - rig.mono.cx + cx_r).astype(np.int64)
+    v = np.round(xy[:, 1] - rig.mono.cy + cy_r).astype(np.int64)
+    inside = (u >= 0) & (u < true_z.shape[1]) & (v >= 0) \
+        & (v < true_z.shape[0])
+    zt = np.where(inside, true_z[v.clip(0, true_z.shape[0] - 1),
+                                 u.clip(0, true_z.shape[1] - 1)], 0.0)
+    sel = ok_g & (zt > 0)
+    rel = np.abs(d_g[sel] - zt[sel]) / zt[sel]
+    depth_truth = {"matched": int(ok_g.sum()), "with_truth": int(sel.sum()),
+                   "median_rel": float(np.median(rel)),
+                   "p80_rel": float(np.quantile(rel, 0.8)),
+                   "share_within_2pct": float((rel < 0.02).mean())}
+    require(sel.sum() >= 50 and depth_truth["median_rel"]
+            < FISHEYE_DEPTH_MEDIAN_TOL, f"(a) depths against the render's: "
+            f"{depth_truth}")
+    # The synchronisations of one call, by site.
+    with counted_syncs() as where_a:
+        graft.fisheye_stereo_extract(img_l, img_r, rig, tens)
+    sites = {}
+    for w in where_a:
+        sites[w] = sites.get(w, 0) + 1
+    # Timing: the call ending in a synchronisation.
+    ms_a = []
+    for i in range(10 + N_TIMED_FRAMES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graft.fisheye_stereo_extract(img_l, img_r, rig, tens)
+        torch.cuda.synchronize()
+        if i >= 10:
+            ms_a.append((time.perf_counter() - t0) * 1e3)
+    out["extract"] = {
+        "shape": [rig.mono.height, rig.mono.width, n_feat],
+        "launches": launches, "matches": int(ok_g.sum()),
+        "cpu_flips": len(diff), "depth_rel_to_cpu": depth_rel,
+        "depth_truth": depth_truth, "syncs": len(where_a),
+        "sync_sites": sites, "ms": spread(ms_a)}
+    st = out["extract"]["ms"]
+    phase(name, f"(a) fisheye_stereo_extract {rig.mono.width}x"
+          f"{rig.mono.height} KB8, {n_feat} features: launches {launches}; "
+          f"{int(ok_g.sum())} matches, {len(diff)} rows differ from the CPU "
+          f"plain path (within the gates' margins), depth within "
+          f"{depth_rel:.2e} of it; against the render's depth "
+          f"{json.dumps(depth_truth)}; {len(where_a)} synchronisations "
+          f"{sites}; median {st['median']:.3f} ms, p80 {st['p80']:.3f} ms "
+          f"over {N_TIMED_FRAMES} calls (min {st['min']:.3f}, max "
+          f"{st['max']:.3f}), synchronised ({card})")
+
+    # -- (b) cell (g): FisheyeStereoSlam on the fisheye fixture -------------
+    spies = {"K1": (cuda_brief, "brief_descriptors_kernel"),
+             "K2": (cuda_match, "hamming_best2_kernel"),
+             "K3": (cuda_pose_opt, "pose_optimization_kernel"),
+             "K3s": (cuda_pose_opt, "pose_optimization_stereo_kernel")}
+    originals = {n: getattr(mod, f) for n, (mod, f) in spies.items()}
+    checked = {n: {"calls": 0, "max_abs_err": 0.0} for n in sk}
+    g_calls = {n: [] for n in sk}
+    guard, bundles = [], []
+    keyframe_step = graft.mono_keyframe_step
+
+    def counted_bundle(*a, **kw):
+        bundles.append(1)
+        return keyframe_step(*a, **kw)
+
+    def checking(n):
+        fn = originals[n]
+
+        def spy(*a, **kw):
+            res = fn(*a, **kw)
+            if guard:
+                return res
+            guard.append(n)
+            try:
+                err, b = check_call(n, a, kw)
+            finally:
+                guard.pop()
+            checked[n]["calls"] += 1
+            checked[n]["max_abs_err"] = max(checked[n]["max_abs_err"],
+                                            float(err))
+            if checked[n]["calls"] == 1:
+                g_calls[n].append((a, kw, err, b))
+            return res
+
+        return spy
+
+    def gate_g(slam, traj):
+        require(len(traj) > 0, "(g): no frame tracked")
+        res = graft.fisheye_gates(traj, slam.t0, fg)
+        res.update(jax_ate_m=graft.FISHEYE_JAX_ATE_M, status=slam.status,
+                   n_kf=slam.n_kf, n_lm=slam.n_lm,
+                   live_keyframes=int(slam.state.kfs.valid.sum()),
+                   live_landmarks=int(slam.state.lms.valid.sum()))
+        ok = (res["ok"] and slam.status == system_mod.OK and slam.n_kf >= 1
+              and slam.n_lm > 50
+              and res["ate_m"] < graft.FISHEYE_JAX_ATE_GATE_M)
+        require(ok, f"(g): {res} against status OK, n_kf >= 1, n_lm > 50, "
+                f"> {graft.FISHEYE_MIN_FRAMES} frames, ATE < "
+                f"{graft.FISHEYE_ATE_GATE_M} m and < "
+                f"{graft.FISHEYE_JAX_ATE_GATE_M:.5f} m (1.5 x the JAX "
+                f"run's + 0.002), path within {graft.FISHEYE_PATH_TOL:.0%}")
+        return res
+
+    cfg_g = graft.fisheye_stereo_golden_config(fg)
+    imgs_g = list(zip(fg.left, fg.right))
+    graft.mono_keyframe_step = counted_bundle
+    try:
+        for n_, (mod, f) in spies.items():
+            setattr(mod, f, checking(n_))
+        try:
+            slam = FisheyeStereoSlam(cfg_g)
+            _, traj, sec = run_sequence(slam, imgs_g, fg.stamps, sk, bundles)
+            torch.cuda.synchronize()
+        finally:
+            for n_, (mod, f) in spies.items():
+                setattr(mod, f, originals[n_])
+        warm = gate_g(slam, traj)
+        warm["seconds"] = sec
+        require(all(checked[n]["calls"] > 0 for n in ("K1", "K2", "K3"))
+                and checked["K3s"]["calls"] == 0,
+                f"(g): kernels launched {checked}")
+        phase(name, "(g) warm-up sequence, every launch held against its "
+              "plain version: " + ", ".join(
+                  f"{n} {checked[n]['calls']} calls max err "
+                  f"{checked[n]['max_abs_err']:.2e}" for n in sk)
+              + f"; {json.dumps(warm)}")
+        recs, seqs = [], []
+        for _ in range(N_TIMED_STEREO_SEQUENCES):
+            slam = FisheyeStereoSlam(cfg_g)
+            for k in sk.values():
+                k.launches = 0
+            torch.cuda.synchronize()
+            r, traj, sec = run_sequence(slam, imgs_g, fg.stamps, sk,
+                                        bundles)
+            res = gate_g(slam, traj)
+            res.update(seconds=sec, fps=len(imgs_g) / sec,
+                       launches={n: k.launches for n, k in sk.items()})
+            require(all(res["launches"][n] > 0 for n in ("K1", "K2", "K3")),
+                    f"(g): launches {res['launches']}")
+            seqs.append(res)
+            recs += r
+        slam = FisheyeStereoSlam(cfg_g)
+        sync_recs = []
+        for fr_, stamp in zip(imgs_g, fg.stamps):
+            uninit = slam.status == system_mod.NOT_INITIALIZED
+            n_b = len(bundles)
+            callers = []
+            with counted_syncs(callers=callers) as where:
+                slam.track(*fr_, float(stamp))
+            if uninit:
+                kind = ("uninitialised"
+                        if slam.status == system_mod.NOT_INITIALIZED
+                        else "init")
+            else:
+                kind = "keyframe" if len(bundles) > n_b else "tracked"
+            sync_recs.append((kind, list(where), callers))
+    finally:
+        graft.mono_keyframe_step = keyframe_step
+    kinds = {}
+    for kind in ("uninitialised", "init", "tracked", "keyframe"):
+        rs = [r for r in recs if r["kind"] == kind]
+        st = spread(r["ms"] for r in rs)
+        st["launches_per_frame"] = {
+            n: (sum(r["launches"][n] for r in rs) / len(rs) if rs else None)
+            for n in sk}
+        ws = [w for k_, w, _ in sync_recs if k_ == kind]
+        cs = [c for k_, _, c in sync_recs if k_ == kind]
+        st["syncs_per_frame"] = (sum(len(w) for w in ws) / len(ws) if ws
+                                 else None)
+        asked = {}
+        for c in cs:
+            for site in c:
+                asked[site] = asked.get(site, 0) + 1
+        st["sync_callers"] = {k: v / len(cs) for k, v in sorted(
+            asked.items())}
+        sites = {}
+        for w in ws:
+            for site in w:
+                sites[site] = sites.get(site, 0) + 1
+        st["sync_sites"] = {k: v / len(ws) for k, v in sorted(sites.items())}
+        st["jax_host_reads"] = JAX_STEREO_READS[kind]
+        kinds[kind] = st
+        if st["n"]:
+            phase(name, f"(g) {kind} frames ({st['n']} over "
+                  f"{N_TIMED_STEREO_SEQUENCES} sequences): track() median "
+                  f"{st['median']:.3f} ms, p80 {st['p80']:.3f} ms (min "
+                  f"{st['min']:.3f}, max {st['max']:.3f}); launches per "
+                  f"frame {st['launches_per_frame']}; "
+                  f"{st['syncs_per_frame']} synchronisations per frame "
+                  f"{st['sync_sites']}, asked for by {st['sync_callers']} "
+                  f"({card})")
+    fps = [r["fps"] for r in seqs]
+    phase(name, f"(g) {len(imgs_g)} frames in "
+          + ", ".join(f"{r['seconds']:.3f}" for r in seqs) + " s = "
+          + ", ".join(f"{f_:.2f}" for f_ in fps) + " frames/s; ATE "
+          f"{[round(r['ate_m'], 5) for r in seqs]} m (JAX "
+          f"{graft.FISHEYE_JAX_ATE_M:.5f}), frames "
+          f"{[r['frames'] for r in seqs]}, path error "
+          f"{[round(r['path_err'], 4) for r in seqs]} ({card})")
+    out["g_fisheye_stereo"] = {
+        "config": {k: v for k, v in dataclasses.asdict(cfg_g).items()
+                   if not isinstance(v, np.ndarray)},
+        "warmup": warm, "sequences": seqs, "frame_kinds": kinds,
+        "fps": spread(fps), "checked": checked}
+
+    # -- (c) cell (h): FisheyeStereoInertialSlam at TUM-VI 512 capacity -----
+    hv = graft.tumvi_vi_frames(vs)
+    h_out, h_held = phase_inertial_system(
+        dev, card, sk, check_call, shape_of, name=name,
+        cells={"h_tumvi_vi": (FisheyeStereoInertialSlam, setup, hv,
+                              list(zip(hv.left, hv.right)), "stereo")},
+        jax_ate={"h_tumvi_vi": graft.TUMVI_VI_JAX_ATE_M})
+    out.update(h_out)
+    return out, a_calls, g_calls, h_held
 
 
 def main() -> int:
@@ -2947,6 +3340,31 @@ def main() -> int:
     phase("13 inertial system", f"{vi_sys['graphs_kept']} CUDA graphs kept "
           f"at the end (at most 32 are)")
 
+    # -- 14: non-rectified (fisheye) stereo and the KB8 camera --------------
+    t14 = time.perf_counter()
+    fish, fish_a, fish_g, fish_h = phase_fisheye(dev, card, sk, check_call,
+                                                 timed, shape_of)
+    fish_sys_calls = {n: [] for n in sk}
+    for n in sk:
+        calls = [("g_fisheye_stereo",) + c for c in fish_g[n]] \
+            + list(fish_h[n])
+        for cell, a, kw, err, (b_ms, b_by, b_txt) in calls:
+            entry = {"call": f"system {cell}", "shape": shape_of(n, a, kw),
+                     "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+                     "bound": b_txt}
+            entry.update(timed(n, a, kw, plain_reps=5 if n in ("K3", "K3s")
+                               else 20))
+            fish_sys_calls[n].append(entry)
+            phase("14 fisheye", f"{n} {entry['call']} {entry['shape']}: "
+                  f"launch alone {entry['ms']:.4f} ms, wrapper "
+                  f"{entry['wrapper_ms']:.4f} ms, plain "
+                  f"{entry['plain_ms']:.4f} ms, bound {b_ms:.5f} ms by "
+                  f"{b_by} ({card})")
+    del fish_g, fish_h
+    fish["seconds"] = time.perf_counter() - t14
+    phase("14 fisheye", f"phase took {fish['seconds']:.1f} s; "
+          f"{fish['graphs_kept']} CUDA graphs kept at the end")
+
     sources = {"K1": ("steered-BRIEF sampler", "csrc/brief.cu",
                       "orbslam3_byzyh_tpu/ops/pallas_brief.py:161",
                       "none: no single PyTorch call gathers rotated sample "
@@ -2984,7 +3402,19 @@ def main() -> int:
                 k: {kind: st["launches_per_frame"][n]
                     for kind, st in v["frame_kinds"].items()}
                 for k, v in vi_sys.items() if isinstance(v, dict)},
-            "vi_system_calls": vi_sys_calls[n]}
+            "vi_system_calls": vi_sys_calls[n],
+            "launches_fisheye_extract": fish["extract"]["launches"][n],
+            "fisheye_extract_calls": fish_a[n],
+            "launches_fisheye_system": {
+                k: v["sequences"][0]["launches"][n]
+                for k, v in fish.items()
+                if isinstance(v, dict) and "sequences" in v},
+            "launches_fisheye_frame": {
+                k: {kind: st["launches_per_frame"][n]
+                    for kind, st in v["frame_kinds"].items()}
+                for k, v in fish.items()
+                if isinstance(v, dict) and "frame_kinds" in v},
+            "fisheye_system_calls": fish_sys_calls[n]}
 
     # K3s: no Pallas kernel; it ports the JAX package's XLA function.
     k3s_entry = {
@@ -3047,7 +3477,7 @@ def main() -> int:
         "init_step": init, "system": system, "stereo": stereo,
         "plain32_err": plain32_err,
         "inertial": {k: v for k, v in vi_out.items() if k != "held"},
-        "inertial_system": vi_sys,
+        "inertial_system": vi_sys, "fisheye": fish,
         "card": card}, default=str))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -308,7 +308,9 @@ int launch(const int* da, const int* db, const bool* va, const bool* vb,
            int n, int m, const Gates& gt, int* best, int* second, int* bj,
            cudaStream_t stream) {
   const size_t smem = cols_bytes(chunk_cap(m));
-  if (smem > 48 * 1024) {
+  // The 48 KB a block gets without opting in covers the static s_part
+  // too: 969-1000 columns fit in it alone but not with s_part.
+  if (smem + sizeof(Top2) * kWarps * kRows > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         match_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);

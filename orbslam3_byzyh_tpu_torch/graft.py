@@ -34,7 +34,14 @@ steps (``vi_frame_step``, ``vi_keyframe_step``, ``vi_initialize``); the
 inertial systems' configurations, frames and gates
 (``stereo_inertial_golden_config``, ``mono_inertial_golden_config``,
 ``euroc_vi_golden_config``, ``vi_stereo_frames``, ``vi_mono_frames``,
-``vi_gates``) close the file.
+``vi_gates``) follow. The non-rectified ("fisheye") stereo rig and the
+Kannala-Brandt camera close the file: ``TUMVI_512_STEREO_INERTIAL`` (a
+``FisheyeRigConfig``), ``fisheye_stereo_extract`` (the fisheye systems'
+extraction: each camera's keypoints rectified onto its virtual pinhole,
+then ``stereo.fisheye_stereo_match``), ``kb8_warp`` (a pinhole render seen
+through a KB8 camera, in numpy), and the cells' frames, configurations and
+gates (``fisheye_frames``, ``fisheye_stereo_golden_config``,
+``fisheye_gates``, ``tumvi_vi_frames``, ``tumvi_vi_golden_config``).
 """
 
 from __future__ import annotations
@@ -145,11 +152,19 @@ def tracking_step(img, R, t, lm_pos, lm_desc, lm_normal, lm_min_d, lm_max_d,
     return res.R, res.t, res.n_inliers
 
 
-def mono_extract(img, cam_params, dist, cfg: MonoConfig = EUROC_MONO):
-    """``MonoSlam._extract``: ORB features, their keypoints undistorted onto
-    the pinhole when ``dist`` (radtan k1, k2, p1, p2) is given."""
+def mono_extract(img, cam_params, dist, cfg: MonoConfig = EUROC_MONO,
+                 kb8=None):
+    """``MonoSlam._extract``: ORB features, their keypoints rectified onto
+    the pinhole ``cam_params``: with ``kb8`` (the Kannala-Brandt k0..k3, a
+    (4,) tensor) unprojected through the fisheye model of the same
+    intrinsics and projected onto the virtual pinhole, else undistorted
+    when ``dist`` (radtan k1, k2, p1, p2) is given. Rectification moves
+    the keypoints only: the descriptors are read off the raw image."""
     feats = fast_orb.extract(img, n_features=cfg.n_features,
                              n_levels=cfg.n_levels, scale=cfg.scale)
+    if kb8 is not None:
+        ray = cam.kb8_unproject(torch.cat([cam_params, kb8]), feats.xy)
+        return feats._replace(xy=cam.pinhole_project(cam_params, ray))
     if dist is None:                   # a pinhole camera
         return feats
     return feats._replace(xy=cam.undistort_pixels(cam_params, dist,
@@ -2086,3 +2101,363 @@ def vi_gates(kind: str, traj, t0: float, frames: ViFrames, v_est) -> dict:
                      and err.max() < max(4.0 * p90, 0.15)
                      and out["speed_err_mps"] < VI_SPEED_TOL_MPS)
     return out
+
+
+# --- Non-rectified (fisheye) stereo and the Kannala-Brandt camera -----------
+
+class FisheyeRigConfig(NamedTuple):
+    """A non-rectified stereo deployment (the port's own copy of its
+    constants): the left camera's :class:`MonoConfig` (its pinhole
+    intrinsics are the virtual pinhole the keypoints are rectified onto)
+    with its Kannala-Brandt k0..k3 (``kb8``, or None for a pinhole), the
+    right camera's intrinsics ``cam2``, Kannala-Brandt ``kb8_2`` and radtan
+    ``dist2`` (None: the left camera's, as the JAX ``MonoSlam._extract``'s
+    overrides fall back), the left -> right transform (x_r = R_rl x_l +
+    t_rl), bf = baseline x fx and ThDepth."""
+
+    mono: MonoConfig
+    cam2: tuple
+    kb8: tuple | None
+    kb8_2: tuple | None
+    dist2: tuple | None
+    R_rl: np.ndarray         # (3, 3) float32
+    t_rl: np.ndarray         # (3,) float32
+    bf: float
+    th_depth: float = 35.0
+
+    @property
+    def depth_threshold(self) -> float:
+        """The close-point depth: bf / fx x ThDepth."""
+        return self.bf / self.mono.fx * self.th_depth
+
+
+# TUM-VI's 512x512 stereo-inertial rig as ``scripts/run_tumvi.py --stereo
+# --no-vocabulary`` runs it (``configs/TUM-VI_512_stereo_inertial.yaml``):
+# both cameras Kannala-Brandt; Stereo.Tlr (x_c1 = Tlr x_c2) inverted into
+# R_rl = R^T, t_rl = -R^T t (run_tumvi.py:99-101); bf = |t_lr| x fx1
+# (:107); ThDepth 35; 1000 features over 8 levels at 1.2, 20 fps; the IMU at
+# 200 Hz with the yaml's noise, walk and T_b_c1; the runner's 1024 keyframe
+# and 65536 landmark slots with 12 observations.
+TUMVI_CAM1 = (190.97847715128717, 190.9733070521226, 254.93170605935475,
+              256.8974428996504)
+TUMVI_KB8_1 = (0.0034823894022493434, 0.0007150348452162257,
+               -0.0020532361418706202, 0.00020293673591811182)
+TUMVI_CAM2 = (190.44236969414825, 190.4344384721956, 252.59949716835982,
+              254.91723064636983)
+TUMVI_KB8_2 = (0.0034003170790442797, 0.001766278153469831,
+               -0.00266312569781606, 0.0003299517423931039)
+TUMVI_TLR = np.array(
+    [[0.999999445773493, 0.000791687752817, 0.000694034010224,
+      0.101063427414194],
+     [-0.000823363992158, 0.998899461915674, 0.046895490788700,
+      0.001946204678584],
+     [-0.000656143613644, -0.046896036240590, 0.998899560146304,
+      0.001015350132563]])
+TUMVI_T_BC = np.array(
+    [[-0.9995250378696743, 0.0075019185074052044, -0.02989013031643309,
+      0.045574835649698026],
+     [0.029615343885863205, -0.03439736061393144, -0.998969345370175,
+      -0.071161801837997044],
+     [-0.008522328211654736, -0.9993800792498829, 0.03415885127385616,
+      -0.044681254117144367],
+     [0.0, 0.0, 0.0, 1.0]], np.float32)
+
+
+def _tumvi_512_stereo_inertial() -> ViConfig:
+    from .ops.imu import ImuConfig
+    R_lr, t_lr = TUMVI_TLR[:, :3], TUMVI_TLR[:, 3]
+    rig = FisheyeRigConfig(
+        mono=MonoConfig(width=512, height=512, fx=TUMVI_CAM1[0],
+                        fy=TUMVI_CAM1[1], cx=TUMVI_CAM1[2], cy=TUMVI_CAM1[3],
+                        dist=None, n_features=1000),
+        cam2=TUMVI_CAM2, kb8=TUMVI_KB8_1, kb8_2=TUMVI_KB8_2, dist2=None,
+        R_rl=R_lr.T.astype(np.float32),
+        t_rl=(-R_lr.T @ t_lr).astype(np.float32),
+        bf=float(np.linalg.norm(t_lr) * TUMVI_CAM1[0]), th_depth=35.0)
+    return ViConfig(rig=rig, imu=ImuConfig(
+        T_bc=TUMVI_T_BC, gyro_noise=0.00016, acc_noise=0.0028,
+        gyro_walk=0.000022, acc_walk=0.00086, freq=200.0))
+
+
+TUMVI_512_STEREO_INERTIAL = _tumvi_512_stereo_inertial()
+
+
+def fisheye_rig_config(cfg) -> FisheyeRigConfig:
+    """The :class:`FisheyeRigConfig` of a
+    ``pipeline.stereo_system.FisheyeStereoConfig``."""
+    tup = lambda a: None if a is None else tuple(
+        float(x) for x in np.asarray(a).reshape(-1))
+    return FisheyeRigConfig(
+        mono=mono_slam_config(cfg), cam2=tup(cfg.cam2), kb8=tup(cfg.kb8),
+        kb8_2=tup(cfg.kb8_2), dist2=tup(cfg.dist2),
+        R_rl=np.asarray(cfg.R_rl, np.float32),
+        t_rl=np.asarray(cfg.t_rl, np.float32), bf=float(cfg.bf),
+        th_depth=float(cfg.th_depth))
+
+
+class FisheyeRigTensors(NamedTuple):
+    """A :class:`FisheyeRigConfig`'s constants as tensors on one device,
+    the right camera's overrides resolved."""
+
+    cam_l: torch.Tensor      # (4,)
+    kb8_l: torch.Tensor | None
+    dist_l: torch.Tensor | None
+    cam_r: torch.Tensor      # (4,)
+    kb8_r: torch.Tensor | None
+    dist_r: torch.Tensor | None
+    R_rl: torch.Tensor       # (3, 3)
+    t_rl: torch.Tensor       # (3,)
+
+
+def fisheye_rig_tensors(rig: FisheyeRigConfig, device) -> FisheyeRigTensors:
+    """Upload ``rig``'s constants (float32) to ``device`` once; the right
+    camera's Kannala-Brandt and radtan coefficients fall back to the left
+    camera's where the rig gives none (the JAX ``MonoSlam._extract``'s
+    overrides)."""
+    from . import device as device_mod
+
+    def up(x):
+        return (None if x is None else device_mod.upload(
+            np.asarray(x, np.float32), device))
+
+    m = rig.mono
+    kb8_r = rig.kb8 if rig.kb8_2 is None else rig.kb8_2
+    dist_r = m.dist if rig.dist2 is None else rig.dist2
+    return FisheyeRigTensors(
+        cam_l=up([m.fx, m.fy, m.cx, m.cy]), kb8_l=up(rig.kb8),
+        dist_l=None if m.dist is None else up(np.asarray(m.dist)[:4]),
+        cam_r=up(rig.cam2), kb8_r=up(kb8_r),
+        dist_r=None if dist_r is None else up(np.asarray(dist_r)[:4]),
+        R_rl=up(rig.R_rl), t_rl=up(rig.t_rl))
+
+
+def fisheye_stereo_extract(img_l, img_r, rig: FisheyeRigConfig,
+                           tensors: FisheyeRigTensors | None = None):
+    """``FisheyeStereoSlam``'s extraction: the ORB features of each image
+    (K1 once each), each camera's keypoints rectified onto its virtual
+    pinhole, then ``stereo.fisheye_stereo_match`` (K2's none mode over
+    both frames' descriptors, the DLT and its gates). img_l / img_r: (H, W)
+    float32 raw images. ``tensors``: :func:`fisheye_rig_tensors` of
+    ``rig`` on the images' device (made here when None). Returns (left
+    features, right features, FisheyeStereoResult)."""
+    from .ops import stereo
+    t = tensors or fisheye_rig_tensors(rig, img_l.device)
+    f_l = mono_extract(img_l, t.cam_l, t.dist_l, rig.mono, kb8=t.kb8_l)
+    f_r = mono_extract(img_r, t.cam_r, t.dist_r, rig.mono, kb8=t.kb8_r)
+    m = stereo.fisheye_stereo_match(
+        f_l.xy, f_l.level, f_l.desc, f_l.valid, f_r.xy, f_r.level, f_r.desc,
+        f_r.valid, t.cam_l, t.cam_r, t.R_rl, t.t_rl)
+    return f_l, f_r, m
+
+
+def _kb8_unproject_np(params, uv, iters: int = 10) -> np.ndarray:
+    """``camera.kb8_unproject`` in float64 numpy: (..., 2) -> (..., 3)."""
+    fx, fy, cx, cy, k0, k1, k2, k3 = np.asarray(params, np.float64)
+    mx = (uv[..., 0] - cx) / fx
+    my = (uv[..., 1] - cy) / fy
+    r_d = np.sqrt(mx * mx + my * my)
+    theta = np.minimum(r_d, np.pi / 2.0)
+    r_c = theta.copy()
+    for _ in range(iters):
+        th2 = theta * theta
+        f = theta * (1 + th2 * (k0 + th2 * (k1 + th2 * (k2 + th2 * k3)))) - r_c
+        fp = 1 + th2 * (3 * k0 + th2 * (5 * k1 + th2 * (7 * k2
+                                                        + th2 * 9 * k3)))
+        theta = theta - f / fp
+    scale = np.where(r_d < 1e-12, 1.0, np.tan(theta) / np.maximum(r_d, 1e-12))
+    return np.stack([mx * scale, my * scale, np.ones_like(mx)], -1)
+
+
+def kb8_warp(img: np.ndarray, pinhole, kb8_params, out_hw,
+             background: int = 30) -> np.ndarray:
+    """A pinhole render seen through a Kannala-Brandt camera of the same
+    orientation (numpy only): each output pixel's ray (a float64 KB8
+    unprojection with ``kb8_params`` = [fx, fy, cx, cy, k0..k3]) projected
+    into ``img`` through ``pinhole`` = [fx, fy, cx, cy], bilinearly
+    sampled; ``background`` where the ray leaves the render. Returns
+    (out_h, out_w) uint8 (rounded)."""
+    h_out, w_out = out_hw
+    v, u = np.mgrid[0:h_out, 0:w_out].astype(np.float64)
+    ray = _kb8_unproject_np(kb8_params, np.stack([u, v], -1))
+    fx, fy, cx, cy = np.asarray(pinhole, np.float64)
+    x = fx * ray[..., 0] + cx
+    y = fy * ray[..., 1] + cy
+    h, w = img.shape
+    x0, y0 = np.floor(x), np.floor(y)
+    inside = (x0 >= 0) & (y0 >= 0) & (x0 <= w - 2) & (y0 <= h - 2)
+    xi = np.clip(x0, 0, w - 2).astype(np.int64)
+    yi = np.clip(y0, 0, h - 2).astype(np.int64)
+    ax, ay = x - x0, y - y0
+    src = np.asarray(img, np.float64)
+    val = ((1 - ay) * ((1 - ax) * src[yi, xi] + ax * src[yi, xi + 1])
+           + ay * ((1 - ax) * src[yi + 1, xi] + ax * src[yi + 1, xi + 1]))
+    out = np.where(inside, val, float(background))
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+
+
+FISHEYE_FRAMES = (Path(__file__).resolve().parents[1] / "tests" / "golden"
+                  / "frames_fisheye.npz")
+
+
+class FisheyeFrames(NamedTuple):
+    """The non-rectified stereo run's input
+    (``scripts/make_torch_fisheye_frames.py``): ``SynthWorld(seed=13)``
+    rendered by a left pinhole camera and a right one 0.2 m along its x
+    axis and yawed 3 degrees, at t = 0.0, 0.1, ..., 2.9 s; and the depth
+    image of the stereo-inertial fixture's first left frame."""
+
+    left: np.ndarray         # (30, 480, 640) uint8
+    right: np.ndarray        # (30, 480, 640) uint8
+    stamps: np.ndarray       # (30,) float64 s
+    R: np.ndarray            # (30, 3, 3) true world->left-camera poses
+    t: np.ndarray            # (30, 3)
+    centres: np.ndarray      # (30, 3) float64 true left camera centres
+    camera: np.ndarray       # fx, fy, cx, cy, width, height
+    R_rl: np.ndarray         # (3, 3) float32 left -> right camera
+    t_rl: np.ndarray         # (3,) float32
+    vi_depth0: np.ndarray    # (480, 640) uint16, z x depth_factor
+    depth_factor: float
+
+
+def fisheye_frames(path=FISHEYE_FRAMES) -> FisheyeFrames:
+    """Load the fisheye frames fixture."""
+    with np.load(path) as z:
+        return FisheyeFrames(**{k: (z[k] if z[k].ndim else float(z[k]))
+                                for k in FisheyeFrames._fields})
+
+
+# The non-rectified stereo run's gate (tests/test_fisheye_stereo_system.py):
+# more than 20 frames associated, the ATE without scale alignment under
+# 0.15 m, and the path length within 8 % of the truth.
+FISHEYE_MIN_FRAMES = 20
+FISHEYE_ATE_GATE_M = 0.15
+FISHEYE_PATH_TOL = 0.08
+# The JAX package's FisheyeStereoSlam on the same frames at the same
+# settings (``scripts/fisheye_reference_jax.py stereo`` on the CPU): 29
+# frames, the ATE without scale alignment. The port's runs are also held
+# under 1.5 x it + 0.002 m.
+FISHEYE_JAX_ATE_M = 0.016867899653505894
+FISHEYE_JAX_ATE_GATE_M = 1.5 * FISHEYE_JAX_ATE_M + 0.002
+
+
+def fisheye_gates(traj, t0: float, frames: FisheyeFrames) -> dict:
+    """tests/test_fisheye_stereo_system.py's measures of a trajectory
+    ``traj`` (the system's (stamp, R_cw, t_cw) list, stamps relative to
+    ``t0``) against the fixture ``frames``: the frames, the camera-centre
+    ATE without scale alignment (each frame against the nearest true
+    stamp), the path length's relative error. ``ok`` holds the test's gate
+    (the JAX comparison is the caller's)."""
+    from .utils import evaluate
+    stamps = np.array([s for s, _, _ in traj], np.float64) + t0
+    est = evaluate.camera_centers(np.stack([R for _, R, _ in traj]),
+                                  np.stack([t for _, _, t in traj])).astype(
+                                      np.float64)
+    idx = np.array([int(np.argmin(np.abs(frames.stamps - s)))
+                    for s in stamps])
+    gt = frames.centres[idx]
+    _, _, _, ate = evaluate.horn_align(est, gt, with_scale=False)
+    length = float(np.linalg.norm(np.diff(est, axis=0), axis=-1).sum())
+    true_len = float(np.linalg.norm(np.diff(gt, axis=0), axis=-1).sum())
+    out = {"frames": len(traj), "ate_m": float(ate), "path_m": length,
+           "true_path_m": true_len,
+           "path_err": abs(length - true_len) / true_len}
+    out["ok"] = bool(len(traj) > FISHEYE_MIN_FRAMES
+                     and ate < FISHEYE_ATE_GATE_M
+                     and out["path_err"] < FISHEYE_PATH_TOL)
+    return out
+
+
+def fisheye_stereo_golden_config(frames: FisheyeFrames | None = None,
+                                 **changes):
+    """``tests/test_fisheye_stereo_system.py``'s configuration: the world's
+    640x480 pinhole on both cameras (no fisheye model: the rig is
+    non-rectified, not distorted), the fixture's R_rl / t_rl, bf = 0.2 x
+    400 = 80, ThDepth 35, 1024 features, 32 keyframe / 4096 landmark slots,
+    8 observations, 10 fps, TrackedMapPoints(1), the one-frame init's gates
+    lowered to 60 depth points and 40 landmarks. ``changes`` replace
+    fields."""
+    from .pipeline.stereo_system import FisheyeStereoConfig
+    g = frames if frames is not None else fisheye_frames()
+    fx, fy, cx, cy, w, h = (float(x) for x in g.camera)
+    cfg = FisheyeStereoConfig(
+        kf_ref_min_obs=1, fx=fx, fy=fy, cx=cx, cy=cy, width=int(w),
+        height=int(h), n_features=1024, max_kf=32, max_lm=4096, max_obs=8,
+        fps=10, cam2=np.array([fx, fy, cx, cy], np.float32),
+        R_rl=g.R_rl, t_rl=g.t_rl, bf=0.2 * fx, th_depth=35.0,
+        min_init_depth_points=60, min_init_landmarks=40)
+    return dataclasses.replace(cfg, **changes)
+
+
+# The TUM-VI-sized cells' cameras: the world's focal length (fx = fy = 400)
+# on TUM-VI's 512x512 image and Kannala-Brandt coefficients, centred.
+TUMVI_WORLD_CAM = (400.0, 400.0, 255.5, 255.5)
+# The JAX package's FisheyeStereoInertialSlam on the warped frames
+# (``scripts/fisheye_reference_jax.py vi`` on the CPU: the cell's cameras,
+# rig and 1000 features with the map cut to 48 / 4096 / 8 slots and VI-BA
+# 12 / 6 / 1024 / 32): 40 frames, the ATE without scale alignment. The
+# port's (h) runs are held under 1.5 x it + 0.002 m.
+TUMVI_VI_JAX_ATE_M = 0.02481336387907233
+TUMVI_VI_JAX_ATE_GATE_M = 1.5 * TUMVI_VI_JAX_ATE_M + 0.002
+# That run's map and VI-BA sizes: the CPU runs of cell (h) use them.
+TUMVI_VI_CPU_SLOTS = dict(max_kf=48, max_lm=4096, max_obs=8)
+TUMVI_VI_CPU_VIBA = dict(viba_window=12, viba_free=6, viba_landmarks=1024,
+                         full_viba_kf=32)
+
+
+def tumvi_kb8_pair(left: np.ndarray, right: np.ndarray,
+                   camera=(400.0, 400.0, 320.0, 240.0)):
+    """A rectified pinhole pair (``camera``'s intrinsics) seen through the
+    TUM-VI 512 rig's two Kannala-Brandt cameras at
+    :data:`TUMVI_WORLD_CAM` (:func:`kb8_warp`, background 30). Returns
+    (left, right) (512, 512) uint8."""
+    size = (TUMVI_512_STEREO_INERTIAL.rig.mono.height,
+            TUMVI_512_STEREO_INERTIAL.rig.mono.width)
+    return (kb8_warp(left, camera, TUMVI_WORLD_CAM + TUMVI_KB8_1, size),
+            kb8_warp(right, camera, TUMVI_WORLD_CAM + TUMVI_KB8_2, size))
+
+
+def tumvi_vi_frames(frames: ViFrames | None = None) -> ViFrames:
+    """The stereo-inertial fixture (:func:`vi_stereo_frames`) with both
+    cameras' frames warped to TUM-VI's 512x512 Kannala-Brandt pair
+    (:func:`tumvi_kb8_pair`); the IMU and the truth unchanged."""
+    g = frames if frames is not None else vi_stereo_frames()
+    cam = tuple(float(x) for x in g.camera[:4])
+    pairs = [tumvi_kb8_pair(l_, r_, cam) for l_, r_ in zip(g.left, g.right)]
+    return g._replace(left=np.stack([p[0] for p in pairs]),
+                      right=np.stack([p[1] for p in pairs]))
+
+
+def tumvi_vi_golden_config(**changes) -> ViSlamSetup:
+    """The stereo VI frames warped to TUM-VI's 512x512 Kannala-Brandt pair
+    (:func:`tumvi_vi_frames`) at :data:`TUMVI_512_STEREO_INERTIAL`'s
+    capacity: 1000 features, 1024 keyframe / 65536 landmark slots, 12
+    observations, the system's windows, ThDepth 35, VI-BA 24 / 10 / 4096 /
+    64. Cut to the synthetic world: its focal length on both cameras (fx =
+    fy = 400, cx = cy = 255.5, TUM-VI's KB8 coefficients), its untilted
+    rig (R_rl = I, t_rl = (-0.2, 0, 0), bf = 80) for TUM-VI's Tlr, the
+    fixture's IMU (``ImuConfig``'s defaults, T_bc = I), 10 fps,
+    TrackedMapPoints(1), and the one-frame init's gates at the JAX fisheye
+    test's 60 depth points and 40 landmarks (the fisheye match keeps about
+    110 of the world's 1000 keypoints; at the defaults, 300 and 100, no
+    frame initialises). ``changes`` replace config fields."""
+    from .pipeline.stereo_system import FisheyeStereoConfig
+    e, c = EUROC_MONO, TUMVI_512_STEREO_INERTIAL
+    m = c.rig.mono
+    fx, fy, cx, cy = TUMVI_WORLD_CAM
+    cfg = FisheyeStereoConfig(
+        fx=fx, fy=fy, cx=cx, cy=cy, width=m.width, height=m.height,
+        kb8=np.array(TUMVI_KB8_1, np.float32), n_features=m.n_features,
+        max_kf=m.max_kf, max_lm=m.max_lm, max_obs=m.max_obs, fps=10,
+        local_window=e.local_window, ba_window=e.ba_window,
+        ba_lm_window=e.ba_lm_window, local_kf_window=e.n_local_kf,
+        local_lm_window=e.n_local_lm, recent_kf_window=e.recent_kf,
+        kf_ref_min_obs=1, bf=0.2 * fx, th_depth=c.rig.th_depth,
+        min_init_depth_points=60, min_init_landmarks=40,
+        cam2=np.array(TUMVI_WORLD_CAM, np.float32),
+        kb8_2=np.array(TUMVI_KB8_2, np.float32),
+        R_rl=np.eye(3, dtype=np.float32),
+        t_rl=np.array([-0.2, 0.0, 0.0], np.float32))
+    return ViSlamSetup(dataclasses.replace(cfg, **changes), _identity_imu(),
+                       dict(viba_window=c.viba_window, viba_free=c.viba_free,
+                            viba_landmarks=c.viba_landmarks,
+                            full_viba_kf=c.full_viba_kf))

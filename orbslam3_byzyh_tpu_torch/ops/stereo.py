@@ -19,7 +19,14 @@ device. A match is kept when its SAD is at most the threshold, as the JAX
 package compares (Frame.cc removes one equal to it, which at a median of 0,
 an exact shift, would remove every match).
 
-``fisheye_stereo_match`` waits for the next slice (ROADMAP item 10b).
+``fisheye_stereo_match`` is the non-rectified ("fisheye") rig's match
+(``Frame::ComputeStereoFishEyeMatches`` and
+``KannalaBrandt8::TriangulateMatches``): an all-pairs descriptor match of
+the two cameras' keypoints (K2's none mode, then the 0.7 ratio and the
+75 gate), then a DLT triangulation of each match with the parallax, the
+two-sided depth and the sigma-gated reprojection gates, and the mutual
+filter. It is one call on the device with no host read; the DLT's
+``torch.linalg.svd`` synchronises with the host (``ops/geometry.py``).
 """
 
 from __future__ import annotations
@@ -29,7 +36,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import matching
+from . import camera as cam
+from . import geometry, matching
 
 SCALE = 1.2
 W_SAD = 5          # 11x11 window (w = 5), Frame.cc:1247
@@ -140,3 +148,75 @@ def stereo_match(left_xy, left_level, left_desc, left_valid,
     return StereoMatchResult(
         u_right=torch.where(ok, u_right, -1.0),
         depth=torch.where(ok, bf32 / disp, -1.0), valid=ok)
+
+
+class FisheyeStereoResult(NamedTuple):
+    depth: torch.Tensor     # (N,) z in the left camera frame, -1 invalid
+    match_j: torch.Tensor   # (N,) right-keypoint index, -1 invalid
+    valid: torch.Tensor     # (N,) bool
+
+
+# Parallax gate: a pair of rays closer than this cosine is rejected
+# (KannalaBrandt8.cpp:470), and the reprojection gate in each view.
+COS_PARALLAX = 0.9998
+CHI2_REPROJ = 5.991
+
+
+def fisheye_stereo_match(xy_l, level_l, desc_l, valid_l,
+                         xy_r, level_r, desc_r, valid_r,
+                         cam_l, cam_r, R_rl, t_rl) -> FisheyeStereoResult:
+    """Match and triangulate the keypoints of a non-rectified pair.
+
+    Port of ``orbslam3_byzyh_tpu/ops/stereo.py::fisheye_stereo_match``. The
+    keypoints arrive rectified onto each camera's virtual pinhole (the KB8
+    unprojection runs once at extraction, ``graft.mono_extract``), so the
+    rays and the reprojection gates run in the virtual-pinhole frames.
+
+    xy_l / xy_r: (N, 2) / (M, 2) virtual-pinhole pixels; levels (N,) /
+    (M,) int32; descriptors (N, 8) / (M, 8) int32 words; validity masks.
+    cam_l / cam_r: (4,) [fx, fy, cx, cy]. (R_rl, t_rl): left camera ->
+    right camera (x_r = R_rl x_l + t_rl).
+
+    A match is kept where the best distance passes the 0.7 ratio and
+    ``TH_ORB``, the rays' cosine is under 0.9998, the point lies in front of
+    both cameras and reprojects within chi2 5.991 sigma^2(level) in each
+    view, and no other left keypoint took the same right keypoint at a
+    lower distance (the lowest row on ties)."""
+    from . import cuda_match
+
+    best, second, bj = cuda_match.hamming_best2(desc_l, desc_r, valid_l,
+                                                valid_r)
+    acc = matching.ratio_test(best, second, 0.7) & (best <= TH_ORB)
+    bj_safe = bj.clamp_min(0).long()
+    xy_rm = xy_r[bj_safe]
+
+    # Rays in each camera frame, and the parallax between them.
+    r1 = cam.pinhole_unproject(cam_l, xy_l)              # (N, 3), z = 1
+    r2 = cam.pinhole_unproject(cam_r, xy_rm)
+    r2_in_l = r2 @ R_rl                                  # R_rl^T r2
+    cosp = (r1 * r2_in_l).sum(-1) / (
+        r1.norm(dim=-1) * r2_in_l.norm(dim=-1)).clamp_min(1e-9)
+    parallax_ok = cosp < COS_PARALLAX
+
+    # DLT in normalised coordinates: P1 = [I | 0], P2 = [R_rl | t_rl].
+    dev, dt = xy_l.device, xy_l.dtype
+    P1 = torch.cat([torch.eye(3, dtype=dt, device=dev),
+                    torch.zeros(3, 1, dtype=dt, device=dev)], -1)
+    P2 = torch.cat([R_rl, t_rl[:, None]], -1)
+    X = geometry.triangulate_dlt(P1, P2, r1[:, :2] / r1[:, 2:],
+                                 r2[:, :2] / r2[:, 2:])
+    z1 = X[:, 2]
+    X2 = X @ R_rl.T + t_rl
+    depth_ok = (z1 > 0) & (X2[:, 2] > 0)
+
+    # The sigma-gated reprojection checks in both views.
+    sigma2_l = SCALE ** (2.0 * level_l.to(torch.float32))
+    sigma2_r = SCALE ** (2.0 * level_r[bj_safe].to(torch.float32))
+    e1 = ((cam.pinhole_project(cam_l, X) - xy_l) ** 2).sum(-1)
+    e2 = ((cam.pinhole_project(cam_r, X2) - xy_rm) ** 2).sum(-1)
+    reproj_ok = (e1 <= CHI2_REPROJ * sigma2_l) & (e2 <= CHI2_REPROJ * sigma2_r)
+
+    ok = acc & valid_l & parallax_ok & depth_ok & reproj_ok
+    ok = ok & matching.mutual_filter_from_best(best, bj, ok, xy_r.shape[0])
+    return FisheyeStereoResult(depth=torch.where(ok, z1, -1.0),
+                               match_j=torch.where(ok, bj, -1), valid=ok)

@@ -386,7 +386,14 @@ def _scatter_viba(state: ms.MapState, res: inertial_ba.VIBAResult, ids,
                   free_rows, lsel, lm_valid, o_valid, R_cb, t_cb, kf_vel,
                   kf_bg, kf_ba):
     """The device write-back of a VI-BA result: the free keyframes' poses,
-    velocities and biases, the window landmarks and their inlier gating."""
+    velocities and biases, the window landmarks and their inlier gating.
+
+    A repaired fault of the reference: the JAX write-back gates the outlier
+    observations off but leaves ``n_obs`` and the liveness as they were, so
+    a landmark can stay live with no live observation. Here a window
+    landmark that lost an observation to the gate is recounted as
+    ``mapping.drop_keyframe`` recounts, and dies below 2 live observations;
+    the others keep their count and liveness."""
     R_cw, t_cw = inertial_ba.camera_pose(res.R_wb, res.p_w, R_cb, t_cb)
     max_kf = state.kfs.valid.shape[0]
     tgt = torch.where(free_rows, ids.clamp_min(0), max_kf)
@@ -394,11 +401,20 @@ def _scatter_viba(state: ms.MapState, res: inertial_ba.VIBAResult, ids,
                              t=ms.scatter_rows(state.kfs.t, tgt, t_cw))
     max_lm = state.lms.pos.shape[0]
     lm_tgt = torch.where(lm_valid, lsel, max_lm)
-    lms = state.lms._replace(pos=ms.scatter_rows(state.lms.pos, lm_tgt,
-                                                 res.points))
     keep = res.obs_inlier | ~o_valid
+    before = state.obs.valid[lsel]
+    win_valid = before & keep
+    lost = (before & ~keep).any(-1)
+    n_obs = (win_valid & (state.obs.kf[lsel] >= 0)).sum(-1).to(
+        state.lms.n_obs.dtype)
+    n_obs = torch.where(lost, n_obs, state.lms.n_obs[lsel])
+    alive = state.lms.valid[lsel] & ~(lost & (n_obs < 2))
+    lms = state.lms._replace(
+        pos=ms.scatter_rows(state.lms.pos, lm_tgt, res.points),
+        n_obs=ms.scatter_rows(state.lms.n_obs, lm_tgt, n_obs),
+        valid=ms.scatter_rows(state.lms.valid, lm_tgt, alive))
     obs = state.obs._replace(valid=ms.scatter_rows(
-        state.obs.valid, lm_tgt, state.obs.valid[lsel] & keep))
+        state.obs.valid, lm_tgt, win_valid))
     return (ms.MapState(kfs=kfs, lms=lms, obs=obs),
             ms.scatter_rows(kf_vel, tgt, res.v_w),
             ms.scatter_rows(kf_bg, tgt, res.bg),

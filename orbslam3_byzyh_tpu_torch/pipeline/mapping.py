@@ -94,8 +94,10 @@ def triangulate_pair(Ra, ta, xy_a, level_a, desc_a, free_a,
     5.991 sigma2(level) in both, a view-distance ratio consistent with the
     levels (within 1.5 x 1.2), parallax cos < 0.9998 and a finite point."""
     if model_id != cam.PINHOLE:
-        raise NotImplementedError(f"camera model {model_id}: only PINHOLE "
-                                  "is ported")
+        raise NotImplementedError(
+            f"triangulate_pair: camera model {model_id}: only PINHOLE (the "
+            "systems rectify at extraction); native KB8 waits for ROADMAP "
+            "item 10c")
     dev = xy_a.device
     inv_s2 = _inv_sigma2_on(dev)
     F12 = fundamental_from_poses(Ra, ta, Rb, tb, cam_params)

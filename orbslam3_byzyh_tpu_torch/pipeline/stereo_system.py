@@ -26,7 +26,14 @@ monocular keyframe step makes no keyframe, the JAX ``StereoSlam`` still
 back-projects the frame's depths with the previous keyframe's pose and
 keypoints (``stereo_system.py:215-224``); here it makes no landmark.
 
-The fisheye stereo rig (``FisheyeStereoSlam``) waits for ROADMAP item 10b.
+``FisheyeStereoSlam`` (``FisheyeStereoConfig``) is the non-rectified rig
+(TUM-VI's Kannala-Brandt pair, ``Frame::ComputeStereoFishEyeMatches``):
+``graft.fisheye_stereo_extract`` (K1 twice, each camera's keypoints
+rectified onto its virtual pinhole, K2's none mode over both frames'
+descriptors, the DLT) gives each left keypoint a depth, and the frame loop
+is the stereo one. As in the JAX class, the right-image u stays None: the
+frames and the bundles use mono rows over the depth-made landmarks (K3,
+not K3s).
 """
 
 from __future__ import annotations
@@ -58,6 +65,20 @@ class StereoConfig(base.SlamConfig):
     def depth_threshold(self) -> float:
         """The close-point depth: bf / fx x ThDepth."""
         return self.bf / self.fx * self.th_depth
+
+
+@dataclasses.dataclass
+class FisheyeStereoConfig(StereoConfig):
+    """A non-rectified stereo rig with a model per camera (TUM-VI's 512x512
+    Kannala-Brandt pair). The left camera is the config's own (``kb8``,
+    ``dist``); ``None`` for the right camera's ``kb8_2`` / ``dist2`` takes
+    the left camera's, as the JAX ``MonoSlam._extract``'s overrides do
+    (``graft.fisheye_rig_tensors``)."""
+    cam2: np.ndarray = None       # (4,) right [fx fy cx cy]
+    kb8_2: np.ndarray = None      # (4,) right KB8 coeffs (None: the left's)
+    dist2: np.ndarray = None      # right radtan (None: the left's)
+    R_rl: np.ndarray = None       # left-cam -> right-cam rotation
+    t_rl: np.ndarray = None       # left-cam -> right-cam translation
 
 
 @dataclasses.dataclass
@@ -225,6 +246,37 @@ class StereoSlam(base.MonoSlam):
                                              self._last["bindings"])
         self.n_lm = max(self.n_lm, int(device_mod.read(hwm)[0]))
         return kf_id
+
+
+class FisheyeStereoSlam(StereoSlam):
+    """Stereo SLAM on a non-rectified (fisheye) rig on ``device``
+    (``None``: the card; raises without one): descriptor matching and a
+    two-view triangulation replace the rectified row search."""
+
+    def __init__(self, config: FisheyeStereoConfig, device=None):
+        super().__init__(config, device)
+        self.frig = graft.fisheye_rig_config(config)
+        self._fish = graft.fisheye_rig_tensors(self.frig, self.device)
+
+    def _fisheye_extract(self, img_left, img_right):
+        """Both cameras' features and the match; sets the frame's depth
+        (-1 where none). The right-image u stays None."""
+        feats, _, m = graft.fisheye_stereo_extract(
+            self._upload(img_left), self._upload(img_right), self.frig,
+            self._fish)
+        self._depth = m.depth
+        return feats
+
+    def track(self, img_left: np.ndarray, img_right: np.ndarray,
+              stamp: float):
+        """Process one raw pair; returns Tcw (R, t) as numpy, or None while
+        initializing."""
+        stamp = self._rel_stamp(stamp)
+        self._kf_host_pending = False
+        if self._check_timestamp_jump(stamp):
+            return None
+        return self._track_with_depth(
+            self._fisheye_extract(img_left, img_right), stamp)
 
 
 class RgbdSlam(StereoSlam):

@@ -106,6 +106,13 @@ class SlamConfig:
         return np.array([self.fx, self.fy, self.cx, self.cy], np.float32)
 
 
+def _coeffs_tensor(coeffs, device):
+    """A camera's first four distortion coefficients (radtan k1, k2, p1, p2
+    or Kannala-Brandt k0..k3) as a float32 device tensor, or None."""
+    return (None if coeffs is None else torch.tensor(
+        np.asarray(coeffs, np.float32)[:4], device=device))
+
+
 class MonoSlam:
     """Monocular SLAM engine (System::TrackMonocular) on ``device``
     (``None``: the card; raises without one)."""
@@ -118,16 +125,13 @@ class MonoSlam:
         if config.chessboard is not None:
             raise NotImplementedError(
                 "the chessboard world frame waits for ROADMAP item 13")
-        if config.kb8 is not None:
-            raise NotImplementedError(
-                "the Kannala-Brandt camera waits for ROADMAP item 10")
         self.cfg = config
         self.device = device_mod.resolve(device)
         self.mcfg = graft.mono_slam_config(config)
         dev = self.device
         self.cam_params = torch.tensor(config.cam_params(), device=dev)
-        self.dist = (None if config.dist is None else torch.tensor(
-            np.asarray(config.dist, np.float32)[:4], device=dev))
+        self.dist = _coeffs_tensor(config.dist, dev)
+        self.kb8 = _coeffs_tensor(config.kb8, dev)
         self.atlas = atlas_mod.Atlas(config.max_kf, config.max_lm,
                                      config.max_obs, config.n_features,
                                      device=dev)
@@ -224,12 +228,15 @@ class MonoSlam:
 
     # ------------------------------------------------------------------
     def _extract(self, img: np.ndarray):
-        """ORB features of a frame, undistorted onto the pinhole when the
-        camera has radtan coefficients. The image goes up as it is (uint8
-        stays uint8) and becomes float32 on the device."""
+        """ORB features of a frame, rectified onto the (virtual) pinhole:
+        through the Kannala-Brandt model when the camera has one, else
+        undistorted when it has radtan coefficients. The image goes up as
+        it is (uint8 stays uint8) and becomes float32 on the device. (The
+        fisheye rig's second camera is resolved once, in
+        ``graft.fisheye_rig_tensors``.)"""
         x = device_mod.upload(np.asarray(img), self.device)
         return graft.mono_extract(x.to(torch.float32), self.cam_params,
-                                  self.dist, self.mcfg)
+                                  self.dist, self.mcfg, kb8=self.kb8)
 
     def track(self, img: np.ndarray, stamp: float):
         """Process one frame; returns Tcw (R, t) as numpy, or None while

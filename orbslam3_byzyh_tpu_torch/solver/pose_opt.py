@@ -66,6 +66,15 @@ def _residuals_stereo(R, t, pts_w, obs_uv, obs_ur, bf, cam_params,
     return r, J, depth_ok, has_ur
 
 
+def _require_pinhole(what: str, model_id: int) -> None:
+    """K3 and K3s project through the pinhole: the systems rectify every
+    keypoint onto it at extraction, so no system passes another model."""
+    if model_id != cam.PINHOLE:
+        raise NotImplementedError(
+            f"{what}: camera model {model_id}: only PINHOLE; a native KB8 "
+            "projection inside K3 waits for ROADMAP item 10c")
+
+
 def pose_optimization(R0, t0, pts_w, obs_uv, inv_sigma2, valid, cam_params,
                       model_id: int = cam.PINHOLE, n_rounds: int = 4,
                       n_iters: int = 10) -> PoseOptResult:
@@ -78,8 +87,7 @@ def pose_optimization(R0, t0, pts_w, obs_uv, inv_sigma2, valid, cam_params,
     """
     from . import cuda_pose_opt
 
-    if model_id != cam.PINHOLE:
-        raise NotImplementedError("pose_optimization: only PINHOLE is ported")
+    _require_pinhole("pose_optimization", model_id)
     R, t, chi2 = cuda_pose_opt.pose_optimization(
         R0, t0, pts_w, obs_uv, inv_sigma2, valid, cam_params,
         n_rounds=n_rounds, n_iters=n_iters)
@@ -100,9 +108,7 @@ def pose_optimization_stereo(R0, t0, pts_w, obs_uv, obs_ur, bf, inv_sigma2,
     :func:`pose_optimization` (one K3s launch on the card)."""
     from . import cuda_pose_opt
 
-    if model_id != cam.PINHOLE:
-        raise NotImplementedError(
-            "pose_optimization_stereo: only PINHOLE is ported")
+    _require_pinhole("pose_optimization_stereo", model_id)
     R, t, chi2 = cuda_pose_opt.pose_optimization_stereo(
         R0, t0, pts_w, obs_uv, obs_ur, bf, inv_sigma2, valid, cam_params,
         n_rounds=n_rounds, n_iters=n_iters)

@@ -233,12 +233,23 @@ def test_bundle_adjust_stereo_matches_jax(rng, name):
 
 def test_stereo_rows_and_kb8_wait(problem):
     """Stereo rows (obs_ur) now run: with every row mono they give the mono
-    result within float32 rounding. The KB8 camera still raises."""
-    _, tp = problem
+    result within float32 rounding. The KB8 camera runs too: on this
+    problem with KB8 parameters the BA equals the JAX package's
+    (tests/test_torch_kb8.py holds a problem observed through KB8)."""
+    jp, tp = problem
     stereo = tp._replace(obs_ur=torch.full_like(tp.obs_w, -1.0), bf=BF)
     got, mono = tba.bundle_adjust(stereo), tba.bundle_adjust(tp)
     np.testing.assert_allclose(n(got.R), n(mono.R), atol=1e-5)
     np.testing.assert_allclose(n(got.points), n(mono.points), atol=1e-4)
     np.testing.assert_array_equal(n(got.obs_inlier), n(mono.obs_inlier))
-    with pytest.raises(NotImplementedError, match="PINHOLE"):
-        tba.bundle_adjust(tp, model_id=tcam.KB8)
+    kb8 = np.concatenate([K_PARAMS, [3e-3, 7e-4, -2e-3, 2e-4]]).astype(
+        np.float32)
+    ref = jba.bundle_adjust(jp._replace(cam_params=jnp.asarray(kb8)),
+                            model_id=1)
+    out = tba.bundle_adjust(tp._replace(cam_params=t(kb8)),
+                            model_id=tcam.KB8)
+    np.testing.assert_allclose(n(out.R), np.asarray(ref.R), atol=1e-4)
+    np.testing.assert_allclose(n(out.points), np.asarray(ref.points),
+                               rtol=1e-3, atol=1e-3)
+    np.testing.assert_array_equal(n(out.obs_inlier),
+                                  np.asarray(ref.obs_inlier))

@@ -10,7 +10,9 @@ of a float32 Schur solve), the same inlier gating, the cost within 1e-4
 relative. The gather and write-back are exact (the same indices; values
 copied): on a planted map where more landmarks qualify than there are
 slots, so the slots go to the lowest landmark ids, as ``lax.top_k`` picks
-them.
+them. One intended difference in the write-back: a landmark that lost an
+observation to the gate is recounted and dies below 2 live observations
+(the JAX write-back leaves it live, possibly with none).
 """
 
 import jax
@@ -191,9 +193,26 @@ def test_gather_and_scatter_viba(use_stereo):
         t(R_cb), t(t_cb), *(t(a) for a in side))
     jstate = jax.tree.map(np.asarray, jnew[0])
     tstate = convert.map_state_to_numpy(tnew[0])
+    # The intended difference (a repaired fault of the reference): a window
+    # landmark that lost an observation to the gate is recounted and dies
+    # below 2 live observations; the JAX write-back leaves its count and
+    # liveness as they were.
+    live_obs = (jstate.obs.valid & (jstate.obs.kf >= 0)).sum(-1)
+    lsel = n(tout[11])[n(tout[10])]
+    lost = np.zeros(len(live_obs), bool)
+    lost[lsel] = (st.obs.valid[lsel] & ~jstate.obs.valid[lsel]).any(-1)
+    want_n_obs = np.where(lost, live_obs, jstate.lms.n_obs)
+    want_valid = jstate.lms.valid & ~(lost & (want_n_obs < 2))
+    np.testing.assert_array_equal(tstate.lms.n_obs, want_n_obs)
+    np.testing.assert_array_equal(tstate.lms.valid, want_valid)
+    assert lost.sum() > 0 and (want_valid != jstate.lms.valid).sum() > 0
+    assert not (tstate.lms.valid & (live_obs == 0)).any()
+    assert (jstate.lms.valid & (live_obs == 0)).any()
     for grp in ("kfs", "lms", "obs"):
         for name, a, b in zip(getattr(jstate, grp)._fields,
                               getattr(jstate, grp), getattr(tstate, grp)):
+            if grp == "lms" and name in ("n_obs", "valid"):
+                continue
             np.testing.assert_allclose(b, a, atol=1e-6,
                                        err_msg=f"{grp}.{name}")
     for a, b in zip(jnew[1:], tnew[1:]):

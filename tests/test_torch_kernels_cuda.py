@@ -576,3 +576,42 @@ def test_vi_frame_step_on_the_card(dev, case):
                                       graft.vi_context(cfg, "cpu"), cfg)
     assert abs(int(res_c.info[0]) - int(info[0])) <= max(2, 0.01 * info[0])
     assert np.abs(res_c.info[2:14] - info[2:14]).max() <= 1e-3
+
+
+@pytest.mark.parametrize("na,nb", [(1000, 1000), (999, 1000), (1000, 7),
+                                   (13, 1000)])
+def test_k2_fisheye_match_shape(dev, gen, na, nb):
+    """The fisheye stereo match's launch: none mode, the left frame's
+    descriptors against the right frame's (1000 x 1000 at TUM-VI 512's
+    features) with validity only, and ragged sizes; bit-identical to the
+    plain version, ties (duplicate columns) included."""
+    args, gates = _k2_case(gen, dev, "none", na, nb)
+    out = _k2_check(args, gates)
+    assert int((out[0] < 1024).sum()) > 0
+
+
+def test_fisheye_stereo_extract_on_the_card(dev):
+    """graft.fisheye_stereo_extract at TUM-VI 512 on the stereo-inertial
+    fixture's first pair warped to the Kannala-Brandt pair: K1 twice and
+    K2 once; the match equals the CPU plain path's on the card's features
+    (bar rows within 1e-4 of a float gate, none on this pair so far)."""
+    from orbslam3_byzyh_tpu_torch.ops import stereo
+    g = graft.vi_stereo_frames()
+    left, right = graft.tumvi_kb8_pair(g.left[0], g.right[0])
+    rig = graft.fisheye_rig_config(graft.tumvi_vi_golden_config().config)
+    t = graft.fisheye_rig_tensors(rig, dev)
+    k1, k2 = cuda_brief.KERNEL.launches, cuda_match.KERNEL.launches
+    fl, fr, m = graft.fisheye_stereo_extract(
+        _t(left, dev).float(), _t(right, dev).float(), rig, t)
+    torch.cuda.synchronize()
+    assert cuda_brief.KERNEL.launches == k1 + 2
+    assert cuda_match.KERNEL.launches == k2 + 1
+    cpu = stereo.fisheye_stereo_match(*(x.cpu() for x in (
+        fl.xy, fl.level, fl.desc, fl.valid, fr.xy, fr.level, fr.desc,
+        fr.valid, t.cam_l, t.cam_r, t.R_rl, t.t_rl)))
+    ok = m.valid.cpu()
+    assert int(ok.sum()) > 60
+    assert int((ok != cpu.valid).sum()) <= 2
+    both = ok & cpu.valid
+    torch.testing.assert_close(m.depth.cpu()[both], cpu.depth[both],
+                               rtol=1e-4, atol=0)

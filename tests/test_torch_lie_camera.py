@@ -76,8 +76,17 @@ def test_pinhole(rng, fn):
 
 
 def test_kb8_not_ported():
-    with pytest.raises(NotImplementedError):
-        tcam.project(tcam.KB8, torch.zeros(8), torch.ones(3))
+    """The Kannala-Brandt model is ported now: ``project`` dispatches KB8
+    (tests/test_torch_kb8.py holds it against the JAX package); a point on
+    the axis lands on the principal point."""
+    params = torch.tensor([190.0, 190.0, 255.0, 256.0, 3e-3, 7e-4, -2e-3,
+                           2e-4])
+    out = tcam.project(tcam.KB8, params, torch.tensor([0.0, 0.0, 2.0]))
+    assert torch.equal(out, params[2:4])
+    ref = jcam.project(jcam.KB8, jnp.asarray(n(params)),
+                       jnp.asarray([[0.3, -0.2, 1.5]], np.float32))
+    got = tcam.project(tcam.KB8, params, torch.tensor([[0.3, -0.2, 1.5]]))
+    np.testing.assert_allclose(n(got), n(ref), rtol=RTOL, atol=1e-4)
 
 
 EUROC_CAM = np.array([458.654, 457.296, 367.215, 248.375], np.float32)

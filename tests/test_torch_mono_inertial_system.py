@@ -28,10 +28,14 @@ chain (``kf_prev``) and stamps, the counters, the reference keyframe, the
 pose (1e-4), the body state (1e-4; velocity 1e-3 m/s), the frame biases
 (1e-5), ``kf_vel`` (1e-3 m/s), ``kf_bg`` / ``kf_ba`` (1e-5), the chain's
 preintegrations (1e-5), the carried prior's presence, and the map
-(``assert_states_close``). The intended difference: the port fills the
+(``assert_states_close``). The intended differences: the port fills the
 stamp of an init keyframe when the map is made, with the device's float32
 value, where the JAX system reads that value back later; the comparison
-takes the JAX keyframe's device stamp where its host mirror is empty.
+takes the JAX keyframe's device stamp where its host mirror is empty. And
+the port's VI-BA write-back recounts a landmark that lost an observation
+to the gate and kills it below 2 live observations, where the JAX one
+keeps its stale count and liveness (a repaired fault of the reference):
+``recount_repair`` holds the port to the JAX map with that repair.
 
 Planted-state cases against the JAX methods: the inertial keyframe policy,
 the dispatched cull with its re-integration, the forced culling valve,
@@ -144,8 +148,32 @@ def snapshot_vi(slam, pose, jax_side):
 TOL = dict(pose=1e-4, vel=1e-3, bg=1e-5, ba=1e-5, lm=1e-3)
 
 
+def recount_repair(ref_state, got_state):
+    """The JAX map with the port's repair of the VI-BA write-back applied
+    (the intended difference, ROADMAP section 3): the JAX write-back gates
+    outlier observations off but keeps the landmarks' ``n_obs`` and
+    liveness, so a landmark's count can exceed its live observations; the
+    port recounts such a landmark and kills it below 2. Every landmark
+    where the two maps' count or liveness differ must be one whose JAX
+    count is stale, with the port's count its live observations and the
+    port's liveness the JAX liveness gated at 2. Returns the JAX map with
+    those rows as the port has them."""
+    rl, gl = ref_state.lms, got_state.lms
+    obs = ref_state.obs
+    live = (obs.valid & (obs.kf >= 0)).sum(-1)
+    diff = (rl.n_obs != gl.n_obs) | (rl.valid != gl.valid)
+    assert np.all(rl.n_obs[diff] > live[diff]), np.flatnonzero(diff)
+    np.testing.assert_array_equal(gl.n_obs[diff], live[diff])
+    np.testing.assert_array_equal(gl.valid[diff],
+                                  rl.valid[diff] & (live[diff] >= 2))
+    return ref_state._replace(lms=rl._replace(
+        n_obs=np.where(diff, gl.n_obs, rl.n_obs),
+        valid=np.where(diff, gl.valid, rl.valid)))
+
+
 def assert_same_vi(ref, got, **tol):
     tol = {**TOL, **tol}
+    ref = {**ref, "state": recount_repair(ref["state"], got["state"])}
     for k in ("status", "n_kf", "n_lm", "last_kf_id", "frames_since_kf",
               "n_maps", "refs", "close", "imu_ready", "viba_stage",
               "map_first_kf", "prior"):
@@ -184,9 +212,10 @@ def assert_same_vi(ref, got, **tol):
                 np.testing.assert_allclose(x, y, atol=1e-5, err_msg=str(k))
     assert_states_close(ref["state"], got["state"], CAM, pos_atol=tol["lm"],
                         pose_atol=tol["pose"])
-    # The VI-BA's write-back gates observations off without recounting
-    # the landmarks' support, in both packages (ROADMAP section 3): the
-    # port's map has the JAX map's invariant findings, no others.
+    # The JAX VI-BA's write-back gates observations off without recounting
+    # the landmarks' support (ROADMAP section 3), which the port repairs:
+    # the port's map has the findings of the JAX map with the repair
+    # applied, no others.
     assert (tms.check_invariants(
         convert.map_state_to_torch(got["state"], "cpu"), got["n_kf"],
         ref["state"].lms.valid.shape[0]) == tms.check_invariants(

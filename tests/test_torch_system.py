@@ -334,6 +334,20 @@ def test_default_device_is_the_card(monkeypatch):
                                          ("chessboard", "13"),
                                          ("kb8", "10")])
 def test_unported_options_raise(option, item):
+    """A vocabulary and a chessboard raise, naming their ROADMAP item. A
+    KB8 camera is ported (item 10b): the system builds, and only the
+    native KB8 pose optimizer, which no system calls, raises, naming item
+    10c."""
     cfg = tsys.SlamConfig(**CFG, **{option: np.zeros(4)})
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        tsys.MonoSlam(cfg, device="cpu")
+    if option != "kb8":
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            tsys.MonoSlam(cfg, device="cpu")
+        return
+    slam = tsys.MonoSlam(cfg, device="cpu")
+    assert slam.kb8 is not None
+    from orbslam3_byzyh_tpu_torch.solver import pose_opt
+    with pytest.raises(NotImplementedError, match=f"item {item}c"):
+        pose_opt.pose_optimization(
+            torch.eye(3), torch.zeros(3), torch.ones(4, 3),
+            torch.zeros(4, 2), torch.ones(4), torch.ones(4, dtype=bool),
+            slam.cam_params, model_id=1)
