@@ -92,6 +92,26 @@ nvcc (in parallel) and drives the port's entry points through them:
     and (h)'s first sequence held against its plain version, timed
     sequences by frame kind.
 
+  * phase "15 reloc": place recognition and relocalization at the
+    EuRoC-mono capacity with the runners' 10k-word vocabulary.
+    ``MonoSlam`` on ``graft.reloc_sequence`` (the golden frames padded to
+    752x480, a blackout of noise frames, a revisit): cell (i), 4 noise
+    frames within the RECENTLY_LOST budget, relocalization into the active
+    map; cell (j), 6 frames past a budget of 2, a new map, then the
+    re-entry into the old one; both held to ``graft.reloc_run_gates`` (the
+    JAX MonoSlam's recorded frame within 1, its map, the camera centre
+    within 5 cm of the truth), every launch of (i)'s first sequence from
+    the blackout on held against its plain version, timed sequences by
+    frame kind with the relocalizing frame apart. The step,
+    ``graft.relocalize`` on the map and frame of (i)'s relocalization: its
+    K2 launches (none mode over the
+    65536 landmark slots, window mode) and K3 launches (the PnP refine and
+    the final pose, 1536 rows) held and timed, the CPU plain path with the
+    card's draws, the synchronisations named, 20 timed calls. The
+    deployment-width database: ``real_voc_100k.npz`` (92,613 words),
+    ``transform`` of 1536 descriptors and ``query_groups`` over 1024 rows,
+    timed, with the database's bytes.
+
 Every kernel is held against its plain PyTorch version on the card: on
 synthetic inputs at both paths' shapes, and on the very inputs each path
 gave it (its wrapper's calls are recorded and replayed). K3 and K3s are
@@ -164,7 +184,7 @@ N_TIMED_INITS = 10
 N_WARMUP_INITS = 2
 # The monocular system: whole sequences timed after one warm-up sequence,
 # each with a fresh MonoSlam.
-N_TIMED_SEQUENCES = 3
+N_TIMED_SEQUENCES = 2
 # The JAX system's reads of device values in each kind of frame
 # (orbslam3_byzyh_tpu/pipeline/system.py), beside the port's synchronisations.
 JAX_HOST_READS = {
@@ -214,6 +234,20 @@ FISHEYE_FLIP_MARGIN = 1e-4
 # match triangulates the keypoints as detected, with no sub-pixel
 # refinement, and a pixel is 4-10 % of the world's 9-27 px disparities).
 FISHEYE_DEPTH_MEDIAN_TOL = 0.08
+# Phase 15: the relocalization step's timed calls; the cells' timed
+# sequences after one warm-up sequence (cell (i), cell (j)).
+N_TIMED_RELOC_STEPS = 20
+N_TIMED_RELOC_SEQUENCES = {"i": 5, "j": 4}
+# The JAX MonoSlam's reads of device values in each kind of a
+# relocalization cell's frame (orbslam3_byzyh_tpu/pipeline/system.py,
+# keyframe_db.py), beside the port's synchronisations.
+JAX_RELOC_READS = dict(
+    JAX_HOST_READS,
+    lost="info (:504), the fallback's inliers (:517); per atlas map "
+         "searched the candidates (keyframe_db.py:126-127) and per "
+         "candidate its liveness (:1235), the PnP's ok and inliers (:1246) "
+         "and the track's inliers (:1259)",
+    reloc="as a lost frame's, up to the candidate that passes")
 # The JAX inertial systems' reads of device values in each kind of frame
 # (orbslam3_byzyh_tpu/pipeline/inertial_system.py unless named), beside
 # the port's synchronisations.
@@ -242,8 +276,13 @@ JAX_VI_READS = {
                     "cache (system.py)"}
 
 
+T_START = time.perf_counter()
+
+
 def phase(name: str, msg: str) -> None:
-    print(f"[{name}] {msg}", flush=True)
+    """One progress line, with the seconds since the script started."""
+    print(f"[{name} +{time.perf_counter() - T_START:.1f} s] {msg}",
+          flush=True)
 
 
 def card_line() -> str:
@@ -1527,6 +1566,430 @@ def phase_fisheye(dev, card, sk, check_call, timed, shape_of) -> dict:
     return out, a_calls, g_calls, h_held
 
 
+def phase_reloc(dev, card, sk, check_call, timed, shape_of) -> tuple:
+    """Phase "15 reloc": place recognition and relocalization at the
+    EuRoC-mono capacity (``graft.EUROC_MONO``'s 1024 / 65536 / 12 slots,
+    1536 features, the golden frames padded to 752x480) with the runners'
+    10k-word vocabulary. Cells (i) and (j) (``graft.reloc_sequence``):
+    ``MonoSlam`` with the vocabulary and loop closing off, a warm-up
+    sequence with every launch from the blackout on held against its
+    plain version, the gates of ``graft.reloc_run_gates``,
+    timed sequences by frame kind (a
+    relocalizing frame and a lost frame, one that tried and failed, apart)
+    and one sequence counting synchronisations. The step: ``graft.relocalize``
+    on the map, database and frame of (i)'s warm-up relocalization, its
+    launches held and timed, the CPU plain path with the card's draws, its
+    synchronisations, 20 timed calls. The database at deployment width:
+    ``real_voc_100k.npz`` over 1024 rows filled from that map's keyframes.
+    Returns the results and each kernel's held calls of the step with
+    their times."""
+    from orbslam3_byzyh_tpu_torch import graft
+    from orbslam3_byzyh_tpu_torch.ops import bow, cuda_brief, cuda_match
+    from orbslam3_byzyh_tpu_torch.pipeline import keyframe_db
+    from orbslam3_byzyh_tpu_torch.pipeline import system as system_mod
+    from orbslam3_byzyh_tpu_torch.solver import cuda_pose_opt
+
+    name = "15 reloc"
+    t15 = time.perf_counter()
+    out = {}
+    gold = graft.golden_frames()
+    t0 = time.perf_counter()
+    voc = bow.load_vocabulary(graft.RELOC_VOCABULARY, dev)
+    torch.cuda.synchronize()
+    out["vocabulary_load_s"] = time.perf_counter() - t0
+    spies = {"K1": (cuda_brief, "brief_descriptors_kernel"),
+             "K2": (cuda_match, "hamming_best2_kernel"),
+             "K3": (cuda_pose_opt, "pose_optimization_kernel"),
+             "K3s": (cuda_pose_opt, "pose_optimization_stereo_kernel")}
+    originals = {n: getattr(mod, f) for n, (mod, f) in spies.items()}
+    checked = {}
+    guard, bundles, attempts, captured = [], [], [], []
+    # The held warm-up holds the launches from the blackout on: the frames
+    # before it are phase 10's EuRoC-capacity path, held there.
+    holding = [False]
+    keyframe_step, relocalize = graft.mono_keyframe_step, graft.relocalize
+
+    def counted_bundle(*a, **kw):
+        bundles.append(1)
+        return keyframe_step(*a, **kw)
+
+    def spy_reloc(state, db, feats, *a, **kw):
+        r = relocalize(state, db, feats, *a, **kw)
+        attempts.append(r.success)
+        if r.success and not captured:
+            # The inputs as they stand now: the database grows in place.
+            copy = keyframe_db.KeyframeDatabase(db.voc, 1, 1)
+            copy.vecs, copy.words, copy.valid = (
+                x.clone() for x in (db.vecs, db.words, db.valid))
+            captured.append((state, copy, feats, a, dict(kw), r))
+        return r
+
+    def checking(cell, n):
+        fn = originals[n]
+
+        def spy(*a, **kw):
+            res = fn(*a, **kw)
+            if guard or not holding[0]:
+                return res
+            guard.append(n)
+            try:
+                err, _ = check_call(n, a, kw)
+            finally:
+                guard.pop()
+            rec = checked[cell][n]
+            rec["calls"] += 1
+            rec["max_abs_err"] = max(rec["max_abs_err"], float(err))
+            return res
+
+        return spy
+
+    def run_cell(cfg, seq, syncs=False):
+        """The cell's frames through a fresh MonoSlam: per frame its kind,
+        host-clock ms, launches (and synchronisations); the statuses, the
+        active maps, the keyframe slots before the blackout, the
+        trajectory and the sequence's seconds."""
+        slam = system_mod.MonoSlam(cfg)
+        recs, statuses, maps, n_kf_before, live_before = [], [], [], 0, 0
+        t_seq = time.perf_counter()
+        for i, f in enumerate(seq):
+            holding[0] = i >= graft.RELOC_TRACKED
+            was = slam.status
+            n_b, n_a = len(bundles), len(attempts)
+            before = {n: k.launches for n, k in sk.items()}
+            callers = []
+            ctx = (counted_syncs(callers=callers) if syncs
+                   else contextlib.nullcontext([]))
+            with ctx as where:
+                t0 = time.perf_counter()
+                slam.track(f.image, f.stamp)
+                ms_ = (time.perf_counter() - t0) * 1e3
+            tried = attempts[n_a:]
+            if any(tried):
+                kind = "reloc"
+            elif tried:
+                kind = "lost"
+            elif was == system_mod.NOT_INITIALIZED:
+                kind = ("uninitialised"
+                        if slam.status == system_mod.NOT_INITIALIZED
+                        else "init")
+            else:
+                kind = "keyframe" if len(bundles) > n_b else "tracked"
+            recs.append({"kind": kind, "ms": ms_, "status": slam.status,
+                         "syncs": list(where), "callers": callers,
+                         "launches": {n: k.launches - before[n]
+                                      for n, k in sk.items()}})
+            statuses.append(slam.status)
+            maps.append(slam.atlas.current)
+            if i == graft.RELOC_TRACKED - 1:
+                n_kf_before = slam.n_kf
+                live_before = int(slam.state.kfs.valid.sum())
+        traj = slam.trajectory
+        return (slam, recs, statuses, maps, n_kf_before, live_before, traj,
+                time.perf_counter() - t_seq)
+
+    def gate(cell, seq, run):
+        slam, recs, statuses, maps, n_kf_before, live_before, traj, sec = run
+        res = graft.reloc_run_gates(cell, statuses, maps,
+                                    len(slam.atlas.maps), n_kf_before,
+                                    slam.n_kf, traj, slam.t0, seq, gold)
+        live_after = int(slam.state.kfs.valid.sum())
+        res.update(jax=graft.RELOC_JAX[cell], seconds=sec,
+                   fps=len(seq) / sec, live_keyframes_before=live_before,
+                   live_keyframes_after=live_after,
+                   n_cross_map_relocs=slam.n_cross_map_relocs,
+                   kinds=[r["kind"] for r in recs])
+        require(res["ok"] and (cell == "i" or live_after >= live_before)
+                and slam.n_cross_map_relocs == (1 if cell == "j" else 0),
+                f"({cell}): {res} against the JAX run's frame "
+                f"{graft.RELOC_JAX[cell]['index']} +- 1 into map "
+                f"{graft.RELOC_JAX[cell]['map']}, status OK after it, the "
+                f"centre within {graft.RELOC_CENTRE_GATE_M} m")
+        return res
+
+    cells = {"i": "i_reloc", "j": "j_cross_map"}
+    step_calls = {n: [] for n in sk}
+    graft.mono_keyframe_step = counted_bundle
+    graft.relocalize = spy_reloc
+    try:
+        for cell, key in cells.items():
+            seq = graft.reloc_sequence(cell, gold)
+            cfg = graft.reloc_golden_config(cell, voc)
+            # Each cell's warm-up holds every launch from the blackout on
+            # against its plain version: (j)'s include the new map's init
+            # and the relocalization against the older map's state.
+            checked[key] = {n: {"calls": 0, "max_abs_err": 0.0} for n in sk}
+            for n_, (mod, f) in spies.items():
+                setattr(mod, f, checking(key, n_))
+            try:
+                run = run_cell(cfg, seq)
+                torch.cuda.synchronize()
+            finally:
+                for n_, (mod, f) in spies.items():
+                    setattr(mod, f, originals[n_])
+            warm = gate(cell, seq, run)
+            ch = checked[key]
+            require(all(ch[n]["calls"] > 0 for n in ("K1", "K2", "K3"))
+                    and ch["K3s"]["calls"] == 0,
+                    f"({cell}): kernels launched {ch}")
+            phase(name, f"({cell}) warm-up sequence, every launch from the "
+                  "blackout on held against its plain version: "
+                  + ", ".join(f"{n} {ch[n]['calls']} calls max err "
+                              f"{ch[n]['max_abs_err']:.2e}" for n in sk)
+                  + f"; {json.dumps(warm)} ({card})")
+            if cell == "i":
+                require(len(captured) == 1, "(i): no relocalization captured")
+                step, step_calls = reloc_step(
+                    dev, card, name, sk, check_call, timed, shape_of,
+                    captured[0])
+                out["step"] = step
+                out["database"] = reloc_database(dev, card, name,
+                                                 captured[0], voc)
+            seqs, recs = [], []
+            for _ in range(N_TIMED_RELOC_SEQUENCES[cell]):
+                for k in sk.values():
+                    k.launches = 0
+                torch.cuda.synchronize()
+                run = run_cell(cfg, seq)
+                res = gate(cell, seq, run)
+                res["launches"] = {n: k.launches for n, k in sk.items()}
+                require(all(res["launches"][n] > 0
+                            for n in ("K1", "K2", "K3")),
+                        f"({cell}): launches {res['launches']}")
+                seqs.append(res)
+                recs += run[1]
+            sync_run = run_cell(cfg, seq, syncs=True)
+            gate(cell, seq, sync_run)
+            kinds = {}
+            for kind in ("uninitialised", "init", "tracked", "keyframe",
+                         "lost", "reloc"):
+                rs = [r for r in recs if r["kind"] == kind]
+                st = spread(r["ms"] for r in rs)
+                st["launches_per_frame"] = {
+                    n: (sum(r["launches"][n] for r in rs) / len(rs)
+                        if rs else None) for n in sk}
+                ss = [r for r in sync_run[1] if r["kind"] == kind]
+                st["syncs_per_frame"] = (sum(len(r["syncs"]) for r in ss)
+                                         / len(ss) if ss else None)
+                sites, asked = {}, {}
+                for r in ss:
+                    for w in r["syncs"]:
+                        sites[w] = sites.get(w, 0) + 1
+                    for c in r["callers"]:
+                        asked[c] = asked.get(c, 0) + 1
+                st["sync_sites"] = {k: v / len(ss)
+                                    for k, v in sorted(sites.items())}
+                st["sync_callers"] = {k: v / len(ss)
+                                      for k, v in sorted(asked.items())}
+                st["jax_host_reads"] = JAX_RELOC_READS[kind]
+                kinds[kind] = st
+                if st["n"]:
+                    phase(name, f"({cell}) {kind} frames ({st['n']} over "
+                          f"{len(seqs)} sequences): track() median "
+                          f"{st['median']:.3f} ms, p80 {st['p80']:.3f} ms "
+                          f"(min {st['min']:.3f}, max {st['max']:.3f}); "
+                          f"launches per frame {st['launches_per_frame']}; "
+                          f"{st['syncs_per_frame']} synchronisations per "
+                          f"frame {st['sync_sites']}, asked for by "
+                          f"{st['sync_callers']} ({card})")
+            fps = [r["fps"] for r in seqs]
+            phase(name, f"({cell}) {len(seq)} frames in "
+                  + ", ".join(f"{r['seconds']:.3f}" for r in seqs) + " s = "
+                  + ", ".join(f"{f_:.2f}" for f_ in fps) + " frames/s; "
+                  f"relocalized at frame {[r['reloc_index'] for r in seqs]} "
+                  f"(JAX {graft.RELOC_JAX[cell]['index']}) into map "
+                  f"{[r['reloc_map'] for r in seqs]}, centre error "
+                  f"{[round(r['reloc_err_m'], 5) for r in seqs]} m (JAX "
+                  f"{graft.RELOC_JAX[cell]['reloc_err_m']:.5f}) ({card})")
+            out[key] = {
+                "config": {k: v for k, v in dataclasses.asdict(
+                    dataclasses.replace(cfg, vocabulary=None)).items()
+                           if not isinstance(v, np.ndarray)},
+                "warmup": warm, "sequences": seqs, "frame_kinds": kinds,
+                "fps": spread(fps), "checked": checked[key]}
+    finally:
+        graft.mono_keyframe_step = keyframe_step
+        graft.relocalize = relocalize
+    out["seconds"] = time.perf_counter() - t15
+    phase(name, f"phase took {out['seconds']:.1f} s")
+    return out, step_calls
+
+
+def reloc_step(dev, card, name, sk, check_call, timed, shape_of,
+               captured) -> tuple:
+    """Phase 15's step: ``graft.relocalize`` on a captured relocalization's
+    inputs. Returns its results and each kernel's held calls with their
+    times."""
+    from orbslam3_byzyh_tpu_torch import graft
+    from orbslam3_byzyh_tpu_torch.models import map_state as ms
+    from orbslam3_byzyh_tpu_torch.ops import bow, cuda_match, pnp
+    from orbslam3_byzyh_tpu_torch.pipeline import keyframe_db
+    from orbslam3_byzyh_tpu_torch.solver import cuda_pose_opt
+
+    state, db, feats, a, kw, sys_res = captured
+    cam, cfg, mi = a[0], kw["cfg"], kw["min_inliers"]
+    draws = []
+
+    def call(draw=None):
+        gen = torch.Generator(dev).manual_seed(0)
+
+        def drawing(corr, kp_lm):
+            idx = pnp.draw_indices(gen, corr)
+            draws.append(idx)
+            return idx
+
+        return graft.relocalize(state, db, feats, cam, cfg=cfg,
+                                min_inliers=mi, draw=draw or drawing)
+
+    with recorded(cuda_match, "hamming_best2_kernel") as k2c, \
+            recorded(cuda_pose_opt, "pose_optimization_kernel") as k3c:
+        for k in sk.values():
+            k.launches = 0
+        r = call()
+        torch.cuda.synchronize()
+        launches = {n: k.launches for n, k in sk.items()}
+    tried = r.info["tried"]
+    require(r.success and r.cand == sys_res.cand,
+            f"step: {r.info} against the system's candidate {sys_res.cand}")
+    require(launches == {"K1": 0, "K2": 2 * len(tried), "K3": 2 * len(tried),
+                         "K3s": 0}, f"step launches {launches} for "
+            f"{len(tried)} candidates")
+    calls = {n: [] for n in sk}
+    for n, rec in (("K2", k2c), ("K3", k3c)):
+        for i, (args, kwargs) in enumerate(rec):
+            err, (b_ms, b_by, b_txt) = check_call(n, args, kwargs)
+            what = (("candidate match", "local-map search")[i % 2]
+                    if n == "K2" else ("PnP refine", "final pose")[i % 2])
+            entry = {"call": f"reloc step {what}",
+                     "shape": shape_of(n, args, kwargs), "max_abs_err": err,
+                     "bound_ms": b_ms, "bound_by": b_by, "bound": b_txt}
+            entry.update(timed(n, args, kwargs, plain_reps=5))
+            calls[n].append(entry)
+            phase(name, f"step {n} {entry['call']} {entry['shape']}: held "
+                  f"against plain (err {err}); launch alone "
+                  f"{entry['ms']:.4f} ms, wrapper {entry['wrapper_ms']:.4f} "
+                  f"ms, plain {entry['plain_ms']:.4f} ms, bound "
+                  f"{b_ms:.5f} ms by {b_by} ({card})")
+    k2_shapes = [shape_of("K2", *c) for c in k2c]
+    require(k2_shapes[0]["N"] == cfg.max_lm and k2_shapes[0]["mode"] == "none"
+            and k2_shapes[0]["M"] == cfg.n_features,
+            f"step: the candidate match's shape {k2_shapes[0]}")
+    require(all(shape_of("K3", *c)["N"] == cfg.n_features for c in k3c),
+            "step: a K3 launch not over the frame's keypoints")
+
+    # The CPU plain path with the card's draws.
+    cpu = torch.device("cpu")
+    state_c = ms.MapState(*(type(g)(*(x.cpu() for x in g)) for g in state))
+    db_c = keyframe_db.KeyframeDatabase(bow.to_device(db.voc, cpu), 1, 1)
+    db_c.vecs, db_c.words, db_c.valid = (x.cpu() for x in
+                                         (db.vecs, db.words, db.valid))
+    replay = iter([d.cpu() for d in draws])
+    t0 = time.perf_counter()
+    r_c = graft.relocalize(state_c, db_c, type(feats)(*(x.cpu()
+                                                        for x in feats)),
+                           cam.cpu(), cfg=cfg, min_inliers=mi,
+                           draw=lambda corr, kp_lm: next(replay))
+    cpu_s = time.perf_counter() - t0
+    n_g = tried[-1]["inliers"]
+    n_c = r_c.info["tried"][-1]["inliers"] if r_c.info["tried"] else 0
+    gap = (float(np.abs(r_c.t - r.t).max()) if r_c.success else float("inf"))
+    require(r_c.success and r_c.cand == r.cand
+            and list(r_c.info["candidates"]) == list(r.info["candidates"])
+            and abs(n_c - n_g) <= max(2, 0.01 * n_g) and gap <= 1e-3,
+            f"step: CPU {r_c.info} against the card's {r.info}, pose gap "
+            f"{gap}")
+    # The synchronisations of one call, by site and by caller.
+    callers = []
+    with counted_syncs(callers=callers) as where:
+        call(lambda corr, kp_lm: draws[0])
+    sites = {}
+    for w in where:
+        sites[w] = sites.get(w, 0) + 1
+    covis_ms = event_ms(lambda: ms.covisibility_matrix(state), reps=20)
+    ms_ = []
+    for i in range(5 + N_TIMED_RELOC_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        if i >= 5:
+            ms_.append((time.perf_counter() - t0) * 1e3)
+    out = {"candidates": [int(c) for c in r.info["candidates"]],
+           "scores": [float(s) for s in r.info["scores"]], "tried": tried,
+           "cand": r.cand, "launches": launches,
+           "host_reads": r.info["host_reads"], "syncs": len(where),
+           "sync_sites": sites, "ms": spread(ms_),
+           "covisibility_ms": covis_ms, "cpu_inliers": n_c,
+           "cpu_pose_gap": gap, "cpu_seconds": cpu_s,
+           "live_keyframes": int(state.kfs.valid.sum()),
+           "live_landmarks": int(state.lms.valid.sum())}
+    st = out["ms"]
+    phase(name, f"step: graft.relocalize at {cfg.max_kf} / {cfg.max_lm} / "
+          f"{cfg.max_obs} slots ({out['live_keyframes']} live keyframes, "
+          f"{out['live_landmarks']} landmarks), {cfg.n_features} features: "
+          f"candidates {out['candidates']}, tried {tried}; launches "
+          f"{launches}; the CPU plain path with the card's draws agrees "
+          f"(inliers {n_c}, pose within {gap:.2e}); {len(where)} "
+          f"synchronisations {sites}, asked for by {sorted(set(callers))}; "
+          f"host reads {r.info['host_reads']}; covisibility matrix "
+          f"{covis_ms:.4f} ms; median {st['median']:.3f} ms, p80 "
+          f"{st['p80']:.3f} ms over {N_TIMED_RELOC_STEPS} calls (min "
+          f"{st['min']:.3f}, max {st['max']:.3f}) ({card})")
+    return out, calls
+
+
+def reloc_database(dev, card, name, captured, voc10k) -> dict:
+    """Phase 15's database at deployment width: ``real_voc_100k.npz``, a
+    1024-row database filled from the captured map's live keyframes (in
+    turn), ``transform`` of the frame's 1536 descriptors and
+    ``query_groups`` timed; the bytes of it and of the 10k-word one."""
+    from orbslam3_byzyh_tpu_torch import graft
+    from orbslam3_byzyh_tpu_torch.models import map_state as ms
+    from orbslam3_byzyh_tpu_torch.ops import bow
+    from orbslam3_byzyh_tpu_torch.pipeline import keyframe_db
+
+    state, _, feats, _, kw, _ = captured
+    cfg = kw["cfg"]
+    t0 = time.perf_counter()
+    voc = bow.load_vocabulary(graft.DEPLOY_VOCABULARY, dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    live = torch.nonzero(state.kfs.valid).flatten().tolist()
+    out = {}
+    for width, v in (("100k", voc), ("10k", voc10k)):
+        db = keyframe_db.KeyframeDatabase(v, cfg.max_kf, cfg.n_features)
+        for k in range(cfg.max_kf):
+            src = live[k % len(live)]
+            db.add(k, state.kfs.kp_desc[src], state.kfs.kp_valid[src])
+        covis = ms.covisibility_matrix(state)
+        torch.cuda.synchronize()
+        tr_ms = event_ms(lambda: bow.transform(v, feats.desc, feats.valid),
+                         reps=20)
+        q_ms = []
+        for i in range(3 + 20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ids, scores, _ = db.query_groups(feats.desc, feats.valid, covis,
+                                             top_n=3,
+                                             kf_valid=state.kfs.valid)
+            if i >= 3:
+                q_ms.append((time.perf_counter() - t0) * 1e3)
+        nbytes = sum(x.numel() * x.element_size()
+                     for x in (db.vecs, db.words, db.valid))
+        out[width] = {"n_words": v.n_words, "rows": cfg.max_kf,
+                      "bytes": nbytes, "transform_ms": tr_ms,
+                      "query_groups_ms": spread(q_ms),
+                      "candidates": [int(i) for i in ids]}
+        st = out[width]["query_groups_ms"]
+        phase(name, f"database {width}: {v.n_words} words x {cfg.max_kf} "
+              f"rows = {nbytes} bytes; transform of {cfg.n_features} "
+              f"descriptors {tr_ms:.4f} ms (CUDA events, median of 20); "
+              f"query_groups median {st['median']:.3f} ms, p80 "
+              f"{st['p80']:.3f} ms over 20 calls (one read each), "
+              f"candidates {out[width]['candidates']} ({card})")
+        del db
+    out["100k"]["load_s"] = load_s
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1605,15 +2068,18 @@ def main() -> int:
         return err, out
 
     def k2_bound(args, gates):
-        # Descriptors, validity and gate data read once, three int32 per
-        # row written. Operations: the window gate (5 f32 flops) on every
-        # pair of a valid row and a valid column, and the distance on every
-        # pair that passes the gate (all valid pairs without one), counted
-        # as a +-1 int8 dot product (512 operations): the kernel's 1-bit
-        # AND-popc products have no published H100 rate.
+        # Bytes: the validity masks read and three int32 per row written
+        # for every row and column; the descriptors and the gate data read
+        # only for the valid ones (a masked row's or column's descriptor
+        # and gate data do not change the output). Operations: the gate (5
+        # f32 flops) on every pair of a valid row and a valid column, and
+        # the distance on every pair that passes the gate (all valid pairs
+        # without one), counted as a +-1 int8 dot product (512 operations):
+        # the kernel's 1-bit AND-popc products have no published H100 rate.
         qa, qb, qva, qvb = args
         na, nb = qa.shape[0], qb.shape[0]
-        n_valid_pairs = int(qva.sum()) * int(qvb.sum())
+        va, vb = int(qva.sum()), int(qvb.sum())
+        n_valid_pairs = va * vb
         if "xy_a" in gates:
             lo, hi = gates["level_window"]
             gate = (matching.window_mask(gates["xy_a"], gates["xy_b"],
@@ -1621,12 +2087,13 @@ def main() -> int:
                     & matching.level_mask(gates["level_a"], gates["level_b"],
                                           lo, hi))
             n_gated = int((gate & qva[:, None] & qvb[None, :]).sum())
-            ms, by = bound(na * (32 + 1 + 8 + 4 + 4 + 12)
-                           + nb * (32 + 1 + 8 + 4),
+            ms, by = bound(na * 13 + va * (32 + 8 + 4 + 4)
+                           + nb * 1 + vb * (32 + 8 + 4),
                            {F32_FLOPS: 5 * n_valid_pairs,
                             INT8_OPS: 2 * 256 * n_gated})
             return ms, by, (
-                f"N={na} x 61 B + M={nb} x 45 B over {HBM_BPS / 1e12} TB/s; "
+                f"N={na} x 13 B + {va} valid rows x 48 B + M={nb} x 1 B + "
+                f"{vb} valid columns x 44 B over {HBM_BPS / 1e12} TB/s; "
                 f"gate 5 f32 flops x {n_valid_pairs} valid pairs over "
                 f"{F32_FLOPS / 1e12} TFLOP/s + 512 int8 ops x {n_gated} gated "
                 f"pairs over {INT8_OPS / 1e12} TOP/s")
@@ -1639,17 +2106,20 @@ def main() -> int:
             inv = 1.0 / (ln[:, 0] ** 2 + ln[:, 1] ** 2).clamp_min(1e-12)
             gate = num * num * inv[:, None] < th[None, :]
             n_gated = int((gate & qva[:, None] & qvb[None, :]).sum())
-            ms, by = bound(na * (32 + 1 + 12 + 12) + nb * (32 + 1 + 8 + 4),
+            ms, by = bound(na * 13 + va * (32 + 12)
+                           + nb * 1 + vb * (32 + 8 + 4),
                            {F32_FLOPS: 5 * n_valid_pairs,
                             INT8_OPS: 2 * 256 * n_gated})
             return ms, by, (
-                f"N={na} x 57 B + M={nb} x 45 B over {HBM_BPS / 1e12} TB/s; "
+                f"N={na} x 13 B + {va} valid rows x 44 B + M={nb} x 1 B + "
+                f"{vb} valid columns x 44 B over {HBM_BPS / 1e12} TB/s; "
                 f"epipolar gate 5 f32 flops x {n_valid_pairs} valid pairs "
                 f"over {F32_FLOPS / 1e12} TFLOP/s + 512 int8 ops x {n_gated} "
                 f"gated pairs over {INT8_OPS / 1e12} TOP/s")
-        ms, by = bound(na * (32 + 1 + 12) + nb * (32 + 1),
+        ms, by = bound(na * 13 + va * 32 + nb * 1 + vb * 32,
                        {INT8_OPS: 2 * 256 * n_valid_pairs})
-        return ms, by, (f"N={na} x 45 B + M={nb} x 33 B over "
+        return ms, by, (f"N={na} x 13 B + {va} valid rows x 32 B + M={nb} "
+                        f"x 1 B + {vb} valid columns x 32 B over "
                         f"{HBM_BPS / 1e12} TB/s; 512 int8 ops x "
                         f"{n_valid_pairs} valid pairs over "
                         f"{INT8_OPS / 1e12} TOP/s")
@@ -1658,19 +2128,26 @@ def main() -> int:
     # same inputs: on the stereo world's ill-conditioned problems the
     # float32 plain version (SVD re-orthonormalisation and a general solve,
     # as the JAX package's XLA path) strays from it further than the
-    # kernel does. While ``plain32_err["on"]`` (the stereo cell's warm-up
-    # sequence) the float32 plain version runs too, and its largest
-    # distance from the oracle is kept and printed.
+    # kernel does. The oracle runs on the host's CPU: its 40 LM steps of
+    # small operations, each with a 3 x 3 SVD that synchronises, take the
+    # card 300-550 ms a problem, and the system phases hold about 850 of
+    # them. While ``plain32_err["on"]`` (the stereo cell's warm-up
+    # sequence) the float32 plain version runs too, on the card, and its
+    # largest distance from the oracle is kept and printed.
     plain32_err = {"K3": 0.0, "K3s": 0.0, "on": False}
 
-    def f64(x):
-        return (x.double() if isinstance(x, torch.Tensor)
-                and x.is_floating_point() else x)
+    def cpu64(x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        x = x.cpu()
+        return x.double() if x.is_floating_point() else x
 
     def plain_pair(name, plain, p, kwargs):
-        """(the float64 plain result, the float32 plain result's distance
-        from it) of one problem."""
-        R6, t6, c6 = plain(*(f64(a) for a in p), **kwargs)
+        """(the float64 plain result on the card's device, the float32
+        plain result's distance from it) of one problem."""
+        R6, t6, c6 = (x.to(dev) for x in plain(
+            *(cpu64(a) for a in p),
+            **{k: cpu64(v) for k, v in kwargs.items()}))
         if plain32_err["on"]:
             R3, t3, _ = plain(*p, **kwargs)
             plain32_err[name] = max(plain32_err[name],
@@ -3365,6 +3842,11 @@ def main() -> int:
     phase("14 fisheye", f"phase took {fish['seconds']:.1f} s; "
           f"{fish['graphs_kept']} CUDA graphs kept at the end")
 
+    # -- 15: place recognition and relocalization ---------------------------
+    reloc, reloc_calls = phase_reloc(dev, card, sk, check_call, timed,
+                                     shape_of)
+    reloc_cells = ("i_reloc", "j_cross_map")
+
     sources = {"K1": ("steered-BRIEF sampler", "csrc/brief.cu",
                       "orbslam3_byzyh_tpu/ops/pallas_brief.py:161",
                       "none: no single PyTorch call gathers rotated sample "
@@ -3414,7 +3896,16 @@ def main() -> int:
                     for kind, st in v["frame_kinds"].items()}
                 for k, v in fish.items()
                 if isinstance(v, dict) and "frame_kinds" in v},
-            "fisheye_system_calls": fish_sys_calls[n]}
+            "fisheye_system_calls": fish_sys_calls[n],
+            "launches_reloc_step": reloc["step"]["launches"][n],
+            "reloc_step_calls": reloc_calls[n],
+            "launches_reloc_system": {
+                k: reloc[k]["sequences"][0]["launches"][n]
+                for k in reloc_cells},
+            "launches_reloc_frame": {
+                k: {kind: st["launches_per_frame"][n]
+                    for kind, st in reloc[k]["frame_kinds"].items()}
+                for k in reloc_cells}}
 
     # K3s: no Pallas kernel; it ports the JAX package's XLA function.
     k3s_entry = {
@@ -3477,7 +3968,7 @@ def main() -> int:
         "init_step": init, "system": system, "stereo": stereo,
         "plain32_err": plain32_err,
         "inertial": {k: v for k, v in vi_out.items() if k != "held"},
-        "inertial_system": vi_sys, "fisheye": fish,
+        "inertial_system": vi_sys, "fisheye": fish, "reloc": reloc,
         "card": card}, default=str))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

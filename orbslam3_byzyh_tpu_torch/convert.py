@@ -185,3 +185,53 @@ def carry_inertial_state(src, dst) -> None:
     buf.t = np.array(src.buf.t, np.float64)
     buf.gyr = np.array(src.buf.gyr, np.float32)
     buf.acc = np.array(src.buf.acc, np.float32)
+
+
+# --- Place recognition -------------------------------------------------------
+
+def vocabulary_to_torch(voc, device=None):
+    """A vocabulary shaped as the JAX package's ``ops.bow.Vocabulary``
+    (numpy or JAX arrays) -> the port's, on ``device`` (``None``: the
+    card); node words become bit-identical int32."""
+    from .ops import bow
+    dev = device_mod.resolve(device)
+    return bow.Vocabulary(
+        to_torch(voc.node_desc, dev), to_torch(voc.children, dev),
+        to_torch(voc.word_id, dev), to_torch(voc.idf, dev), int(voc.k),
+        int(voc.depth), int(voc.n_words))
+
+
+def vocabulary_to_numpy(voc) -> dict:
+    """The port's vocabulary -> numpy arrays in the JAX package's dtypes
+    (node words uint32), with ``k``, ``depth`` and ``n_words``."""
+    return dict(node_desc=desc_to_uint32(voc.node_desc),
+                children=to_numpy(voc.children),
+                word_id=to_numpy(voc.word_id), idf=to_numpy(voc.idf),
+                k=voc.k, depth=voc.depth, n_words=voc.n_words)
+
+
+def keyframe_db_to_torch(db, voc):
+    """A keyframe database with the JAX package's ``KeyframeDatabase``
+    arrays (``vecs``, ``words``, ``valid``) -> the port's, on the device of
+    ``voc`` (a port vocabulary)."""
+    from .pipeline.keyframe_db import KeyframeDatabase
+    out = KeyframeDatabase(voc, 1, 1)
+    dev = voc.idf.device
+    out.vecs, out.words, out.valid = (to_torch(a, dev) for a in
+                                      (db.vecs, db.words, db.valid))
+    return out
+
+
+def keyframe_db_to_numpy(db) -> tuple:
+    """The port's keyframe database -> (vecs, words, valid) numpy."""
+    return to_numpy(db.vecs), to_numpy(db.words), to_numpy(db.valid)
+
+
+def carry_loop_closer(src, dst) -> None:
+    """Set the port's ``LoopCloser`` ``dst`` to the databases and the active
+    map of ``src``, an object with the JAX package's ``LoopCloser``
+    attributes (``dbs``, ``active``, ``loop_edges``)."""
+    dst.dbs = {m: keyframe_db_to_torch(db, dst.voc)
+               for m, db in src.dbs.items()}
+    dst.active = src.active
+    dst.loop_edges = {m: list(e) for m, e in src.loop_edges.items()}

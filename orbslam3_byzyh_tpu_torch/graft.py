@@ -42,6 +42,10 @@ then ``stereo.fisheye_stereo_match``), ``kb8_warp`` (a pinhole render seen
 through a KB8 camera, in numpy), and the cells' frames, configurations and
 gates (``fisheye_frames``, ``fisheye_stereo_golden_config``,
 ``fisheye_gates``, ``tumvi_vi_frames``, ``tumvi_vi_golden_config``).
+Place recognition ends it: ``relocalize``, the device half of one map's
+relocalization attempt, and the relocalization cells' frames,
+configuration and gates (``reloc_sequence``, ``reloc_golden_config``,
+``reloc_run_gates`` against the JAX run's ``RELOC_JAX``).
 """
 
 from __future__ import annotations
@@ -54,9 +58,10 @@ import numpy as np
 import torch
 
 from . import convert
+from . import device as device_mod
 from .models import map_state as ms
 from .ops import camera as cam
-from .ops import fast_orb, geometry, lie
+from .ops import fast_orb, geometry, lie, matching, pnp
 from .pipeline import mapping, tracking
 
 N_FEATURES = 1024
@@ -2461,3 +2466,238 @@ def tumvi_vi_golden_config(**changes) -> ViSlamSetup:
                        dict(viba_window=c.viba_window, viba_free=c.viba_free,
                             viba_landmarks=c.viba_landmarks,
                             full_viba_kf=c.full_viba_kf))
+
+
+# --- Place recognition and relocalisation -----------------------------------
+
+VOCABULARY_DIR = Path(__file__).resolve().parents[1] / "vocabulary"
+# The runners' default vocabulary (``scripts/run_euroc_mono.py``'s
+# ``--vocabulary``: 9,999 words, k = 10, depth 4) and the deployment-width
+# one (92,613 words, k = 10, depth 5).
+RELOC_VOCABULARY = VOCABULARY_DIR / "synthetic_voc_10k.npz"
+DEPLOY_VOCABULARY = VOCABULARY_DIR / "real_voc_100k.npz"
+
+# The relocalisation cells (``tests/test_reloc_localization.py``'s runs at
+# the EuRoC-mono capacity): golden frames 0-24 (the test's tracked span,
+# t = 0.0-2.4 s), then ``noise`` frames of uniform 0-30 noise (numpy seed
+# 5) within or past the RECENTLY_LOST budget ``grace``, then the revisit
+# frames, then two more frames that tracking must keep. Cell "i"
+# relocalises in the active map; cell "j" loses the map (a new one is
+# spawned) and must switch back into it. (After frames 0-19 alone the JAX
+# system takes revisit frame 10 back through the reference-keyframe
+# fallback, 0.9 s from its last frame, and never relocalises.)
+RELOC_TRACKED = 25
+RELOC_CELLS = {
+    "i": dict(noise=4, grace=30, revisit=tuple(range(10, 15)),
+              after=(15, 16)),
+    "j": dict(noise=6, grace=2, revisit=tuple(range(10, 16)),
+              after=(16, 17)),
+}
+RELOC_NOISE_SEED = 5
+
+
+class RelocFrame(NamedTuple):
+    """One frame of a relocalisation cell: the (480, 752) image, its stamp
+    (s) and the golden frame it shows (-1 for noise)."""
+
+    image: np.ndarray
+    stamp: float
+    world: int
+
+
+def reloc_sequence(cell: str, frames: GoldenFrames | None = None) -> list:
+    """The frames of relocalisation cell ``cell`` ("i" or "j", see
+    :data:`RELOC_CELLS`): the golden frames padded to EuRoC's 752 columns
+    (:func:`pad_frames`), stamps 0.1 s apart throughout (the blackout and
+    the revisit continue the clock). Returns a list of
+    :class:`RelocFrame`."""
+    c = RELOC_CELLS[cell]
+    g = frames if frames is not None else golden_frames()
+    padded = pad_frames(g.frames)
+    h, w = padded.shape[1:]
+    rng = np.random.default_rng(RELOC_NOISE_SEED)
+    world = (list(range(RELOC_TRACKED)) + [-1] * c["noise"]
+             + list(c["revisit"]) + list(c["after"]))
+    out = []
+    for i, k in enumerate(world):
+        img = (rng.uniform(0, 30, (h, w)).astype(np.float32) if k < 0
+               else padded[k])
+        out.append(RelocFrame(img, round(0.1 * i, 6), k))
+    return out
+
+
+def reloc_golden_config(cell: str, vocabulary=None, **changes):
+    """:func:`euroc_golden_config` with ``vocabulary``, loop closing off
+    and the cell's RECENTLY_LOST budget (``tests/test_reloc_localization.py``:
+    30 frames for "i", 2 for "j")."""
+    return euroc_golden_config(vocabulary=vocabulary, use_loop_closing=False,
+                               lost_grace_frames=RELOC_CELLS[cell]["grace"],
+                               **changes)
+
+
+# The JAX reference run's map slots (``scripts/reloc_reference_jax.py``):
+# the JAX init's one-hot Schur assembly at 1024 x 65536 slots takes about
+# 21 GiB, so the CPU run cuts the map to 48 keyframe and 8192 landmark
+# slots (the windows, 12 observations and everything else as the cell).
+RELOC_CPU_SLOTS = dict(max_kf=48, max_lm=8192)
+
+
+def reloc_gates(traj, t0: float, seq: list, reloc_stamp: float,
+                frames: GoldenFrames | None = None) -> dict:
+    """A relocalisation cell's pose measures from a trajectory (``(stamp,
+    R_cw, t_cw)`` records, absolute stamps): the frames before the blackout
+    are aligned to the golden truth by Horn's method with scale; the frame
+    at ``reloc_stamp`` is mapped through that alignment and held to its
+    true camera centre. Returns ``reloc_err_m``, ``pre_ate_m``, ``scale``
+    and ``n_pre``."""
+    from .utils import evaluate
+    g = frames if frames is not None else golden_frames()
+    world = {round(f.stamp, 6): f.world for f in seq}
+    lost_at = min(f.stamp for f in seq if f.world < 0)
+    est, true, hit = [], [], None
+    for s, R, t in traj:
+        s = round(float(s) - t0, 6)
+        k = world.get(s, -1)
+        if k < 0:
+            continue
+        c = -np.asarray(R, np.float64).T @ np.asarray(t, np.float64)
+        if s < lost_at:
+            est.append(c)
+            true.append(g.centres[k])
+        elif abs(s - reloc_stamp) < 1e-6:
+            hit = (c, g.centres[k])
+    scale, R_a, t_a, ate = evaluate.horn_align(np.stack(est), np.stack(true))
+    err = (float("inf") if hit is None else
+           float(np.linalg.norm(scale * R_a @ hit[0] + t_a - hit[1])))
+    return dict(reloc_err_m=err, pre_ate_m=float(ate), scale=float(scale),
+                n_pre=len(est))
+
+
+class RelocResult(NamedTuple):
+    """``relocalize``'s result. On failure ``track`` is None, ``cand`` -1
+    and ``R``, ``t`` None."""
+
+    success: bool
+    track: object            # tracking.TrackResult of the passing candidate
+    cand: int                # its keyframe slot
+    R: object                # (3, 3) its pose, numpy
+    t: object
+    info: dict
+
+
+def relocalize(state, db, feats, cam_params, *, draw,
+               cfg: MonoConfig = EUROC_MONO,
+               min_inliers: int = 30) -> RelocResult:
+    """The device half of ``MonoSlam._relocalize_in_map`` for one map
+    (Tracking::Relocalization): the keyframe database's top 3
+    covisibility groups (``db.query_groups``); for each candidate in turn,
+    K2's none-mode match of the landmarks it sees against the frame's
+    keypoints (ratio 0.75, ``TH_LOW``), the RANSAC PnP over one row per
+    matched keypoint (``pnp.pnp_ransac``; its refine is a K3 launch), the
+    candidate keyframe's pose instead when the PnP keeps fewer than 10
+    inliers, and ``tracking.track_local_map`` (K2's window mode over every
+    landmark slot, K3) from there. The first candidate whose track keeps
+    ``min_inliers`` wins.
+
+    ``feats``: the frame's features; ``db``: the map's
+    ``keyframe_db.KeyframeDatabase``. The PnP's (128, 6) sample rows are
+    ``draw(corr, kp_lm)`` of the (N,) correspondence mask and keypoint ->
+    landmark table (``MonoSlam._pnp_indices`` draws them from the
+    system's generator by ``pnp.draw_indices``). The host reads the
+    database's candidates once and each tried candidate once (its PnP's
+    ``ok`` and inliers, the track's inliers and pose: the four reads the
+    JAX system makes, packed); ``info`` names them (``host_reads``) and
+    holds ``candidates``, ``scores``, ``tried`` (per candidate: its PnP's
+    ``ok`` and inliers, the track's inliers) and ``idx`` (the passing
+    candidate's samples)."""
+    dev = feats.xy.device
+    info = {"host_reads": ["candidates"], "tried": []}
+    ids, scores, _ = db.query_groups(
+        feats.desc, feats.valid, ms.covisibility_matrix(state), top_n=3,
+        kf_valid=state.kfs.valid)
+    info["candidates"], info["scores"] = ids, scores
+    lms, kfs = state.lms, state.kfs
+    n_feat, n_lm = feats.xy.shape[0], lms.pos.shape[0]
+    inv_s2 = tracking._inv_sigma2_on(dev)[feats.level.long()]
+    no_bind = torch.full((n_feat,), -1, dtype=torch.int32, device=dev)
+    lm_ids = torch.arange(n_lm, dtype=torch.int32, device=dev)
+    for cand in ids.tolist():
+        if cand < 0:
+            continue
+        seen, _ = ms.landmarks_seen_by(state, cand)
+        mj, _ = matching.match(lms.desc, feats.desc, seen, feats.valid,
+                               max_dist=matching.TH_LOW, ratio=0.75)
+        # Each keypoint's landmark (the match is mutual: one at most).
+        kp_lm = ms.scatter_rows(no_bind, torch.where(mj >= 0, mj, n_feat),
+                                torch.where(mj >= 0, lm_ids, -1))
+        corr = kp_lm >= 0
+        idx = draw(corr, kp_lm)
+        pr = pnp.pnp_ransac(idx, lms.pos[kp_lm.clamp_min(0).long()],
+                            feats.xy, inv_s2, corr, cam_params)
+        use = pr.ok & (pr.n_inliers >= 10)
+        R0 = torch.where(use, pr.R, kfs.R[cand])
+        t0 = torch.where(use, pr.t, kfs.t[cand])
+        res = tracking.track_local_map(
+            R0, t0, no_bind, lms.pos, lms.desc, lms.normal, lms.min_dist,
+            lms.max_dist, lms.valid, feats.xy, feats.level, feats.desc,
+            feats.valid, cam_params, cfg.width, cfg.height)
+        ok, n_pnp, n_in, R, t = device_mod.read(pr.ok, pr.n_inliers,
+                                                res.n_inliers, res.R, res.t)
+        info["host_reads"].append(f"candidate {cand}")
+        info["tried"].append(dict(cand=cand, pnp_ok=bool(ok),
+                                  pnp_inliers=int(n_pnp), inliers=int(n_in)))
+        if int(n_in) >= min_inliers:
+            info["idx"] = idx
+            return RelocResult(True, res, cand, R, t, info)
+    return RelocResult(False, None, -1, None, None, info)
+
+
+# The JAX MonoSlam's runs of the two cells (``scripts/reloc_reference_jax.py
+# i | j`` on the CPU, ``synthetic_voc_10k.npz``, the map cut to
+# :data:`RELOC_CPU_SLOTS`): the frame of the sequence that relocalised
+# (both: the second revisit frame, golden frame 11, from keyframe 10's
+# group with 355 inliers), the map it landed in and its camera centre's
+# error after the run's Horn alignment (:func:`reloc_gates`). The port's
+# runs must relocalise within one frame of it, into that map, within
+# :data:`RELOC_CENTRE_GATE_M` of the truth.
+RELOC_JAX = {
+    "i": dict(index=30, world=11, map=0, n_maps=1, cand=10, inliers=355,
+              reloc_err_m=0.01842918070069971),
+    "j": dict(index=32, world=11, map=0, n_maps=2, cand=10, inliers=355,
+              reloc_err_m=0.007066997025886848),
+}
+RELOC_CENTRE_GATE_M = 0.05
+
+
+def reloc_run_gates(cell: str, statuses, maps, n_maps: int, n_kf_before: int,
+                    n_kf_after: int, traj, t0: float, seq: list,
+                    frames: GoldenFrames | None = None) -> dict:
+    """A relocalisation cell's gates on a run of :func:`reloc_sequence`:
+    ``statuses`` and ``maps`` (the active map) after each frame, the
+    atlas's map count at the end, the keyframe count before the blackout
+    and at the end, and the trajectory. The system must be RECENTLY_LOST
+    (cell "i") or have spawned a new map (cell "j") in the blackout,
+    relocalise within one frame of the JAX run's frame into its map, keep
+    tracking (status OK) on every later frame, with the old map's
+    keyframes live (cell "j"), and the relocalised camera centre within
+    :data:`RELOC_CENTRE_GATE_M` of the truth. Returns the measures and
+    ``ok``."""
+    ref = RELOC_JAX[cell]
+    revisit = RELOC_TRACKED + RELOC_CELLS[cell]["noise"]
+    blackout = statuses[RELOC_TRACKED:revisit]
+    hit = next((i for i in range(revisit, len(seq))
+                if statuses[i] == 1 and statuses[i - 1] != 1), None)
+    out = dict(reloc_index=hit, jax_index=ref["index"], n_maps=n_maps,
+               n_kf_before=n_kf_before, n_kf_after=n_kf_after)
+    if hit is None:
+        return dict(out, ok=False)
+    out.update(reloc_world=seq[hit].world, reloc_map=int(maps[hit]),
+               **reloc_gates(traj, t0, seq, seq[hit].stamp, frames))
+    lost = (2 in blackout if cell == "i" else 0 in blackout)
+    out["ok"] = bool(
+        lost and abs(hit - ref["index"]) <= 1
+        and out["reloc_map"] == ref["map"]
+        and all(s == 1 for s in statuses[hit:]) and n_maps == ref["n_maps"]
+        and (cell == "i" or n_kf_after >= n_kf_before)
+        and out["reloc_err_m"] < RELOC_CENTRE_GATE_M)
+    return out

@@ -3,7 +3,7 @@
 Port of the JAX package's ``models/atlas.py`` (ORB-SLAM3's ``Atlas``): a list
 of whole map states with their host-side counters; a new map is made when
 tracking is lost with a mature map (``CreateMapInAtlas``), and a young map is
-reset in place. The merge of two maps waits for loop closing.
+reset in place. The merge of two maps waits for ROADMAP item 12c.
 """
 
 from __future__ import annotations
@@ -67,5 +67,4 @@ class Atlas:
     def merge(self, other_idx: int, R_m, t_m, s_m: float) -> int:
         """Weld map ``other_idx`` into the current map (loop closing's
         merge of two maps)."""
-        raise NotImplementedError("atlas merge waits for loop closing "
-                                  "(ROADMAP item 12)")
+        raise NotImplementedError("atlas merge waits for ROADMAP item 12c")

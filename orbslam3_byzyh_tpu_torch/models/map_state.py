@@ -245,6 +245,34 @@ def covisibility_counts(state: MapState, kf_id, max_kf: int) -> torch.Tensor:
     return counts[:max_kf]
 
 
+def covisibility_matrix(state: MapState) -> torch.Tensor:
+    """(K, K) int32 pairwise shared-landmark counts, zero on the diagonal
+    (the JAX package's ``covisibility_matrix``, which builds an (L, K)
+    one-hot indicator and multiplies it by itself: 137 GFLOP at 65536 x
+    1024). Here each live landmark adds one to the cell of every ordered
+    pair of distinct keyframes among its observations: one ``index_add_``
+    of L x O x O cells (9.4 M at 65536 x 12 x 12). A keyframe that
+    observes a landmark twice counts once, as the indicator's min(., 1)
+    makes it."""
+    K = state.kfs.valid.shape[0]
+    kf, L, O = state.obs.kf, *state.obs.kf.shape
+    dev = kf.device
+    ov = state.obs.valid & (kf >= 0) & state.lms.valid[:, None]
+    same = (kf[:, :, None] == kf[:, None, :]) & ov[:, None, :]
+    earlier = torch.ones(O, O, dtype=torch.bool, device=dev).tril(-1)
+    first = ov & ~(same & earlier).any(-1)         # first slot of each kf
+    pair = (first[:, :, None] & first[:, None, :]
+            & ~torch.eye(O, dtype=torch.bool, device=dev))
+    kf64 = kf.to(torch.int64)
+    # A cell that is no pair adds 0 at an index of its own (its position,
+    # modulo K x K): a shared sentinel bin would serialise the atomics.
+    spread = torch.arange(L * O * O, device=dev).reshape(L, O, O) % (K * K)
+    cell = torch.where(pair, kf64[:, :, None] * K + kf64[:, None, :], spread)
+    counts = torch.zeros(K * K, dtype=torch.int32, device=dev)
+    counts.index_add_(0, cell.reshape(-1), pair.reshape(-1).to(torch.int32))
+    return counts.reshape(K, K)
+
+
 def landmarks_seen_by(state: MapState, kf_id):
     """(L,) bool mask and (L,) keypoint index (-1 elsewhere) of the
     landmarks that ``kf_id`` observes."""

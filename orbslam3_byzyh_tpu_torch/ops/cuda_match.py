@@ -66,16 +66,27 @@ def hamming_best2_plain(da, db, valid_a, valid_b, *, xy_a=None, xy_b=None,
                         chunk_rows=None):
     """Plain PyTorch version: (best, second, best_j), each (N,) int32.
 
-    Rows are taken ``chunk_rows`` at a time (default:
-    ``matching.chunk_rows_for(M)``); each row's result depends on that row
-    alone, so any block size gives the same bits."""
+    A row that ``valid_a`` masks has every distance at ``INVALID_DIST``
+    whatever its descriptor and gate data, so its result is (INVALID_DIST,
+    INVALID_DIST, 0) and only the valid rows are computed (the
+    landmark-slot searches mask most of their 65,536 rows). They are taken
+    ``chunk_rows`` at a time (default: ``matching.chunk_rows_for(M)``);
+    each row's result depends on that row alone, so any block size gives
+    the same bits."""
     mode = _mode(xy_a, lines)
     n, m = da.shape[0], db.shape[0]
     step = chunk_rows or matching.chunk_rows_for(m)
     if radius is not None and not isinstance(radius, torch.Tensor):
         radius = torch.full((), radius, dtype=torch.float32, device=da.device)
-    out = []
-    for r0 in range(0, max(n, 1), step):
+    keep = torch.nonzero(valid_a).flatten()
+
+    def kept(x):
+        return x if x is None or x.dim() == 0 else x[keep]
+
+    da, valid_a, xy_a, radius, level_a, lines = (
+        kept(x) for x in (da, valid_a, xy_a, radius, level_a, lines))
+    parts = []
+    for r0 in range(0, keep.numel(), step):
         rows = slice(r0, r0 + step)
         pm = None
         if mode == "window":
@@ -89,8 +100,12 @@ def hamming_best2_plain(da, db, valid_a, valid_b, *, xy_a=None, xy_b=None,
             pm = num * num * _inv_norm2(ln)[:, None] < line_th[None, :]
         dist = matching.masked_hamming(da[rows], db, valid_a[rows], valid_b,
                                        pm)
-        out.append(matching.best_two(dist))
-    return tuple(torch.cat(parts) for parts in zip(*out))
+        parts.append(matching.best_two(dist))
+    out = tuple(torch.full((n,), v, dtype=torch.int32, device=da.device)
+                for v in (matching.INVALID_DIST, matching.INVALID_DIST, 0))
+    for o, p in zip(out, zip(*parts)):
+        o[keep] = torch.cat(p)
+    return out
 
 
 def hamming_best2_kernel(da, db, valid_a, valid_b, *, xy_a=None, xy_b=None,

@@ -124,12 +124,12 @@ def mutual_filter(dist, best_j, accept):
 
 
 def top_k_lowest_first(x: torch.Tensor, k: int):
-    """``jax.lax.top_k`` of a 1-D integer tensor: the k largest values in
-    descending order, the lower index first among equal values. The index
-    is folded into an int64 key, so the order does not rest on
-    ``torch.topk``'s, which promises none on ties. Returns (values,
+    """``jax.lax.top_k`` of an integer tensor along its last axis: the k
+    largest values in descending order, the lower index first among equal
+    values. The index is folded into an int64 key, so the order does not
+    rest on ``torch.topk``'s, which promises none on ties. Returns (values,
     indices int64)."""
-    m = x.shape[0]
+    m = x.shape[-1]
     idx = torch.arange(m, device=x.device)
     key = x.to(torch.int64) * m + (m - 1 - idx)
     top = torch.topk(key, k).values

@@ -617,10 +617,14 @@ class MonoInertialSlam(system_mod.MonoSlam):
     (``kf_stamp``), the per-keyframe velocities and biases on the device
     (``kf_vel``, ``kf_bg``, ``kf_ba``), the IMU schedule (the init, VIBA1,
     VIBA2, the monocular scale refinement), the chain-aware keyframe
-    culling and the trajectory rescale. Loop closing and map merging
-    (``_loops_allowed``, ``_merge_maps``, ``_on_map_corrected``, the
-    cross-map relocalization's fresh chain) wait for ROADMAP item 12: a
-    vocabulary raises in ``MonoSlam``.
+    culling and the trajectory rescale. With a vocabulary, relocalization
+    runs as in ``MonoSlam`` before the IMU initialisation (an inertial
+    RECENTLY_LOST frame dead-reckons on the IMU, as the JAX system's
+    does), and a re-entry into an older atlas map restarts the IMU
+    machinery with a fresh chain at the next keyframe
+    (``_on_cross_map_reloc``). Loop closing and map merging
+    (``_loops_allowed``, ``_merge_maps``, ``_on_map_corrected``) wait for
+    ROADMAP items 12b and 12c.
 
     Host reads, beside ``MonoSlam``'s: a tracked inertial frame's one
     packed ``info`` (``track_inertial``), with a carried prior the
@@ -678,6 +682,13 @@ class MonoInertialSlam(system_mod.MonoSlam):
         self._pose_prior_H = None
         self._pending_cull = None
         self._imu_init_failures = 0
+        # Set by a re-entry into an older map: the next keyframe roots a
+        # fresh chain.
+        self._fresh_chain = False
+        if self.loop_closer is not None:
+            # After the IMU init the map is metric and gravity-aligned
+            # (read by loop closing, item 12b).
+            self.loop_closer.cfg.fix_scale = True
 
     # ------------------------------------------------------------------
     def _imap(self) -> InertialMap:
@@ -739,7 +750,10 @@ class MonoInertialSlam(system_mod.MonoSlam):
         feats = self._extract(img)
         if self.status == system_mod.NOT_INITIALIZED:
             pose = self._try_initialize(feats, stamp)
-            if pose is not None:
+            # A relocalization into an older map made no new map (the JAX
+            # system seeds a chain link on that map's slot 1 here, which
+            # its fresh chain never walks).
+            if pose is not None and not self._fresh_chain:
                 self._on_map_created(stamp)
         elif self.imu_ready:
             pose = self._track_inertial(feats, stamp, prior_L)
@@ -798,6 +812,11 @@ class MonoInertialSlam(system_mod.MonoSlam):
         prev = self.last_kf_id
         kf_id = self.n_kf
         self.kf_stamp[kf_id] = stamp
+        if self._fresh_chain:
+            # The first keyframe after a re-entry into an older map.
+            self._fresh_chain = False
+            prev = -1
+            self.map_first_kf = kf_id
         self.kf_prev[kf_id] = prev
         if prev >= 0:
             self.kf_preint[kf_id] = self._preintegrate(
@@ -1107,6 +1126,9 @@ class MonoInertialSlam(system_mod.MonoSlam):
             return
         self.imu_ready = True
         self.viba_stage = 1
+        if self.loop_closer is not None:
+            # Gravity pins roll and pitch: loop corrections drop to 4 DoF.
+            self.loop_closer.inertial_4dof = True
         self._full_inertial_ba(kf_id, *self.imu_init_prior)
         self._body = self._body_of(kf_id)
         if self._last is not None:
@@ -1191,6 +1213,19 @@ class MonoInertialSlam(system_mod.MonoSlam):
         self.kf_prev[:] = -1
         self.kf_preint = [None] * self.cfg.max_kf
         self.kf_stamp[:] = np.nan
+
+    def _on_cross_map_reloc(self, cand: int):
+        """A relocalization re-entered an older map, whose chain bookkeeping
+        was cleared when it was left: the IMU machinery restarts, a fresh
+        chain roots at the next keyframe and the IMU init runs again. The
+        host stamps of the map's keyframes come back in one read (the JAX
+        system reads each lazily, ``inertial_system.py:319-324``)."""
+        self._reset_inertial_machinery()
+        self._fresh_chain = True
+        valid, stamp = device_mod.read(self.state.kfs.valid,
+                                       self.state.kfs.stamp)
+        live = valid > 0
+        self.kf_stamp[live] = stamp[live]
 
     def _handle_lost(self, feats, stamp):
         super()._handle_lost(feats, stamp)

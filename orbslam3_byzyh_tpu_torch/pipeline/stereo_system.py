@@ -93,6 +93,9 @@ class StereoSlam(base.MonoSlam):
     def __init__(self, config: StereoConfig, device=None):
         super().__init__(config, device)
         self.rig = graft.rig_config(config)
+        if self.loop_closer is not None:
+            # Metric depth fixes the scale (read by loop closing, 12b).
+            self.loop_closer.cfg.fix_scale = True
 
     def _upload(self, img) -> torch.Tensor:
         """A frame as float32 on the device (uploaded as it is)."""
@@ -192,6 +195,8 @@ class StereoSlam(base.MonoSlam):
         self.status = base.OK
         self.last_kf_id = 0
         self.frames_since_kf = 0
+        if self.loop_closer is not None:
+            self.loop_closer.add_keyframe(self.state, 0)
         self._set_ref_cache(0, eye_np, zero_np)
         return (eye_np, zero_np)
 

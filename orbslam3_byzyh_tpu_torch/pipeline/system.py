@@ -3,10 +3,14 @@ steps.
 
 Port of the JAX package's ``pipeline/system.py`` ``MonoSlam`` (ORB-SLAM3's
 ``System::TrackMonocular`` with the state machine of ``Tracking``:
-NOT_INITIALIZED -> OK -> RECENTLY_LOST -> a new map), with loop closing,
-relocalization, the background global BA and the chessboard world frame
-off, as they are in the JAX system without a vocabulary. Each frame runs
-the port's entry points:
+NOT_INITIALIZED -> OK -> RECENTLY_LOST -> a new map), with the background
+global BA and the chessboard world frame off. Given a vocabulary (a port
+``ops.bow.Vocabulary``) and ``use_loop_closing=False``, it keeps a BoW
+database of each map's keyframes (``loop_closing.LoopCloser``) and
+relocalises: a RECENTLY_LOST frame into the active map, and a frame of a
+lost or uninitialised map into an older atlas map, which it then re-enters
+(``cross_map_reloc``). Loop closing itself waits for ROADMAP item 12b.
+Each frame runs the port's entry points:
 
   * ``graft.mono_extract`` (K1) on every frame;
   * ``graft.mono_initialize`` (K2) until the initial map is made;
@@ -14,7 +18,9 @@ the port's entry points:
     reference-keyframe fallback (K2, K3) when it keeps fewer than 15
     inliers;
   * ``graft.mono_keyframe_step`` (K2) for each new keyframe, read back
-    lazily at the next keyframe.
+    lazily at the next keyframe;
+  * ``graft.relocalize`` (K2, K3) on a RECENTLY_LOST frame, and before an
+    initialisation attempt while the atlas holds another map.
 
 The map lives on the device. The host keeps the counters, the spanning
 tree, the trajectory log, the last tracked pose and the velocity as numpy.
@@ -22,8 +28,10 @@ The reads of device values are the JAX system's: the number of valid
 features of an uninitialised frame and the initialisation's three, one
 packed read a tracked frame (``frame_step``'s ``info`` with the last pose),
 and one packed read of the previous keyframe bundle's outputs at the next
-keyframe. Each frame's uploads (the image; the predicted and last poses)
-come from page-locked memory and do not wait for the device.
+keyframe; a relocalisation attempt reads the database's candidates once
+and each candidate it tries once. Each frame's uploads (the image; the
+predicted and last poses) come from page-locked memory and do not wait
+for the device.
 
 The stereo and RGB-D systems (``pipeline/stereo_system.py``) extend it
 through ``_ba_kwargs`` (the stereo rows of the frame step's final pose
@@ -45,9 +53,10 @@ from .. import device as device_mod
 from .. import graft
 from ..models import atlas as atlas_mod
 from ..models import map_state as ms
-from ..ops import geometry
+from ..ops import bow, geometry, pnp
 from ..utils import verbose
 from . import mapping, tracking, trajectory_log
+from .loop_closing import LoopCloser
 
 NOT_INITIALIZED = 0
 OK = 1
@@ -89,9 +98,9 @@ class SlamConfig:
     kf_ref_min_obs: int = 3
     min_init_matches: int = 100            # two-view init gate (Tracking.cc:3620)
     triangulation_neighbors: int = 3
-    # The options below belong to loop closing, relocalization and the
-    # chessboard world frame, which the port does not run yet: a
-    # vocabulary or a chessboard raises, and the rest are kept so that a
+    # A vocabulary (``ops.bow.Vocabulary``) enables relocalization;
+    # loop closing (use_loop_closing with a vocabulary) and the chessboard
+    # raise until their ROADMAP items; the rest are kept so that a
     # configuration reads the same in both packages.
     background_gba: bool = True
     vocabulary: Optional[object] = None    # ops.bow.Vocabulary for reloc/loops
@@ -118,10 +127,11 @@ class MonoSlam:
     (``None``: the card; raises without one)."""
 
     def __init__(self, config: SlamConfig, device=None):
-        if config.vocabulary is not None:
+        if config.vocabulary is not None and config.use_loop_closing:
             raise NotImplementedError(
-                "relocalization and loop closing (a vocabulary) wait for "
-                "ROADMAP item 12")
+                "loop closing waits for ROADMAP item 12b: pass "
+                "use_loop_closing=False with a vocabulary for "
+                "relocalization alone")
         if config.chessboard is not None:
             raise NotImplementedError(
                 "the chessboard world frame waits for ROADMAP item 13")
@@ -142,8 +152,16 @@ class MonoSlam:
         # Localization-only mode (System::ActivateLocalizationMode): track
         # against the frozen map, no keyframe insertion.
         self.localization_only = False
-        # The RANSAC's generator (the JAX system's rng_key).
+        # The RANSACs' generator (the JAX system's rng_key).
         self.generator = torch.Generator(dev).manual_seed(0)
+        # The keyframe databases (a vocabulary), and the count of
+        # relocalizations into another atlas map.
+        self.loop_closer = None
+        if config.vocabulary is not None:
+            self.loop_closer = LoopCloser(
+                bow.to_device(config.vocabulary, dev), config.max_kf,
+                config.n_features)
+        self.n_cross_map_relocs = 0
 
         # Reference frame for initialization.
         self._init_feats = None
@@ -300,6 +318,13 @@ class MonoSlam:
             matched.to(torch.float32) + 1e-9)
 
     def _try_initialize(self, feats, stamp):
+        # Before a fresh map is built, try relocalizing into an older atlas
+        # map: revisited territory re-enters the old map directly.
+        if (len(self.atlas.maps) > 1 and self.loop_closer is not None
+                and self.cfg.cross_map_reloc):
+            reloc = self._relocalize(feats, stamp)
+            if reloc is not None:
+                return reloc
         n_valid = int(feats.valid.sum())
         if self._init_feats is None:
             if n_valid >= 100:
@@ -439,10 +464,12 @@ class MonoSlam:
 
         if n_inliers < 15:
             # RECENTLY_LOST (Tracking.cc:2925-2947): dead-reckon for a grace
-            # period (relocalization needs a vocabulary), then give the map
-            # up.
+            # period while attempting relocalization, then give the map up.
             self.status = RECENTLY_LOST
             self.lost_frames += 1
+            reloc = self._relocalize(feats, stamp)
+            if reloc is not None:
+                return reloc
             if self.lost_frames > self.lost_grace:
                 self._handle_lost(feats, stamp)
                 return None
@@ -562,6 +589,8 @@ class MonoSlam:
         self.state = state
         self.n_kf = n_valid
         self.last_kf_id = int(old2new[self.last_kf_id])
+        if self.loop_closer is not None:
+            self.loop_closer.remap_keyframes(old2new, n_valid)
         self._on_keyframes_compacted(old2new)
         self._refresh_ref_cache()
         return True
@@ -681,6 +710,8 @@ class MonoSlam:
             self._maybe_cull_keyframes(kf_id)
             self._last["R"] = self.state.kfs.R[kf_id]
             self._last["t"] = self.state.kfs.t[kf_id]
+        if self.loop_closer is not None:
+            self.loop_closer.add_keyframe(self.state, kf_id)   # no read
         self._pending_kf = dict(
             kf_id=kf_id, ref_gen=self._ref_cache_gen,
             out=torch.cat([info, culled.to(torch.float32),
@@ -769,8 +800,12 @@ class MonoSlam:
         self._ref_cache = None
         if keep_map:
             self.atlas.create_new_map()
+            if self.loop_closer is not None:
+                self.loop_closer.switch_map(self.atlas.current)
         else:
             self.atlas.reset_active_map()
+            if self.loop_closer is not None:
+                self.loop_closer.reset_active()
         self.status = NOT_INITIALIZED
         self.lost_frames = 0
         self._init_feats = None
@@ -779,6 +814,88 @@ class MonoSlam:
         self._vel = None
         self.last_kf_id = -1
         self.frames_since_kf = 0
+
+    # ------------------------------------------------------------------
+    # Relocalization (Tracking::Relocalization) and the atlas re-entry
+    # ------------------------------------------------------------------
+    def _pnp_indices(self, corr: torch.Tensor,
+                     kp_lm: torch.Tensor) -> torch.Tensor:
+        """The relocalization PnP's (128, 6) sample rows over the
+        keypoints with a correspondence (``corr``; ``kp_lm`` holds each
+        keypoint's landmark), drawn from the system's generator."""
+        return pnp.draw_indices(self.generator, corr)
+
+    def _relocalize(self, feats, stamp):
+        """The active map first (the reference's candidates come from the
+        current map), then, with ``cross_map_reloc``, every other atlas map
+        from the newest, switching into the one that relocalizes. Returns
+        the pose (numpy) or None."""
+        if self.loop_closer is None:
+            return None
+        hit = self._relocalize_in_map(feats, self.atlas.current)
+        if hit is not None:
+            self._adopt_reloc(hit, feats, stamp)
+            return (hit.R, hit.t)
+        if not self.cfg.cross_map_reloc:
+            return None
+        for m in range(len(self.atlas.maps) - 1, -1, -1):
+            if m == self.atlas.current:
+                continue
+            hit = self._relocalize_in_map(feats, m)
+            if hit is not None:
+                self._switch_to_map_for_reloc(m, hit.cand)
+                self._adopt_reloc(hit, feats, stamp)
+                self.n_cross_map_relocs += 1
+                verbose.print_mess(
+                    f"relocalized into atlas map {m} (KF {hit.cand})")
+                return (hit.R, hit.t)
+        return None
+
+    def _relocalize_in_map(self, feats, map_idx: int):
+        """``graft.relocalize`` against atlas map ``map_idx``: its
+        ``RelocResult`` when a candidate passes, else None. Nothing is
+        changed."""
+        db = self.loop_closer.dbs.get(map_idx)
+        if db is None:
+            return None
+        res = graft.relocalize(
+            self.atlas.maps[map_idx], db, feats, self.cam_params,
+            cfg=self.mcfg, min_inliers=self.cfg.min_reloc_inliers,
+            draw=self._pnp_indices)
+        return res if res.success else None
+
+    def _adopt_reloc(self, hit, feats, stamp):
+        self.status = OK
+        self.lost_frames = 0
+        self._vel = None
+        self._last = dict(feats=feats, bindings=hit.track.bindings,
+                          R=hit.R, t=hit.t, stamp=stamp)
+
+    def _switch_to_map_for_reloc(self, map_idx: int, cand: int):
+        """Make atlas map ``map_idx`` the active one after a relocalization
+        into it. The outgoing map stays in the atlas if mature, or is reset
+        in place if too young to keep (``_handle_lost``'s split). No
+        background GBA runs without loop closing, so none is aborted."""
+        self._drain_pending()
+        keep = self.n_kf >= 10
+        # The outgoing map's frame records stop replaying against the
+        # incoming map's keyframe slots.
+        self._traj.freeze_all(*self._host_poses(),
+                              map_tag=(self.atlas.current if keep else -1))
+        if not keep:
+            self.atlas.reset_active_map()
+            self.loop_closer.reset_active()
+        self.atlas.current = map_idx
+        self.loop_closer.switch_map(map_idx, fresh=False)
+        self.last_kf_id = cand
+        self.frames_since_kf = 0
+        self._init_feats = None
+        self._init_stamp = None
+        self._refresh_ref_cache()
+        self._on_cross_map_reloc(cand)
+
+    def _on_cross_map_reloc(self, cand: int):
+        """Subclass hook (the inertial systems restart their chain)."""
 
     # ------------------------------------------------------------------
     def keyframe_trajectory(self):

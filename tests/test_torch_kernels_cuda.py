@@ -615,3 +615,73 @@ def test_fisheye_stereo_extract_on_the_card(dev):
     both = ok & cpu.valid
     torch.testing.assert_close(m.depth.cpu()[both], cpu.depth[both],
                                rtol=1e-4, atol=0)
+
+
+def test_k2_reloc_match_shape(dev, gen):
+    """The relocalization's candidate match: none mode over every landmark
+    slot (65536 at the EuRoC-mono capacity), rows masked by the landmarks
+    the candidate keyframe sees (a few hundred), against a frame's 1536
+    keypoints; duplicate columns; bit-identical to the plain version."""
+    args, gates = _k2_case(gen, dev, "none", 65536, 1536)
+    seen = torch.zeros(65536, dtype=torch.bool, device=dev)
+    rows = torch.from_numpy(gen.choice(65536, 600, replace=False)).to(dev)
+    seen[rows] = True
+    da, db, _, vb = args
+    db[1::2] = db[0::2]
+    da[rows[:300]] = db[torch.from_numpy(gen.integers(0, 1536, 300)).to(dev)]
+    out = _k2_check((da, db, seen, vb), gates)
+    assert int((out[0] == 0).sum()) >= 300
+    assert bool((out[0][~seen] == 1024).all())
+
+
+def test_k3_pnp_refine_shape(dev, gen):
+    """The relocalization PnP on the card: one row per keypoint (1536), a
+    few hundred with a landmark; its refine is one K3 launch over those
+    rows, held against the plain version at float64 (1e-4), and the pose
+    is the truth's."""
+    from orbslam3_byzyh_tpu_torch.ops import pnp
+    n, m = 1536, 400
+    rows = gen.choice(n, m, replace=False)
+    pts = np.zeros((n, 3), np.float32)
+    pts[rows] = np.stack([gen.uniform(-4, 4, m), gen.uniform(-3, 3, m),
+                          gen.uniform(4, 12, m)], -1)
+    R_gt = lie.so3_exp(torch.tensor(gen.normal(0, 0.2, 3))).float()
+    t_gt = torch.tensor([0.4, -0.2, 0.3])
+    cam = np.array([458.654, 457.296, 367.215, 248.375], np.float32)
+    pc = pts @ R_gt.numpy().T + t_gt.numpy()
+    uv = np.stack([cam[0] * pc[:, 0] / np.maximum(pc[:, 2], 1e-3) + cam[2],
+                   cam[1] * pc[:, 1] / np.maximum(pc[:, 2], 1e-3) + cam[3]],
+                  -1).astype(np.float32)
+    uv += gen.normal(0, 0.5, uv.shape).astype(np.float32)
+    out = rows[:80]
+    uv[out] += gen.uniform(30, 150, (80, 2)).astype(np.float32)
+    corr = np.zeros(n, bool)
+    corr[rows] = True
+    inv_s2 = (1.0 / 1.2 ** (2.0 * gen.integers(0, 4, n))).astype(np.float32)
+    calls = []
+    fn = cuda_pose_opt.pose_optimization_kernel
+
+    def spy(*a, **k):
+        calls.append(a)
+        return fn(*a, **k)
+
+    cuda_pose_opt.pose_optimization_kernel = spy
+    try:
+        corr_t = _t(corr, dev)
+        idx = pnp.draw_indices(torch.Generator(dev).manual_seed(0), corr_t)
+        res = pnp.pnp_ransac(idx, _t(pts, dev), _t(uv, dev),
+                             _t(inv_s2, dev), corr_t, _t(cam, dev))
+        torch.cuda.synchronize()
+    finally:
+        cuda_pose_opt.pose_optimization_kernel = fn
+    assert len(calls) == 1 and calls[0][2].shape == (n, 3)
+    a = calls[0]
+    Rk, tk, _ = fn(*a)
+    Rp, tp, _ = cuda_pose_opt.pose_optimization_plain(
+        *(x.double() if x.is_floating_point() else x for x in a))
+    torch.cuda.synchronize()
+    assert float((Rk.double() - Rp).abs().max()) <= 1e-4
+    assert float((tk.double() - tp).abs().max()) <= 1e-4
+    assert bool(res.ok) and int(res.n_inliers) > 250
+    assert float((res.t.cpu() - t_gt).abs().max()) < 0.05
+    assert not bool(res.inlier.cpu()[torch.from_numpy(out)].any())
