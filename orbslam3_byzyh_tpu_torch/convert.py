@@ -228,10 +228,16 @@ def keyframe_db_to_numpy(db) -> tuple:
 
 
 def carry_loop_closer(src, dst) -> None:
-    """Set the port's ``LoopCloser`` ``dst`` to the databases and the active
-    map of ``src``, an object with the JAX package's ``LoopCloser``
-    attributes (``dbs``, ``active``, ``loop_edges``)."""
+    """Set the port's ``LoopCloser`` ``dst`` to the databases, the active
+    map, the loop edges (measurements kept as numpy: ``close`` uploads
+    them), the temporal streaks and the 4-DoF switch of ``src``, an object
+    with the JAX package's ``LoopCloser`` attributes."""
     dst.dbs = {m: keyframe_db_to_torch(db, dst.voc)
                for m, db in src.dbs.items()}
     dst.active = src.active
     dst.loop_edges = {m: list(e) for m, e in src.loop_edges.items()}
+    dst._streak = (None if getattr(src, "_streak", None) is None
+                   else dict(src._streak))
+    dst._merge_streak = (None if getattr(src, "_merge_streak", None) is None
+                         else dict(src._merge_streak))
+    dst.inertial_4dof = bool(getattr(src, "inertial_4dof", False))

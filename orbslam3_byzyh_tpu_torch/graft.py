@@ -45,7 +45,12 @@ gates (``fisheye_frames``, ``fisheye_stereo_golden_config``,
 Place recognition ends it: ``relocalize``, the device half of one map's
 relocalization attempt, and the relocalization cells' frames,
 configuration and gates (``reloc_sequence``, ``reloc_golden_config``,
-``reloc_run_gates`` against the JAX run's ``RELOC_JAX``).
+``reloc_run_gates`` against the JAX run's ``RELOC_JAX``). Loop closing
+follows: ``loop_closing_step``, the device half of one keyframe's loop
+closing (detection; on a loop the correction, the fusion and the global
+BA), ``euroc_loop_map``, a drifted circuit at the EuRoC-mono capacity
+that closes a loop, and cell (k)'s configuration and the JAX run's
+decisions (``loop_golden_config``, ``LOOP_JAX``).
 """
 
 from __future__ import annotations
@@ -2701,3 +2706,236 @@ def reloc_run_gates(cell: str, statuses, maps, n_maps: int, n_kf_before: int,
         and (cell == "i" or n_kf_after >= n_kf_before)
         and out["reloc_err_m"] < RELOC_CENTRE_GATE_M)
     return out
+
+
+# --- Loop closing -----------------------------------------------------------
+
+def loop_closing_step(state, lc, kf_id: int, n_kf: int, cam_params, *,
+                      kf_parent=None, cfg: MonoConfig = EUROC_MONO,
+                      gba: str = "inline", bg=None, ba_kwargs=None):
+    """The device half of ``MonoSlam._run_loop_closing`` for keyframe
+    ``kf_id`` (LoopClosing): ``lc.detect`` (the database's candidates,
+    each candidate's verification ladder: K2 twice in window mode over
+    every landmark slot, the Sim3 RANSAC and OptimizeSim3, the temporal
+    streak); when it fires, ``lc.close`` (the essential-graph pose graph
+    over the live prefix, the landmark correction), ``fuse_duplicates``
+    (K2's window mode) and the global BA: ``gba`` "inline"
+    (``mapping.global_ba``), "background" (``bg.start``, a
+    ``BackgroundGBA``, to be ticked by the caller) or "none".
+
+    ``lc``: a ``LoopCloser`` holding the map's database; ``kf_parent``:
+    the spanning tree (host numpy, -1 = root; the temporal chain without
+    one); ``ba_kwargs``: the stereo rows' ``use_stereo`` and ``bf``.
+    Returns (state, info): ``info`` holds the query, the candidates, each
+    tried candidate's stage counts (``tried``), the streak's count,
+    ``fired``, and when it fired the candidate (``cand``) and the Sim3
+    (``sim3``: R, t, s, n; query world -> candidate world), and the host
+    reads by name (``host_reads``)."""
+    kw = dict(ba_kwargs or {})
+    det = lc.detect(state, kf_id, n_kf)
+    info = dict(lc.info)
+    info["host_reads"] = list(info["host_reads"])
+    info.setdefault("fired", False)
+    if det is None:
+        return state, info
+    cand, corr = det
+    info.update(fired=True, cand=int(cand), sim3=corr)
+    state = lc.close(state, kf_id, cand, corr, n_kf, span_parent=kf_parent)
+    info["host_reads"].append("close: covisibility and liveness")
+    # SearchAndFuse (LoopClosing.cc:2689): the drifted duplicates merge
+    # into their loop-side originals.
+    state = mapping.fuse_duplicates(state, kf_id, cam_params,
+                                    float(cfg.width), float(cfg.height))
+    if gba == "inline":
+        state = mapping.global_ba(state, cam_params, **kw)
+    elif gba == "background":
+        bg.start(state, n_kf, cam_params,
+                 use_stereo=bool(kw.get("use_stereo")),
+                 bf=float(kw.get("bf", 0.0)))
+        info["host_reads"].append("background GBA start: liveness")
+    elif gba != "none":
+        raise ValueError(f"gba: 'inline', 'background' or 'none', got {gba!r}")
+    return state, info
+
+
+class LoopMap(NamedTuple):
+    """:func:`euroc_loop_map`'s map (numpy leaves, the JAX package's
+    dtypes) and truth."""
+
+    state: ms.MapState
+    n_kf: int                 # live keyframes, slots [0, n_kf)
+    revisit: tuple            # the revisit keyframes' slots
+    revisit_of: tuple         # the keyframe each re-observes
+    c_true: np.ndarray        # (n_kf, 3) true camera centres
+    scales: np.ndarray        # (n_kf,) the scale creep at each keyframe
+    cam_params: np.ndarray    # (4,) float32
+    kf_parent: np.ndarray     # (max_kf,) the spanning tree (a chain)
+
+
+def loop_expected_scale(m: LoopMap, i: int) -> float:
+    """The Sim3 scale that undoes the creep between revisit ``i`` and the
+    keyframe it re-observes."""
+    return float(m.scales[m.revisit_of[i]] / m.scales[m.revisit[i]])
+
+
+def euroc_loop_map(cfg: MonoConfig = EUROC_MONO, n_kf: int = 160,
+                   n_pts: int = 300, n_revisit: int = 3,
+                   creep: float = 1.25, radius: float = 4.0,
+                   seed: int = 0) -> LoopMap:
+    """A drifted circuit at ``cfg``'s capacity that closes a loop: the JAX
+    test's ``build_circular_map`` (``tests/test_loop_closing.py``) at the
+    EuRoC-mono slots (1024 keyframes, 65,536 landmarks, 12 observations,
+    1200 keypoints) and camera (its pinhole; the keypoints are undistorted
+    pixels).
+
+    ``n_kf`` keyframes on a circle of ``radius`` m, each looking at the
+    circle's middle, see a patch of ``n_pts`` points of their own (3-6 m
+    deep); consecutive keyframes share landmarks: keyframe k + 1 observes
+    patch k at keypoints ``n_pts .. 2 n_pts - 1`` (the last patch is
+    observed back by keyframe ``n_kf - 2`` at ``2 n_pts ..``). Keypoints
+    are the true projections with 0.3 px of noise, the rest of the 1200
+    random. A scale creep compounds along the circuit to ``creep`` at the
+    last keyframe: keyframe k's centre and its patch sit at ``scale_k``
+    times the truth. The last ``n_revisit`` keyframes sit one step behind
+    keyframes 0, 1, ... and re-observe their physical points, with the
+    same descriptors, as fresh landmarks at the drifted scale: the loop.
+    About 48,000 live landmarks at the defaults."""
+    rng = np.random.default_rng(seed)
+    K, nf, O, L = cfg.max_kf, cfg.n_features, cfg.max_obs, cfg.max_lm
+    fx, fy, cx, cy = cfg.fx, cfg.fy, cfg.cx, cfg.cy
+    W, H = cfg.width, cfg.height
+    if (n_kf + 1 > K or n_kf * n_pts > L or 3 * n_pts > nf
+            or n_kf < 2 * n_revisit + 12):
+        raise ValueError("the circuit does not fit the configuration")
+    drift = creep ** (1.0 / (n_kf - 1))
+    scales = drift ** np.arange(n_kf)
+    n_loop = n_kf - n_revisit
+    R_true, c_true = [], []
+    for k in range(n_kf):
+        step = k - n_loop - 1 if k >= n_loop else k
+        ang = 2 * np.pi * step / n_kf
+        R_wc = _rodrigues([0.0, ang, 0.0])
+        R_true.append(R_wc.T)
+        c_true.append(np.array([np.sin(ang), 0.0, 1.0 - np.cos(ang)])
+                      * radius)
+    R_true, c_true = np.stack(R_true), np.stack(c_true)
+    Rk = np.tile(np.eye(3), (K, 1, 1))
+    tk = np.zeros((K, 3))
+    for k in range(n_kf):
+        Rk[k] = R_true[k]
+        tk[k] = -R_true[k] @ (c_true[k] * scales[k])
+
+    def project(k, X):
+        pc = X @ Rk[k].T + tk[k]
+        z = pc[:, 2]
+        uv = np.stack([fx * pc[:, 0] / z + cx, fy * pc[:, 1] / z + cy], -1)
+        ok = (z > 0.1) & (uv[:, 0] >= 0) & (uv[:, 0] < W) & (uv[:, 1] >= 0) \
+            & (uv[:, 1] < H)
+        return uv + rng.normal(0, 0.3, uv.shape), ok, np.linalg.norm(
+            X - (-Rk[k].T @ tk[k]), axis=-1)
+
+    kp_xy = np.stack([rng.uniform(0, W, (K, nf)), rng.uniform(0, H, (K, nf))],
+                     -1)
+    kp_desc = rng.integers(0, 2 ** 32, (K, nf, 8), dtype=np.uint32)
+    descs = rng.integers(0, 2 ** 32, (n_kf * n_pts, 8), dtype=np.uint32)
+    pos = np.zeros((L, 3))
+    desc = np.zeros((L, 8), np.uint32)
+    normal = np.zeros((L, 3))
+    min_d, max_d = np.zeros(L), np.full(L, 1e9)
+    first_kf = np.zeros(L, np.int32)
+    obs_kf = np.full((L, O), -1, np.int32)
+    obs_kp = np.full((L, O), -1, np.int32)
+    obs_valid = np.zeros((L, O), bool)
+    early = {}
+    for k in range(n_kf):
+        rows = np.arange(k * n_pts, (k + 1) * n_pts)
+        revisit_of = k - n_loop if k >= n_loop else -1
+        if revisit_of >= 0:
+            pts = early[revisit_of] * scales[k]
+            desc_rows = np.arange(revisit_of * n_pts, (revisit_of + 1) * n_pts)
+        else:
+            pc = np.stack([rng.uniform(-1.5, 1.5, n_pts),
+                           rng.uniform(-1.0, 1.0, n_pts),
+                           rng.uniform(3.0, 6.0, n_pts)], -1)
+            pts = (pc - tk[k]) @ Rk[k]
+            desc_rows = rows
+            if k < n_revisit:
+                early[k] = pts / scales[k]
+        uv, _, dist = project(k, pts)
+        kp_xy[k, :n_pts] = uv
+        kp_desc[k, :n_pts] = descs[desc_rows]
+        pos[rows] = pts
+        desc[rows] = descs[desc_rows]
+        ray = pts + Rk[k].T @ tk[k]
+        normal[rows] = ray / np.linalg.norm(ray, axis=-1, keepdims=True)
+        max_d[rows] = dist
+        min_d[rows] = dist / cfg.scale ** (cfg.n_levels - 1)
+        first_kf[rows] = k
+        obs_kf[rows, 0] = k
+        obs_kp[rows, 0] = np.arange(n_pts)
+        obs_valid[rows, 0] = True
+        # The second observation: the next keyframe (the previous one for
+        # the last patch), where the point is in its view.
+        other, base = (k + 1, n_pts) if k + 1 < n_kf else (k - 1, 2 * n_pts)
+        uv2, ok2, _ = project(other, pts)
+        kp_xy[other, base:base + n_pts][ok2] = uv2[ok2]
+        obs_kf[rows[ok2], 1] = other
+        obs_kp[rows[ok2], 1] = base + np.flatnonzero(ok2)
+        obs_valid[rows[ok2], 1] = True
+    n_lm = n_kf * n_pts
+    n_obs = obs_valid.sum(1).astype(np.int32)
+    valid = np.arange(L) < n_lm
+    kf_valid = np.arange(K) < n_kf
+    f32 = np.float32
+    state = ms.MapState(
+        kfs=ms.KeyFrames(
+            R=Rk.astype(f32), t=tk.astype(f32),
+            stamp=(np.arange(K) * kf_valid).astype(f32),
+            kp_xy=(kp_xy * kf_valid[:, None, None]).astype(f32),
+            kp_level=np.zeros((K, nf), np.int32),
+            kp_angle=np.zeros((K, nf), f32),
+            kp_desc=kp_desc * kf_valid[:, None, None].astype(np.uint32),
+            kp_valid=np.repeat(kf_valid[:, None], nf, 1),
+            kp_ur=np.full((K, nf), -1.0, f32), valid=kf_valid),
+        lms=ms.Landmarks(
+            pos=pos.astype(f32), desc=desc, normal=normal.astype(f32),
+            min_dist=min_d.astype(f32), max_dist=max_d.astype(f32),
+            n_obs=n_obs, n_found=valid.astype(np.int32),
+            n_visible=valid.astype(np.int32), first_kf=first_kf,
+            valid=valid),
+        obs=ms.Observations(kf=obs_kf, kp=obs_kp, valid=obs_valid))
+    parent = np.full(K, -1, np.int32)
+    parent[1:n_kf] = np.arange(n_kf - 1)
+    return LoopMap(
+        state=state, n_kf=n_kf,
+        revisit=tuple(range(n_loop, n_kf)),
+        revisit_of=tuple(range(n_revisit)), c_true=c_true.astype(f32),
+        scales=scales,
+        cam_params=np.array([fx, fy, cx, cy], f32), kf_parent=parent)
+
+
+def loop_golden_config(vocabulary=None, **changes):
+    """Cell (k), the runners' default configuration
+    (``scripts/run_euroc_mono.py`` with no flag): :func:`euroc_golden_config`
+    (the golden frames padded to 752x480 at the EuRoC-mono capacity, 1536
+    features) with ``vocabulary`` and ``SlamConfig``'s defaults
+    ``use_loop_closing=True`` and ``background_gba=True``."""
+    return euroc_golden_config(vocabulary=vocabulary, use_loop_closing=True,
+                               background_gba=True, **changes)
+
+
+# The JAX MonoSlam's run of cell (k) (``scripts/loop_reference_jax.py k`` on
+# the CPU, ``synthetic_voc_10k.npz``, the map cut to
+# :data:`RELOC_CPU_SLOTS`): every frame from the third hosts a keyframe
+# (slots 2-43), each keyframe's loop detection runs when the next is made
+# (and the last at the trajectory read), the database is mined from the
+# twelfth keyframe on, and no candidate survives the exclusion of the
+# covisible and the last 10 keyframes: no keyframe verifies a candidate and
+# no loop fires. 44 frames, ATE 0.006724 m (Horn with scale). ``detect``:
+# per call the keyframe, the keyframe count, the candidates (-1: none;
+# empty below ``min_map_kfs``), whether a loop fired and its candidate.
+LOOP_JAX = dict(
+    frames=44, ate_m=0.006724322260210651, loops=0,
+    detect=[dict(query=q, n_kf=q + 1,
+                 candidates=[-1, -1, -1] if q + 1 >= 12 else [],
+                 fired=False, cand=None) for q in range(2, 43)])

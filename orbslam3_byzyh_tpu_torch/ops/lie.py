@@ -1,8 +1,11 @@
-"""Batched SO(3) / SE(3) operations (the subset the port's paths use).
+"""Batched SO(3), SE(3) and Sim(3) operations.
 
 Port of ``orbslam3_byzyh_tpu/ops/lie.py``: rotations are 3x3 matrices,
-poses are (R, t) pairs, and every function takes arbitrary leading batch
-dimensions. Small-angle branches select Taylor series with ``torch.where``.
+poses are (R, t) pairs, similarities (R, t, s) triples, and every function
+takes arbitrary leading batch dimensions. Small-angle branches select
+Taylor series with ``torch.where``; every quotient that a branch discards
+divides by a "safe" value, so forward-mode derivatives at a zero tangent
+(the pose graph's Jacobians) stay finite.
 
 Two projections onto SO(3): :func:`normalize_rotation` is the JAX package's
 SVD (on CUDA ``torch.linalg.svd`` synchronises the stream);
@@ -240,3 +243,160 @@ def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
     q = torch.where(cond0, c0, torch.where(cond1, c1,
                                            torch.where(cond2, c2, c3)))
     return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+
+
+def se3_identity(batch_shape=(), dtype=torch.float32, device=None):
+    R = torch.eye(3, dtype=dtype, device=device).expand(*batch_shape, 3, 3)
+    return R, torch.zeros((*batch_shape, 3), dtype=dtype, device=device)
+
+
+def _left_jacobian_inv(phi: torch.Tensor) -> torch.Tensor:
+    """Inverse left Jacobian of SO(3): Jl^-1(phi) = Jr^-1(-phi)."""
+    return so3_right_jacobian_inv(-phi)
+
+
+def se3_log(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """SE(3) -> se(3) tangent (..., 6) as [rho, phi]."""
+    phi = so3_log(R)
+    rho = (_left_jacobian_inv(phi) @ t[..., None])[..., 0]
+    return torch.cat([rho, phi], -1)
+
+
+def se3_mul(Ra, ta, Rb, tb):
+    """Compose (Ra, ta) * (Rb, tb)."""
+    return Ra @ Rb, (Ra @ tb[..., None])[..., 0] + ta
+
+
+def se3_inv(R, t):
+    Rt = R.transpose(-1, -2)
+    return Rt, -(Rt @ t[..., None])[..., 0]
+
+
+def se3_apply(R, t, p):
+    """Transform points p (..., 3) by the pose (R, t)."""
+    return (R @ p[..., None])[..., 0] + t
+
+
+# Sim(3): (R, t, s), x -> s R x + t (Sophus / g2o::Sim3).
+
+def sim3_identity(batch_shape=(), dtype=torch.float32, device=None):
+    R, t = se3_identity(batch_shape, dtype, device)
+    return R, t, torch.ones(batch_shape, dtype=dtype, device=device)
+
+
+# The Sim(3) maps below take and return the scale as (..., 1) (see
+# :func:`_angle2`): the pose graph differentiates them in forward mode.
+# The public ones take and return it as (...), as the JAX package does.
+
+def sim3_mul1(Ra, ta, sa, Rb, tb, sb):
+    """:func:`sim3_mul` with (..., 1) scales."""
+    return Ra @ Rb, sa * (Ra @ tb[..., None])[..., 0] + ta, sa * sb
+
+
+def sim3_inv1(R, t, s):
+    """:func:`sim3_inv` with a (..., 1) scale."""
+    Rt = R.transpose(-1, -2)
+    s_inv = 1.0 / s
+    return Rt, -s_inv * (Rt @ t[..., None])[..., 0], s_inv
+
+
+def sim3_exp1(xi: torch.Tensor):
+    """:func:`sim3_exp` returning a (..., 1) scale."""
+    rho, phi, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6:7]
+    s = torch.exp(sigma)
+    W = _sim3_calc_w(phi, sigma, s)
+    return so3_exp(phi), (W @ rho[..., None])[..., 0], s
+
+
+def sim3_log1(R, t, s):
+    """:func:`sim3_log` of a (..., 1) scale."""
+    sigma = torch.log(s)
+    phi = so3_log(R)
+    W = _sim3_calc_w(phi, sigma, s)
+    # W^-1 by cofactors: no host synchronisation, forward-mode friendly.
+    rho = (_inv_transpose(W).transpose(-1, -2) @ t[..., None])[..., 0]
+    return torch.cat([rho, phi, sigma], -1)
+
+
+def sim3_mul(Ra, ta, sa, Rb, tb, sb):
+    """Compose: x -> sa Ra (sb Rb x + tb) + ta."""
+    R, t, s = sim3_mul1(Ra, ta, sa[..., None], Rb, tb, sb[..., None])
+    return R, t, s[..., 0]
+
+
+def sim3_inv(R, t, s):
+    Ri, ti, si = sim3_inv1(R, t, s[..., None])
+    return Ri, ti, si[..., 0]
+
+
+def sim3_apply(R, t, s, p):
+    return s[..., None] * (R @ p[..., None])[..., 0] + t
+
+
+def sim3_exp(xi: torch.Tensor):
+    """sim(3) -> Sim(3). xi (..., 7) = [rho, phi, sigma] (Sophus order)."""
+    R, t, s = sim3_exp1(xi)
+    return R, t, s[..., 0]
+
+
+def sim3_log(R, t, s):
+    """Sim(3) -> sim(3) tangent (..., 7)."""
+    return sim3_log1(R, t, s[..., None])
+
+
+def _sim3_calc_w(phi, sigma, scale):
+    """Sophus's ``calcW`` (the scaled left Jacobian): the general,
+    small-theta, small-sigma and both-small cases selected by
+    ``torch.where``. ``sigma`` and ``scale`` are (..., 1), as every scalar
+    factor here (see :func:`_angle2`)."""
+    theta2 = _angle2(phi)
+    theta = torch.sqrt(theta2)
+    W = skew(phi)
+    W2 = W @ W
+    small_theta = theta < _EPS
+    small_sigma = sigma.abs() < _EPS
+    sigma2 = sigma * sigma
+    one = torch.ones_like(theta)
+    safe_theta = torch.where(small_theta, one, theta)
+    safe_theta2 = torch.where(small_theta, one, theta2)
+    one_s = torch.ones_like(sigma)
+    safe_sigma = torch.where(small_sigma, one_s, sigma)
+    safe_sigma2 = torch.where(small_sigma, one_s, sigma2)
+    sin_t, cos_t = torch.sin(theta), torch.cos(theta)
+
+    # C = (e^sigma - 1) / sigma, 1 + sigma / 2 as sigma -> 0.
+    C = torch.where(small_sigma, 1.0 + sigma * 0.5,
+                    (scale - 1.0) / safe_sigma)
+    # sigma ~ 0:
+    A_s0 = torch.where(small_theta, 0.5 * one, (1.0 - cos_t) / safe_theta2)
+    B_s0 = torch.where(small_theta, one / 6.0,
+                       (theta - sin_t) / (safe_theta2 * safe_theta))
+    # theta ~ 0, any sigma:
+    A_t0 = ((sigma - 1.0) * scale + 1.0) / safe_sigma2
+    B_t0 = ((scale * 0.5 * sigma2 + scale - 1.0 - sigma * scale)
+            / (safe_sigma2 * safe_sigma))
+    # general:
+    a = scale * sin_t
+    b = scale * cos_t
+    c = safe_theta2 + sigma2
+    A_g = (a * sigma + (1.0 - b) * safe_theta) / (safe_theta * c)
+    B_g = (C - ((b - 1.0) * sigma + a * safe_theta) / c) / safe_theta2
+
+    A = torch.where(small_sigma, A_s0, torch.where(small_theta, A_t0, A_g))
+    B = torch.where(small_sigma, B_s0, torch.where(small_theta, B_t0, B_g))
+    return (A[..., None] * W + B[..., None] * W2
+            + C[..., None] * _eye_like(W))
+
+
+def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion (qx, qy, qz, qw) -> rotation matrix (..., 3, 3)."""
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    return torch.stack([
+        torch.stack([1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy)], -1),
+        torch.stack([2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx)], -1),
+        torch.stack([2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy)], -1),
+    ], -2)

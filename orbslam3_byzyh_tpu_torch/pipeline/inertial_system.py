@@ -622,9 +622,10 @@ class MonoInertialSlam(system_mod.MonoSlam):
     RECENTLY_LOST frame dead-reckons on the IMU, as the JAX system's
     does), and a re-entry into an older atlas map restarts the IMU
     machinery with a fresh chain at the next keyframe
-    (``_on_cross_map_reloc``). Loop closing and map merging
-    (``_loops_allowed``, ``_merge_maps``, ``_on_map_corrected``) wait for
-    ROADMAP items 12b and 12c.
+    (``_on_cross_map_reloc``). Loop closing opens after VIBA2
+    (``_loops_allowed``) and solves its pose graph in 4 DoF once the IMU is
+    initialised; a correction carries the body state with it
+    (``_on_map_corrected``). Map merging waits for ROADMAP item 12c.
 
     Host reads, beside ``MonoSlam``'s: a tracked inertial frame's one
     packed ``info`` (``track_inertial``), with a carried prior the
@@ -687,7 +688,7 @@ class MonoInertialSlam(system_mod.MonoSlam):
         self._fresh_chain = False
         if self.loop_closer is not None:
             # After the IMU init the map is metric and gravity-aligned
-            # (read by loop closing, item 12b).
+            # (the loop closer solves SE3, then 4 DoF after the init).
             self.loop_closer.cfg.fix_scale = True
 
     # ------------------------------------------------------------------
@@ -1052,9 +1053,35 @@ class MonoInertialSlam(system_mod.MonoSlam):
         self._bias = np.concatenate([bg, ba])
         self._set_ref_cache(kf_id, R, t)
 
+    def _loops_allowed(self) -> bool:
+        """The inertial loop guard: the map IMU-initialised and past VIBA2
+        (LoopClosing.cc:407-430)."""
+        return self.imu_ready and self.viba_stage >= 2
+
+    def _on_map_corrected(self, kf_id: int):
+        """After a loop closure or a GBA merge the body follows the
+        corrected last-frame pose, and the world-frame velocity turns with
+        the anchor's world correction (CorrectLoop moves the current
+        keyframe's velocity through the Sim3 too); the carried prior's
+        linearization point moved, so it is dropped."""
+        super()._on_map_corrected(kf_id)
+        if (self.imu_ready and self.last_kf_id == kf_id
+                and self._last is not None and self._body is not None):
+            dev = self.device
+            R_l, t_l = (device_mod.upload(np.asarray(x, np.float32), dev)
+                        for x in (self._last["R"], self._last["t"]))
+            Rb, pb = body_from_cam(R_l, t_l, self.ctx.R_bc, self.ctx.t_bc)
+            v = self._body[2]
+            if self._corr_Rw is not None:
+                v = device_mod.upload(self._corr_Rw, dev) @ v
+            self._body = (Rb, pb, v)
+            self._pose_prior_H = None
+
     def _rebase_gravity_scale(self, R_gw: torch.Tensor, s: float):
         """x' = s R_gw x on the map (``rebase_gravity_scale``), the frame
-        records' rescale, and the prior dropped."""
+        records' rescale, and the prior dropped. A background GBA's
+        snapshot is in the old world: it is aborted."""
+        self._gba_abort()
         self.state = rebase_gravity_scale(self.state, R_gw, s)
         self._traj.rescale(s)
         self._pose_prior_H = None

@@ -67,7 +67,9 @@ class KeyframeDatabase:
         words = bow.transform(self.voc, desc, kp_valid)
         qv = bow.bow_vector(self.voc, words)
         valid = self.valid
-        if exclude is not None:
+        if isinstance(exclude, torch.Tensor):
+            valid = valid & ~exclude
+        elif exclude is not None:
             valid = valid & ~device_mod.upload(np.asarray(exclude, bool),
                                                valid.device)
         return words, qv, valid
@@ -76,7 +78,8 @@ class KeyframeDatabase:
               exclude: np.ndarray | None = None, top_n: int = 3,
               min_score: float = 0.0):
         """Top-N keyframes by L1 BoW score. ``exclude``: a (K,) bool mask
-        of keyframes to skip. Returns (ids (top_n,), scores (top_n,)) as
+        of keyframes to skip (numpy, or a tensor on the database's
+        device). Returns (ids (top_n,), scores (top_n,)) as
         numpy (id -1: none) and the query's words (device)."""
         words, qv, valid = self._query_vector(desc, kp_valid, exclude)
         scores = bow.score_against_database(qv, self.vecs, valid)

@@ -199,6 +199,24 @@ def local_ba(state: ms.MapState, free_kf: torch.Tensor, cam_params,
     return _apply_ba_result(state, res)
 
 
+def global_ba(state: ms.MapState, cam_params, model_id: int = cam.PINHOLE,
+              use_stereo: bool = False, bf: float = 0.0,
+              mesh=None) -> ms.MapState:
+    """Full bundle adjustment (RunGlobalBundleAdjustment ->
+    GlobalBundleAdjustemnt): every live keyframe free but the gauge anchor,
+    keyframe 0, on :func:`local_ba` (the scatter Schur assembly). The
+    landmark-sharded form over several devices (``mesh``) waits for
+    ROADMAP item 14."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "global_ba over a device mesh waits for ROADMAP item 14")
+    kfs = state.kfs
+    free = kfs.valid & (torch.arange(kfs.valid.shape[0],
+                                     device=kfs.valid.device) != 0)
+    return local_ba(state, free, cam_params, model_id, use_stereo=use_stereo,
+                    bf=bf)
+
+
 def windowed_local_ba(state: ms.MapState, kf_id, cam_params,
                       model_id: int = cam.PINHOLE, use_stereo: bool = False,
                       bf: float = 0.0, n_free: int = 9, n_window: int = 32,

@@ -94,7 +94,7 @@ class StereoSlam(base.MonoSlam):
         super().__init__(config, device)
         self.rig = graft.rig_config(config)
         if self.loop_closer is not None:
-            # Metric depth fixes the scale (read by loop closing, 12b).
+            # Metric depth fixes the scale: loop closures solve SE3.
             self.loop_closer.cfg.fix_scale = True
 
     def _upload(self, img) -> torch.Tensor:

@@ -3,13 +3,18 @@ steps.
 
 Port of the JAX package's ``pipeline/system.py`` ``MonoSlam`` (ORB-SLAM3's
 ``System::TrackMonocular`` with the state machine of ``Tracking``:
-NOT_INITIALIZED -> OK -> RECENTLY_LOST -> a new map), with the background
-global BA and the chessboard world frame off. Given a vocabulary (a port
-``ops.bow.Vocabulary``) and ``use_loop_closing=False``, it keeps a BoW
-database of each map's keyframes (``loop_closing.LoopCloser``) and
-relocalises: a RECENTLY_LOST frame into the active map, and a frame of a
-lost or uninitialised map into an older atlas map, which it then re-enters
-(``cross_map_reloc``). Loop closing itself waits for ROADMAP item 12b.
+NOT_INITIALIZED -> OK -> RECENTLY_LOST -> a new map), with the chessboard
+world frame off. Given a vocabulary (a port ``ops.bow.Vocabulary``), it
+keeps a BoW database of each map's keyframes (``loop_closing.LoopCloser``)
+and relocalises: a RECENTLY_LOST frame into the active map, and a frame of
+a lost or uninitialised map into an older atlas map, which it then
+re-enters (``cross_map_reloc``). With ``use_loop_closing`` (the default)
+it also closes loops: each keyframe, once its bundle is read, runs
+``graft.loop_closing_step``'s pieces (``_run_loop_closing``: detection,
+the essential-graph correction, the duplicate fusion) and a global BA,
+time-sliced in the background (``background_gba``, one LM iteration a
+tracked frame) or inline. The atlas merge, reached only while the atlas
+holds two maps, waits for ROADMAP item 12c.
 Each frame runs the port's entry points:
 
   * ``graft.mono_extract`` (K1) on every frame;
@@ -20,7 +25,10 @@ Each frame runs the port's entry points:
   * ``graft.mono_keyframe_step`` (K2) for each new keyframe, read back
     lazily at the next keyframe;
   * ``graft.relocalize`` (K2, K3) on a RECENTLY_LOST frame, and before an
-    initialisation attempt while the atlas holds another map.
+    initialisation attempt while the atlas holds another map;
+  * ``LoopCloser.detect`` (K2) for each keyframe once 12 are live, and on a
+    loop ``LoopCloser.close``, ``mapping.fuse_duplicates`` (K2) and the
+    global BA.
 
 The map lives on the device. The host keeps the counters, the spanning
 tree, the trajectory log, the last tracked pose and the velocity as numpy.
@@ -29,9 +37,12 @@ features of an uninitialised frame and the initialisation's three, one
 packed read a tracked frame (``frame_step``'s ``info`` with the last pose),
 and one packed read of the previous keyframe bundle's outputs at the next
 keyframe; a relocalisation attempt reads the database's candidates once
-and each candidate it tries once. Each frame's uploads (the image; the
-predicted and last poses) come from page-locked memory and do not wait
-for the device.
+and each candidate it tries once; a loop detection reads its candidates
+once and each verified candidate up to three times
+(``loop_closing.HOST_READS``; the Sim3 RANSAC's two SVDs synchronise too),
+a closure its covisibility matrix, the background GBA's start the
+keyframe liveness. Each frame's uploads (the image; the predicted and last
+poses) come from page-locked memory and do not wait for the device.
 
 The stereo and RGB-D systems (``pipeline/stereo_system.py``) extend it
 through ``_ba_kwargs`` (the stereo rows of the frame step's final pose
@@ -98,8 +109,8 @@ class SlamConfig:
     kf_ref_min_obs: int = 3
     min_init_matches: int = 100            # two-view init gate (Tracking.cc:3620)
     triangulation_neighbors: int = 3
-    # A vocabulary (``ops.bow.Vocabulary``) enables relocalization;
-    # loop closing (use_loop_closing with a vocabulary) and the chessboard
+    # A vocabulary (``ops.bow.Vocabulary``) enables relocalization and,
+    # with use_loop_closing, loop closing; the chessboard and a device mesh
     # raise until their ROADMAP items; the rest are kept so that a
     # configuration reads the same in both packages.
     background_gba: bool = True
@@ -127,11 +138,10 @@ class MonoSlam:
     (``None``: the card; raises without one)."""
 
     def __init__(self, config: SlamConfig, device=None):
-        if config.vocabulary is not None and config.use_loop_closing:
+        if config.device_mesh not in (None, False):
             raise NotImplementedError(
-                "loop closing waits for ROADMAP item 12b: pass "
-                "use_loop_closing=False with a vocabulary for "
-                "relocalization alone")
+                "a device mesh (the sharded global BA) waits for ROADMAP "
+                "item 14")
         if config.chessboard is not None:
             raise NotImplementedError(
                 "the chessboard world frame waits for ROADMAP item 13")
@@ -160,8 +170,12 @@ class MonoSlam:
         if config.vocabulary is not None:
             self.loop_closer = LoopCloser(
                 bow.to_device(config.vocabulary, dev), config.max_kf,
-                config.n_features)
+                config.n_features, cam_params=config.cam_params())
         self.n_cross_map_relocs = 0
+        # The time-sliced background global BA, and the world-frame
+        # rotation of the last map correction (for the inertial body).
+        self._bg_gba = None
+        self._corr_Rw = None
 
         # Reference frame for initialization.
         self._init_feats = None
@@ -278,6 +292,7 @@ class MonoSlam:
         """Per-frame (stamp, R_cw, t_cw) list, replayed against the current
         keyframe poses so map corrections apply retroactively."""
         self._drain_pending()
+        self._gba_flush()
         return self._traj.replay(*self._host_poses())
 
     def _log_frame(self, stamp: float, pose):
@@ -293,6 +308,8 @@ class MonoSlam:
         else:
             ref, R_rw, t_rw = self._ref_cache
             self._traj.log(stamp, R_cw, t_cw, ref, R_rw, t_rw)
+        # One bounded slice of a background global BA in flight.
+        self._gba_tick()
 
     def _set_ref_cache(self, k: int, R=None, t=None):
         self._ref_cache_gen += 1
@@ -552,6 +569,9 @@ class MonoSlam:
         if self.n_kf < self.cfg.max_kf - 1:
             return True
         self._drain_pending()
+        # Compaction renumbers the keyframes a background GBA's snapshot is
+        # keyed on: finish it first.
+        self._gba_flush()
         # If (almost) every slot is live, force-cull the most redundant
         # keyframes, so a long run degrades to sliding-window culling.
         n_live = int(self.state.kfs.valid.sum())
@@ -748,6 +768,105 @@ class MonoSlam:
             if any(r >= 0 and culled[r] for r in self._traj.refs):
                 self._traj.rebase(culled, self._nearest_live_parent(valid),
                                   *self._host_poses())
+        # The bundle's liveness is the current one where the bundle culled
+        # (nothing culls between it and this read); else it is read.
+        self._run_loop_closing(
+            kf_id, bool(valid[kf_id]) if self._bundle_local_ba else None)
+
+    # ------------------------------------------------------------------
+    # Loop closing and the background global BA (LoopClosing,
+    # RunGlobalBundleAdjustment)
+    # ------------------------------------------------------------------
+    def _ensure_bg_gba(self):
+        if self._bg_gba is None:
+            from .background_gba import BackgroundGBA
+            self._bg_gba = BackgroundGBA()
+        return self._bg_gba
+
+    def _gba_tick(self):
+        """One bounded slice of the background solve (once a tracked
+        frame); the merge when it completes."""
+        g = self._bg_gba
+        if g is not None and g.active and g.tick():
+            self._merge_bg_gba()
+
+    def _gba_flush(self):
+        """Finish a background GBA in flight inline (the save and shutdown
+        paths wait for the reference's GBA thread the same way)."""
+        g = self._bg_gba
+        if g is not None and g.flush():
+            self._merge_bg_gba()
+
+    def _gba_abort(self):
+        """mbStopGBA: drop the solve in flight (a reset, a map switch or a
+        rebase invalidated its snapshot)."""
+        if self._bg_gba is not None:
+            self._bg_gba.abort()
+
+    def _merge_bg_gba(self):
+        self.state = self._bg_gba.merge(self.state, self.kf_parent)
+        self._on_map_corrected(self.last_kf_id)
+
+    def _on_map_corrected(self, kf_id: int):
+        """Re-coordinate the tracking context after a map correction (a
+        loop closure or a GBA merge): the last frame follows its reference
+        keyframe's correction, T' = T Twc_ref_old Tcw_ref_new. Sets
+        ``_corr_Rw``, the world-frame rotation of the correction at that
+        anchor, for the inertial systems' body state."""
+        self._corr_Rw = None
+        if self.last_kf_id != kf_id or self._last is None or kf_id < 0:
+            return
+        R_rn, t_rn = device_mod.read(self.state.kfs.R[kf_id],
+                                     self.state.kfs.t[kf_id])
+        cache = self._ref_cache
+        if cache is not None and cache[0] == kf_id:
+            _, R_ro, t_ro = cache
+            R_l, t_l = (np.asarray(x, np.float32) if not isinstance(
+                x, torch.Tensor) else device_mod.read(x)[0]
+                for x in (self._last["R"], self._last["t"]))
+            rel = R_l @ R_ro.T
+            self._last["R"] = (rel @ R_rn).astype(np.float32)
+            self._last["t"] = (rel @ (t_rn - t_ro) + t_l).astype(np.float32)
+            self._corr_Rw = (R_rn.T @ R_ro).astype(np.float32)
+        else:
+            self._last["R"], self._last["t"] = R_rn, t_rn
+        self._vel = None
+        self._refresh_ref_cache()
+
+    def _loops_allowed(self) -> bool:
+        """The loop gate: none for a visual system (the inertial systems
+        wait for VIBA2)."""
+        return True
+
+    def _run_loop_closing(self, kf_id: int, live: bool | None = None):
+        """The LoopClosing work of keyframe ``kf_id`` (run when its bundle
+        is read): detection and, on a loop, the correction, the fusion of
+        the drifted duplicates and the global BA, in the background or
+        inline (``graft.loop_closing_step`` is the same device work as one
+        entry point). ``live``: the keyframe's liveness when the caller
+        has read it."""
+        lc = self.loop_closer
+        if lc is None or not self.cfg.use_loop_closing:
+            return
+        if not self._loops_allowed():
+            return
+        if live is None:
+            live = bool(device_mod.read(self.state.kfs.valid[kf_id])[0])
+        if not live:
+            return
+        bg = self._ensure_bg_gba() if self.cfg.background_gba else None
+        self.state, info = graft.loop_closing_step(
+            self.state, lc, kf_id, self.n_kf, self.cam_params,
+            kf_parent=self.kf_parent, cfg=self.mcfg,
+            gba="background" if bg is not None else "inline", bg=bg,
+            ba_kwargs=self._ba_kwargs())
+        if info["fired"]:
+            # The tracking context follows the corrected map (the close
+            # and, inline, the GBA: one re-coordination of both).
+            self._on_map_corrected(kf_id)
+        elif len(self.atlas.maps) > 1:
+            # The merge branch: a common region in another map.
+            lc.detect_merge(self.state, kf_id, self.atlas)
 
     def _local_refine(self, kf_id: int, counts, order):
         """The local BA after a new keyframe when the bundle ran none
@@ -790,6 +909,7 @@ class MonoSlam:
         """LOST: a small map is reset; a mature one is kept and a new map
         started (Tracking.cc:3349-3378 + CreateMapInAtlas)."""
         self._drain_pending()
+        self._gba_abort()        # the snapshot's map is going away
         # The map's keyframe slots are about to be reused: its frame records
         # are replayed once and stored absolute, tagged with the map's atlas
         # index if it is kept.
@@ -874,9 +994,9 @@ class MonoSlam:
     def _switch_to_map_for_reloc(self, map_idx: int, cand: int):
         """Make atlas map ``map_idx`` the active one after a relocalization
         into it. The outgoing map stays in the atlas if mature, or is reset
-        in place if too young to keep (``_handle_lost``'s split). No
-        background GBA runs without loop closing, so none is aborted."""
+        in place if too young to keep (``_handle_lost``'s split)."""
         self._drain_pending()
+        self._gba_abort()
         keep = self.n_kf >= 10
         # The outgoing map's frame records stop replaying against the
         # incoming map's keyframe slots.
@@ -902,6 +1022,7 @@ class MonoSlam:
         """(stamps, Rcw, tcw) arrays of the live keyframes (absolute
         stamps)."""
         self._drain_pending()
+        self._gba_flush()
         kfs = self.state.kfs
         valid, stamp, R, t = device_mod.read(kfs.valid, kfs.stamp, kfs.R,
                                              kfs.t)

@@ -341,21 +341,23 @@ def test_frame_matches_jax(i):
 
 
 def test_options():
-    """A vocabulary with loop closing raises naming item 12b; the loop
-    closer's detection and merging raise naming 12b and 12c; a vocabulary
-    that is not the port's is refused."""
+    """A vocabulary with loop closing is ported (ROADMAP item 12b): the
+    system builds its loop closer with the intrinsics; the loop closer's
+    merging raises naming item 12c; a vocabulary that is not the port's
+    is refused."""
     _, tv = _vocabularies()
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        tsys.MonoSlam(tsys.SlamConfig(**CFG, vocabulary=tv), device="cpu")
+    slam = tsys.MonoSlam(tsys.SlamConfig(**CFG, vocabulary=tv), device="cpu")
+    assert slam.cfg.use_loop_closing and slam.cfg.background_gba
+    np.testing.assert_array_equal(n(slam.loop_closer.cam_params), CAM)
     with pytest.raises(TypeError, match="ops.bow.Vocabulary"):
         tsys.MonoSlam(tsys.SlamConfig(**CFG, vocabulary=np.zeros(4),
                                       use_loop_closing=False), device="cpu")
     lc = tlc.LoopCloser(tv, 8, 32)
-    for name, item in (("detect", "12b"), ("close", "12b"),
-                       ("detect_merge", "12c"), ("on_maps_merged", "12c")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
+    for name in ("detect_merge", "on_maps_merged"):
+        with pytest.raises(NotImplementedError, match="item 12c"):
             getattr(lc, name)()
     assert lc.loop_edges == {0: []} and lc.inertial_4dof is False
+    assert lc._streak is None and lc.cam_params is None
 
 
 def test_systems_take_a_vocabulary():

@@ -160,7 +160,8 @@ def test_trajectory_matches_jax():
 
 def test_default_device_is_the_card(monkeypatch):
     """Both inertial systems select the card without a device and raise
-    without one; a vocabulary (ROADMAP item 12's loop closing) raises."""
+    without one; a vocabulary that is not the port's is refused (loop
+    closing itself is ported, ROADMAP item 12b)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     _, ti = imu_cfgs()
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -170,7 +171,7 @@ def test_default_device_is_the_card(monkeypatch):
         tvi.MonoInertialSlam(tsys.SlamConfig(fx=F, fy=F, cx=W / 2,
                                              cy=H / 2, width=W, height=H),
                              ti)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(TypeError, match="ops.bow.Vocabulary"):
         tsi.StereoInertialSlam(tst.StereoConfig(**CFG,
                                                 vocabulary=np.zeros(4)),
                                ti, device="cpu")

@@ -334,11 +334,27 @@ def test_default_device_is_the_card(monkeypatch):
                                          ("chessboard", "13"),
                                          ("kb8", "10")])
 def test_unported_options_raise(option, item):
-    """A vocabulary and a chessboard raise, naming their ROADMAP item. A
-    KB8 camera is ported (item 10b): the system builds, and only the
-    native KB8 pose optimizer, which no system calls, raises, naming item
-    10c."""
+    """A chessboard raises, naming its ROADMAP item. A vocabulary is ported
+    (items 12a-12b): one that is not the port's is refused, and with a
+    port vocabulary only the atlas merge, reached with two maps, raises,
+    naming item 12c. A KB8 camera is ported (item 10b): the system builds,
+    and only the native KB8 pose optimizer, which no system calls, raises,
+    naming item 10c."""
     cfg = tsys.SlamConfig(**CFG, **{option: np.zeros(4)})
+    if option == "vocabulary":
+        with pytest.raises(TypeError, match="ops.bow.Vocabulary"):
+            tsys.MonoSlam(cfg, device="cpu")
+        from orbslam3_byzyh_tpu_torch.ops import bow as tbow
+        voc = tbow.Vocabulary(torch.zeros((1, 8), dtype=torch.int32),
+                              torch.zeros((1, 2), dtype=torch.int32),
+                              torch.zeros(1, dtype=torch.int32),
+                              torch.ones(1), 2, 1, 1)
+        slam = tsys.MonoSlam(tsys.SlamConfig(**CFG, vocabulary=voc),
+                             device="cpu")
+        assert slam.cfg.use_loop_closing
+        with pytest.raises(NotImplementedError, match=f"item {item}c"):
+            slam.loop_closer.detect_merge(slam.state, 0, slam.atlas)
+        return
     if option != "kb8":
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             tsys.MonoSlam(cfg, device="cpu")
