@@ -134,6 +134,27 @@ nvcc (in parallel) and drives the port's entry points through them:
     warm-up sequence held, cell (b)'s gates and the JAX MonoSlam's recorded
     detection decisions (``graft.LOOP_JAX``), timed sequences by frame kind
     with the keyframe frames that mined the database apart.
+  * phase "17 merge": the atlas merge and the checkpoints at the
+    EuRoC-mono capacity with the same vocabulary. The step,
+    ``graft.map_merge_step`` on ``graft.euroc_merge_atlas`` (a 157-keyframe
+    map and a 3-keyframe map of the same place, a planted Sim3 of scale 0.8
+    apart): map B's keyframes in turn, the third welding map A (the
+    databases, the fusion, the windowed BA past 64 keyframes); its K2
+    launches held bit for bit and timed; gates: A's planted candidate, the
+    weld's scale within 5 %, one map of both maps' keyframes, the
+    transplanted landmarks the weld's transform of A's, ``obs.kf`` shifted,
+    no live landmark under 2 live observations, B's misplaced keyframe
+    nearer its truth; the CPU plain path with the card's Sim3 draws;
+    ``detect_merge`` on a verifying keyframe and on a failing one (10 calls
+    each) and ``graft.merge_maps`` (5 calls, each from a fresh copy, and
+    its parts) with their synchronisations. Cells (l) and (m)
+    (``graft.merge_sequence``): ``MonoSlam`` loses its map, starts another,
+    revisits and merges the first back, held to the JAX MonoSlam's recorded
+    runs (``graft.MERGE_JAX``, ``graft.merge_run_gates`` on each run); (m)
+    saves the first map through ``save_atlas_checkpoint`` and loads it into
+    a fresh system first. A held warm-up of (l), one timed sequence of each,
+    by frame kind with the merge frame apart, one synchronisation-counting
+    run of each; the checkpoint's bytes and its save and load seconds.
 
 Every kernel is held against its plain PyTorch version on the card: on
 synthetic inputs at both paths' shapes, and on the very inputs each path
@@ -301,6 +322,23 @@ JAX_LOOP_READS = dict(
     "(:292-300), the landmark positions (:311-312), the RANSAC's ok (:318), "
     "the window's observation table (:336-338), each stage's count (:383, "
     ":418, :425)")
+# Phase 17: the merge step's timed calls (detections, welds, each weld from
+# a fresh copy of the two maps) and the merge cells' timed sequences after
+# one held warm-up.
+N_TIMED_MERGE_DETECTS = 10
+N_TIMED_MERGE_WELDS = 5
+N_TIMED_MERGE_SEQUENCES = 1
+# The JAX MonoSlam's reads of device values in the kinds of a merge cell's
+# frames (orbslam3_byzyh_tpu/pipeline/system.py, loop_closing.py), beside
+# the port's synchronisations.
+JAX_MERGE_READS = dict(
+    JAX_RELOC_READS,
+    keyframe_detect=JAX_LOOP_READS["keyframe_detect"] + "; with another "
+    "map, per map mined the candidates (keyframe_db.py:126-127), each one's "
+    "liveness (loop_closing.py:253) and per verified candidate the "
+    "ladder's reads as a loop's",
+    merge="a keyframe's, the merge detection's, then the refreshed "
+    "reference pose (system.py:1109)")
 # The JAX inertial systems' reads of device values in each kind of frame
 # (orbslam3_byzyh_tpu/pipeline/inertial_system.py unless named), beside
 # the port's synchronisations.
@@ -2607,6 +2645,583 @@ def phase_loop(dev, card, sk, check_call, timed, shape_of) -> tuple:
     return out, calls
 
 
+def merge_atlas(m, dev, voc, cfg):
+    """``graft.euroc_merge_atlas``'s maps as a port atlas on ``dev`` (map
+    B current) and a ``LoopCloser`` with both databases filled."""
+    from orbslam3_byzyh_tpu_torch import convert
+    from orbslam3_byzyh_tpu_torch.models import atlas as atlas_mod
+    from orbslam3_byzyh_tpu_torch.ops import bow
+    from orbslam3_byzyh_tpu_torch.pipeline import loop_closing as lc_mod
+    at = atlas_mod.Atlas(cfg.max_kf, cfg.max_lm, cfg.max_obs,
+                         cfg.n_features, device=dev)
+    at.maps = [convert.map_state_to_torch(s, dev) for s in m.maps]
+    at.meta = [atlas_mod.MapMeta(k, n, p.copy()) for k, n, p in
+               zip(m.n_kf, m.n_lm, m.kf_parent)]
+    at.current = 1
+    v = voc if dev.type == "cuda" else bow.to_device(voc, dev)
+    lc = lc_mod.LoopCloser(v, cfg.max_kf, cfg.n_features,
+                           cam_params=m.cam_params)
+    for idx, k in enumerate(m.n_kf):
+        lc.switch_map(idx)
+        lc.db.add_range(0, at.maps[idx].kfs.kp_desc[:k],
+                        at.maps[idx].kfs.kp_valid[:k])
+    lc.switch_map(1, fresh=False)
+    return at, lc
+
+
+def copy_merge_inputs(at, lc):
+    """A fresh copy of an atlas and its loop closer (the tensors cloned),
+    for a timed weld that must start from the same maps."""
+    import copy
+    at2 = copy.copy(at)
+    at2.maps = [type(s)(*(type(g)(*(x.clone() for x in g)) for g in s))
+                for s in at.maps]
+    at2.meta = [copy.deepcopy(m_) for m_ in at.meta]
+    lc2 = copy.copy(lc)
+    lc2.dbs = {}
+    for k, db in lc.dbs.items():
+        d = copy.copy(db)
+        d.vecs, d.words, d.valid = (x.clone() for x in (db.vecs, db.words,
+                                                         db.valid))
+        lc2.dbs[k] = d
+    lc2.loop_edges = {k: list(e) for k, e in lc.loop_edges.items()}
+    return at2, lc2
+
+
+def phase_merge(dev, card, sk, check_call, timed, shape_of) -> tuple:
+    """Phase "17 merge": the atlas merge and the atlas checkpoints at the
+    EuRoC-mono capacity with the runners' 10k-word vocabulary. The step,
+    ``graft.map_merge_step`` on ``graft.euroc_merge_atlas`` (map A: 157
+    keyframes of a circuit, about 47,000 landmarks; map B: its 3 revisit
+    keyframes in a world of their own, the planted Sim3 of scale 0.8 away,
+    the middle one misplaced): B's three keyframes in turn (the first two
+    confirm, the third fires: the weld, the databases, the fusion, the
+    windowed BA past 64 keyframes), every K2 launch held against its plain
+    version; the gates (A's planted candidate, the Sim3's scale within
+    5 %, one map of A's plus B's keyframes, the transplanted landmarks the
+    weld's transform of A's within 1e-4, ``obs.kf`` shifted, no live
+    landmark under 2 live observations, the misplaced keyframe's centre
+    error falling); the CPU plain path with the card's Sim3 draws (the
+    candidate, the Sim3 and the merged poses within 1e-3); the timed
+    detections and welds (each weld from a fresh copy, split into its
+    parts) with their synchronisations. Cells (l) and (m): ``MonoSlam`` at
+    ``graft.merge_golden_config`` on ``graft.merge_sequence`` (map A, a
+    blackout that starts map B, the revisit that merges A back), a held
+    warm-up of (l), ``graft.merge_run_gates`` against the JAX runs
+    (``graft.MERGE_JAX``) on every run, timed sequences by frame kind with
+    the merge frame apart, one more run of each counting synchronisations;
+    (m) saves map A through ``save_atlas_checkpoint``, loads it into a
+    fresh system and plays the revisit: the checkpoint's bytes and the
+    save and load seconds. Returns the results and each kernel's held
+    calls of the step with their times."""
+    import tempfile
+
+    from orbslam3_byzyh_tpu_torch import convert, graft
+    from orbslam3_byzyh_tpu_torch.ops import bow, cuda_brief, cuda_match
+    from orbslam3_byzyh_tpu_torch.pipeline import loop_closing as lc_mod
+    from orbslam3_byzyh_tpu_torch.pipeline import mapping
+    from orbslam3_byzyh_tpu_torch.pipeline import system as system_mod
+    from orbslam3_byzyh_tpu_torch.solver import cuda_pose_opt
+
+    name = "17 merge"
+    t17 = time.perf_counter()
+    out = {}
+    cfg = graft.EUROC_MONO
+    voc = bow.load_vocabulary(graft.RELOC_VOCABULARY, dev)
+    t0 = time.perf_counter()
+    m = graft.euroc_merge_atlas(cfg)
+    build_s = time.perf_counter() - t0
+    cam = convert.to_torch(m.cam_params, dev)
+    n_a, n_b = m.n_kf
+    l_a, l_b = m.n_lm
+    R_p, t_p, s_p = m.plant
+
+    def steps(at, lc, camera, weld=None):
+        infos = []
+        fuse = mapping.fuse_duplicates
+
+        def spy(state, *a, **kw):
+            if weld is not None:
+                weld.append(state)
+            return fuse(state, *a, **kw)
+
+        mapping.fuse_duplicates = spy
+        try:
+            for q in range(n_b):
+                infos.append(graft.map_merge_step(at, lc, q, camera,
+                                                  cfg=cfg))
+        finally:
+            mapping.fuse_duplicates = fuse
+        return infos
+
+    def centre_err(state, k):
+        R, t_ = (convert.to_numpy(x[k]).astype(np.float64)
+                 for x in (state.kfs.R, state.kfs.t))
+        return float(np.linalg.norm(-R.T @ t_ - m.c_true_b[k]))
+
+    def recording(lc, record):
+        draw = lc._sim3_indices
+
+        def rec(mask, q):
+            idx = draw(mask, q)
+            record.append(idx)
+            return idx
+
+        lc._sim3_indices = rec
+
+    # (a) The step, every K2 launch held.
+    at, lc = merge_atlas(m, dev, voc, cfg)
+    err0 = centre_err(at.maps[1], 1)
+    draws, weld = [], []
+    recording(lc, draws)
+    torch.cuda.synchronize()
+    for k in sk.values():
+        k.launches = 0
+    with recorded(cuda_match, "hamming_best2_kernel") as k2c:
+        t0 = time.perf_counter()
+        infos = steps(at, lc, cam, weld)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in sk.items()}
+    fired = [i["fired"] for i in infos]
+    w = infos[-1].get("weld", {})
+    s_i = w.get("s_i", float("nan"))
+    require(fired == [False, False, True]
+            and [i["streak"] for i in infos] == [1, 2, 3]
+            and infos[-1]["cand"] == m.revisit_of[-1]
+            and infos[-1]["other"] == 0
+            and abs(s_i - s_p) / s_p < 0.05
+            and len(at.maps) == 1 and at.counts().n_kf == n_a + n_b
+            and w.get("ba") == "windowed",
+            f"step: {[dict(i, tried=None, weld=None) for i in infos]}, weld "
+            f"{w} against candidate {m.revisit_of[-1]} of map 0 at B's third "
+            f"keyframe, scale {s_p} +- 5 %, one map of {n_a + n_b} keyframes")
+    # The weld: the state the fusion received.
+    ws = convert.map_state_to_numpy(weld[0])
+    A = m.maps[0]
+    rows = np.arange(l_b, l_b + l_a)
+    live = A.lms.valid[:l_a]
+    want = (s_i * A.lms.pos[:l_a].astype(np.float64) @ w["R_i"].T
+            + w["t_i"])
+    rel = (np.abs(ws.lms.pos[rows][live] - want[live]).max()
+           / np.abs(want[live]).max())
+    okf = A.obs.kf[:l_a]
+    shifted = np.where(A.obs.valid[:l_a], okf + n_b, -1)
+    require(rel <= 1e-4
+            and (np.where(ws.obs.valid[rows], ws.obs.kf[rows], -1)
+                 == shifted).all()
+            and (ws.lms.valid[rows] == live).all(),
+            f"step: the weld's landmarks {rel:.2e} from the transform of "
+            "A's, or obs.kf not shifted")
+    st_a = at.state
+    obs_live = (st_a.obs.valid & (st_a.obs.kf >= 0)).sum(-1)
+    weak = int((st_a.lms.valid & (obs_live < 2)).sum())
+    err1 = centre_err(st_a, 1)
+    require(weak == 0 and err1 < err0,
+            f"step: {weak} live landmarks under 2 live observations; the "
+            f"misplaced keyframe's centre error {err0:.5f} -> {err1:.5f} m")
+    n_verified = sum(len(i["tried"]) for i in infos)
+    require(launches["K1"] == launches["K3"] == launches["K3s"] == 0
+            and launches["K2"] == len(k2c) >= 2 * n_verified + 1,
+            f"step launches {launches} for {n_verified} verified candidates")
+    calls = {n: [] for n in sk}
+    seen_shapes = {}
+    for i, (args, kwargs) in enumerate(k2c):
+        err, (b_ms, b_by, b_txt) = check_call("K2", args, kwargs)
+        require(err == 0, f"step K2 call {i}: {err}")
+        what = ("guided projection (coarse)", "guided projection (tight)")[
+            i % 2] if i < 2 * n_verified else "fusion"
+        shape = shape_of("K2", args, kwargs)
+        key = (what, shape["N"], shape["M"], shape["mode"])
+        seen_shapes[key] = seen_shapes.get(key, 0) + 1
+        if seen_shapes[key] > 1:
+            continue
+        entry = {"call": f"merge step {what}", "shape": shape,
+                 "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+                 "bound": b_txt}
+        entry.update(timed("K2", args, kwargs, plain_reps=2))
+        calls["K2"].append(entry)
+        phase(name, f"step K2 {entry['call']} {shape}: identical to plain; "
+              f"launch alone {entry['ms']:.4f} ms, wrapper "
+              f"{entry['wrapper_ms']:.4f} ms, plain {entry['plain_ms']:.4f} "
+              f"ms, bound {b_ms:.5f} ms by {b_by} ({card})")
+    for entry in calls["K2"]:
+        key = (entry["call"][len("merge step "):], entry["shape"]["N"],
+               entry["shape"]["M"], entry["shape"]["mode"])
+        entry["launches"] = seen_shapes[key]
+
+    # The CPU plain path with the card's draws.
+    cpu = torch.device("cpu")
+    at_c, lc_c = merge_atlas(m, cpu, voc, cfg)
+    replay = iter([d.cpu() for d in draws])
+    lc_c._sim3_indices = lambda mask, q: next(replay)
+    t0 = time.perf_counter()
+    infos_c = steps(at_c, lc_c, cam.cpu())
+    cpu_s = time.perf_counter() - t0
+    sim_g, sim_c = infos[-1]["sim3"], infos_c[-1].get("sim3")
+    gap_sim3 = (float("inf") if sim_c is None else max(
+        float(np.abs(np.asarray(a) - np.asarray(b)).max())
+        for a, b in zip(sim_g[:3], sim_c[:3])))
+    K = n_a + n_b
+    Rg, tg, Rc, tc = (convert.to_numpy(x)[:K] for x in (
+        st_a.kfs.R, st_a.kfs.t, at_c.state.kfs.R, at_c.state.kfs.t))
+    gap_pose = float(max(np.abs(Rg - Rc).max(), np.abs(tg - tc).max()))
+    require(infos_c[-1]["fired"] and infos_c[-1]["cand"] == infos[-1]["cand"]
+            and gap_sim3 <= 1e-3 and gap_pose <= 1e-3,
+            f"step: CPU {infos_c[-1].get('cand')} Sim3 gap {gap_sim3}, pose "
+            f"gap {gap_pose} against the card's")
+    del at_c, lc_c
+    phase(name, f"step: graft.map_merge_step on graft.euroc_merge_atlas (A "
+          f"{n_a} keyframes / {int(A.lms.valid.sum())} landmarks, B {n_b} / "
+          f"{int(m.maps[1].lms.valid.sum())}, built in {build_s:.1f} s) at "
+          f"{cfg.max_kf} / {cfg.max_lm} / {cfg.max_obs} slots: fired "
+          f"{fired} at candidate {infos[-1]['cand']} of map "
+          f"{infos[-1]['other']}, weld scale {s_i:.5f} (planted {s_p}), "
+          f"{infos[-1]['sim3'][3]} final matches; {at.counts().n_kf} "
+          f"keyframes in one map; the weld's landmarks within {rel:.2e} of "
+          f"the transform; the misplaced keyframe's centre error "
+          f"{err0:.5f} -> {err1:.5f} m; launches {launches}, all "
+          f"{len(k2c)} K2 identical to plain; first call {first_s:.2f} s; "
+          f"the CPU plain path with the card's draws agrees (Sim3 within "
+          f"{gap_sim3:.2e}, poses within {gap_pose:.2e}; {cpu_s:.1f} s) "
+          f"({card})")
+
+    # (b) Timed calls and their synchronisations.
+    def host_ms(fn, n_warm, n_timed, setup=None):
+        xs = []
+        for i in range(n_warm + n_timed):
+            arg = setup() if setup is not None else None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(arg)
+            torch.cuda.synchronize()
+            if i >= n_warm:
+                xs.append((time.perf_counter() - t0) * 1e3)
+        return spread(xs)
+
+    def syncs_of(fn, arg=None):
+        callers = []
+        with counted_syncs(callers=callers) as where:
+            fn(arg)
+        sites = {}
+        for w_ in where:
+            sites[w_] = sites.get(w_, 0) + 1
+        return len(where), sites, sorted(set(callers))
+
+    at0, lc0 = merge_atlas(m, dev, voc, cfg)
+    # A query of map A mines map B: its candidates fail.
+    at_f, lc_f = copy_merge_inputs(at0, lc0)
+    at_f.current, lc_f.active = 0, 0
+    q_fail = n_a // 2
+
+    def detect_verifying(_):
+        lc0._merge_streak = None
+        return lc0.detect_merge(at0.state, 0, at0)
+
+    def detect_failing(_):
+        return lc_f.detect_merge(at_f.state, q_fail, at_f)
+
+    corr = infos[-1]["sim3"]
+    kf_w = n_b - 1
+
+    def fresh(_=None):
+        return copy_merge_inputs(at0, lc0)
+
+    def weld_once(arg):
+        a_, l_ = arg
+        graft.merge_maps(a_, l_, kf_w, 0, corr, cam, cfg=cfg)
+
+    timed_calls = {}
+    for key, fn, n_timed, n_warm, setup in (
+            ("detect_verifying", detect_verifying, N_TIMED_MERGE_DETECTS, 2,
+             None),
+            ("detect_failing", detect_failing, N_TIMED_MERGE_DETECTS, 2,
+             None),
+            ("merge_maps", weld_once, N_TIMED_MERGE_WELDS, 1, fresh)):
+        st_ = host_ms(fn, n_warm, n_timed, setup)
+        arg = setup() if setup is not None else None
+        n_s, sites, callers = syncs_of(fn, arg)
+        if key != "merge_maps":
+            info = (lc0 if key == "detect_verifying" else lc_f).info
+            st_.update(tried=info["tried"], maps=info["maps"],
+                       host_reads=info["host_reads"])
+        st_.update(syncs=n_s, sync_sites=sites, sync_callers=callers)
+        timed_calls[key] = st_
+        phase(name, f"{key}: median {st_['median']:.3f} ms, p80 "
+              f"{st_['p80']:.3f} ms over {st_['n']} calls (min "
+              f"{st_['min']:.3f}, max {st_['max']:.3f}); {n_s} "
+              f"synchronisations {sites} asked for by {callers}"
+              + (f"; per map {st_['maps']}, host reads {st_['host_reads']}"
+                 if "maps" in st_ else "") + f" ({card})")
+    # The weld's parts, each from a fresh copy (synchronised).
+    parts = {k: [] for k in ("atlas_merge", "on_maps_merged", "fusion",
+                             "windowed_ba")}
+    R_i, t_i, s_w = w["R_i"], w["t_i"], w["s_i"]
+    for i in range(1 + N_TIMED_MERGE_WELDS):
+        a_, l_ = fresh()
+        marks = []
+
+        def mark():
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        mark()
+        kf_lo = a_.counts().n_kf
+        a_.merge(0, R_i, t_i, s_w)
+        mark()
+        l_.on_maps_merged(a_.current, 0, a_.state, kf_lo, a_.counts().n_kf)
+        mark()
+        st_ = mapping.fuse_duplicates(a_.state, kf_w, cam, float(cfg.width),
+                                      float(cfg.height))
+        mark()
+        mapping.windowed_local_ba(
+            st_, kf_w, cam, n_free=max(cfg.local_window + 1, 12),
+            n_window=cfg.ba_window, n_lm_window=cfg.ba_lm_window)
+        mark()
+        if i:
+            for k_, (t_a, t_b) in zip(parts, zip(marks, marks[1:])):
+                parts[k_].append((t_b - t_a) * 1e3)
+        del a_, l_, st_
+    timed_calls["merge_parts"] = {k: spread(v) for k, v in parts.items()}
+    phase(name, "merge_maps parts (median ms over "
+          f"{N_TIMED_MERGE_WELDS}, each from a fresh copy): " + ", ".join(
+              f"{k} {v['median']:.3f}"
+              for k, v in timed_calls["merge_parts"].items()) + f" ({card})")
+    out["step"] = dict(
+        fired=fired, cand=infos[-1]["cand"], other=infos[-1]["other"],
+        weld_scale=s_i, planted_scale=s_p, n_final=infos[-1]["sim3"][3],
+        n_kf=int(at.counts().n_kf), weld_rel_err=float(rel),
+        weak_landmarks=weak, centre_err_m=dict(before=err0, after=err1),
+        launches=launches, host_reads=[i["host_reads"] for i in infos],
+        cpu=dict(seconds=cpu_s, sim3_gap=gap_sim3, pose_gap=gap_pose),
+        first_call_s=first_s, map_build_s=build_s, timed=timed_calls)
+    del at, lc, at0, lc0, at_f, lc_f, st_a, weld
+
+    # (c) Cells (l) and (m).
+    gold = graft.golden_frames()
+    seq = graft.merge_sequence(gold)
+    cfg_l = graft.merge_golden_config(voc)
+    spies = {"K1": (cuda_brief, "brief_descriptors_kernel"),
+             "K2": (cuda_match, "hamming_best2_kernel"),
+             "K3": (cuda_pose_opt, "pose_optimization_kernel")}
+    originals = {n: getattr(mod, f) for n, (mod, f) in spies.items()}
+    checked = {n: {"calls": 0, "max_abs_err": 0.0} for n in sk}
+    guard, bundles, detects, merges = [], [], [], []
+    holding = [False]
+    keyframe_step = graft.mono_keyframe_step
+    detect_merge = lc_mod.LoopCloser.detect_merge
+    merge_maps = system_mod.MonoSlam._merge_maps
+
+    def counted_bundle(*a, **kw):
+        bundles.append(1)
+        return keyframe_step(*a, **kw)
+
+    def recorded_detect(self, state, kf_id, atlas):
+        det = detect_merge(self, state, kf_id, atlas)
+        detects.append(dict(query=int(kf_id), maps=self.info.get("maps"),
+                            streak=self.info.get("streak"),
+                            fired=det is not None))
+        return det
+
+    at_frame = [0]
+
+    def recorded_merge(self, kf_id, other_idx, cand, corr_):
+        before = [int(mt.n_kf) for mt in self.atlas.meta]
+        merge_maps(self, kf_id, other_idx, cand, corr_)
+        merges.append(dict(index=at_frame[0], kf_id=int(kf_id),
+                           other=int(other_idx), cand=int(cand),
+                           scale=float(corr_[2]), n_inliers=int(corr_[3]),
+                           n_kf_maps=before, n_kf_after=int(self.n_kf)))
+
+    def checking(n):
+        fn = originals[n]
+
+        def spy(*a, **kw):
+            res = fn(*a, **kw)
+            if guard or not holding[0]:
+                return res
+            guard.append(n)
+            try:
+                err, _ = check_call(n, a, kw, checked[n])
+            finally:
+                guard.pop()
+            checked[n]["calls"] += 1
+            checked[n]["max_abs_err"] = max(checked[n]["max_abs_err"],
+                                            float(err))
+            return res
+
+        return spy
+
+    def play(slam, lo, hi, recs, statuses, n_maps, syncs):
+        for i in range(lo, hi):
+            f = seq[i]
+            at_frame[0] = i
+            holding[0] = i >= graft.MERGE_TRACKED
+            was = slam.status
+            n_b_, n_d, n_m = len(bundles), len(detects), len(merges)
+            before = {n: k.launches for n, k in sk.items()}
+            ctx = counted_syncs() if syncs else contextlib.nullcontext([])
+            with ctx as where:
+                t0 = time.perf_counter()
+                slam.track(f.image, f.stamp)
+                ms_ = (time.perf_counter() - t0) * 1e3
+            if len(merges) > n_m:
+                kind = "merge"
+            elif was == system_mod.NOT_INITIALIZED:
+                kind = ("uninitialised"
+                        if slam.status == system_mod.NOT_INITIALIZED
+                        else "init")
+            elif f.world < 0:
+                kind = "lost"
+            elif len(bundles) > n_b_:
+                kind = "keyframe_detect" if len(detects) > n_d else "keyframe"
+            else:
+                kind = "tracked"
+            recs.append({"kind": kind, "ms": ms_, "syncs": list(where),
+                         "launches": {n: k.launches - before[n]
+                                      for n, k in sk.items()}})
+            statuses[i] = slam.status
+            n_maps[i] = len(slam.atlas.maps)
+
+    def run_cell(cell, syncs=False):
+        """Cell ``cell`` through fresh systems: the gates' inputs, the
+        frames' records and the seconds (the checkpoint's for (m))."""
+        merges.clear()
+        detects.clear()
+        recs, statuses, n_maps, ck = [], {}, {}, {}
+        slam = system_mod.MonoSlam(cfg_l)
+        t_seq = time.perf_counter()
+        play(slam, 0, graft.MERGE_TRACKED, recs, statuses, n_maps, syncs)
+        n_kf_a = slam.n_kf
+        if cell == "l":
+            play(slam, graft.MERGE_TRACKED, len(seq), recs, statuses, n_maps,
+                 syncs)
+        else:
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, "atlas")
+                t0 = time.perf_counter()
+                slam.save_atlas_checkpoint(path)
+                ck["save_s"] = time.perf_counter() - t0
+                ck["bytes"] = sum(os.path.getsize(os.path.join(path, f_))
+                                  for f_ in os.listdir(path))
+                slam = system_mod.MonoSlam(cfg_l)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                slam.load_atlas_checkpoint(path)
+                torch.cuda.synchronize()
+                ck["load_s"] = time.perf_counter() - t0
+                ck["n_maps_loaded"] = len(slam.atlas.maps)
+            play(slam, graft.MERGE_TRACKED + graft.MERGE_NOISE, len(seq),
+                 recs, statuses, n_maps, syncs)
+        traj = slam.trajectory
+        res = graft.merge_run_gates(cell, statuses, n_maps, list(merges),
+                                    n_kf_a, slam.n_kf, traj, slam.t0, seq,
+                                    gold)
+        res.update(seconds=time.perf_counter() - t_seq, frames=len(recs),
+                   kinds=[r["kind"] for r in recs],
+                   detects=list(detects), **ck)
+        require(res["ok"], f"({cell}): {json.dumps(res, default=str)} "
+                f"against the JAX run's merge at keyframe "
+                f"{graft.MERGE_JAX[cell]['kf_id']} +- 1, one map after it, "
+                f"status OK, ATE within {graft.MERGE_ATE_GATE}")
+        if cell == "m":
+            require(ck["n_maps_loaded"] == 2,
+                    f"(m): {ck['n_maps_loaded']} maps after the load")
+        return res, recs
+
+    graft.mono_keyframe_step = counted_bundle
+    lc_mod.LoopCloser.detect_merge = recorded_detect
+    system_mod.MonoSlam._merge_maps = recorded_merge
+    try:
+        for n_, (mod, f) in spies.items():
+            setattr(mod, f, checking(n_))
+        try:
+            warm, _ = run_cell("l")
+            torch.cuda.synchronize()
+            check_call.settle()
+        finally:
+            for n_, (mod, f) in spies.items():
+                setattr(mod, f, originals[n_])
+        require(all(checked[n]["calls"] > 0 for n in ("K1", "K2", "K3")),
+                f"(l): kernels launched {checked}")
+        phase(name, "(l) warm-up sequence, every launch from the blackout "
+              "on held against its plain version: " + ", ".join(
+                  f"{n} {checked[n]['calls']} calls max err "
+                  f"{checked[n]['max_abs_err']:.2e}" for n in sk)
+              + "; " + json.dumps(dict(warm, detects=None, kinds=None),
+                                  default=str) + f" ({card})")
+        for cell, key in (("l", "l_live"), ("m", "m_resume")):
+            seqs, all_recs = [], []
+            for _ in range(N_TIMED_MERGE_SEQUENCES):
+                for k in sk.values():
+                    k.launches = 0
+                torch.cuda.synchronize()
+                res, recs = run_cell(cell)
+                res["launches"] = {n: k.launches for n, k in sk.items()}
+                res["fps"] = res["frames"] / res["seconds"]
+                require(all(res["launches"][n] > 0
+                            for n in ("K1", "K2", "K3")),
+                        f"({cell}): launches {res['launches']}")
+                seqs.append(res)
+                all_recs += recs
+            sync_res, sync_recs = run_cell(cell, syncs=True)
+            runs = ([warm] if cell == "l" else []) + seqs + [sync_res]
+            kinds = {}
+            for kind in ("uninitialised", "init", "tracked", "keyframe",
+                         "keyframe_detect", "lost", "merge"):
+                rs = [r for r in all_recs if r["kind"] == kind]
+                st_ = spread(r["ms"] for r in rs)
+                st_["launches_per_frame"] = {
+                    n: (sum(r["launches"][n] for r in rs) / len(rs)
+                        if rs else None) for n in sk}
+                ss = [r for r in sync_recs if r["kind"] == kind]
+                st_["syncs_per_frame"] = (sum(len(r["syncs"]) for r in ss)
+                                          / len(ss) if ss else None)
+                sites = {}
+                for r in ss:
+                    for w_ in r["syncs"]:
+                        sites[w_] = sites.get(w_, 0) + 1
+                st_["sync_sites"] = {k: v / len(ss)
+                                     for k, v in sorted(sites.items())}
+                st_["jax_host_reads"] = JAX_MERGE_READS[kind]
+                kinds[kind] = st_
+                if st_["n"]:
+                    phase(name, f"({cell}) {kind} frames ({st_['n']} over "
+                          f"{len(seqs)} sequences): track() median "
+                          f"{st_['median']:.3f} ms, p80 {st_['p80']:.3f} ms "
+                          f"(min {st_['min']:.3f}, max {st_['max']:.3f}); "
+                          f"launches per frame {st_['launches_per_frame']}; "
+                          f"{st_['syncs_per_frame']} synchronisations per "
+                          f"frame {st_['sync_sites']} ({card})")
+            r0 = seqs[0]
+            phase(name, f"({cell}) {r0['frames']} frames in "
+                  f"{r0['seconds']:.3f} s = {r0['fps']:.2f} frames/s; merged "
+                  f"at frame {r0['merge_index']} (JAX "
+                  f"{graft.MERGE_JAX[cell]['index']}), keyframe "
+                  f"{r0['merge_kf']} (JAX {graft.MERGE_JAX[cell]['kf_id']}); "
+                  f"{r0['n_kf_end']} keyframes in one map (map A "
+                  f"{r0['n_kf_a']}); ATE {r0['ate_m']:.5f} m, the cell's "
+                  f"{len(runs)} runs {[round(r['ate_m'], 5) for r in runs]} "
+                  f"(JAX {graft.MERGE_JAX[cell]['ate_m']:.5f})"
+                  + (f"; checkpoint {r0['bytes']} B, save {r0['save_s']:.3f}"
+                     f" s, load {r0['load_s']:.3f} s" if cell == "m" else "")
+                  + f" ({card})")
+            out[key] = {"warmup": warm if cell == "l" else None,
+                        "sequences": seqs, "frame_kinds": kinds,
+                        "sync_run": dict(sync_res, kinds=None, detects=None)}
+    finally:
+        graft.mono_keyframe_step = keyframe_step
+        lc_mod.LoopCloser.detect_merge = detect_merge
+        system_mod.MonoSlam._merge_maps = merge_maps
+    out["config"] = {k: v for k, v in dataclasses.asdict(
+        dataclasses.replace(cfg_l, vocabulary=None)).items()
+        if not isinstance(v, np.ndarray)}
+    out["checked"] = checked
+    out["seconds"] = time.perf_counter() - t17
+    phase(name, f"phase took {out['seconds']:.1f} s")
+    return out, calls
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4516,6 +5131,10 @@ def smoke(oracle) -> int:
     # -- 16: loop closing and the global BA ---------------------------------
     loop, loop_calls = phase_loop(dev, card, sk, check_call, timed, shape_of)
 
+    # -- 17: the atlas merge and the atlas checkpoints -----------------------
+    merge, merge_calls = phase_merge(dev, card, sk, check_call, timed,
+                                     shape_of)
+
     sources = {"K1": ("steered-BRIEF sampler", "csrc/brief.cu",
                       "orbslam3_byzyh_tpu/ops/pallas_brief.py:161",
                       "none: no single PyTorch call gathers rotated sample "
@@ -4581,7 +5200,16 @@ def smoke(oracle) -> int:
                 "launches"][n],
             "launches_loop_frame": {
                 kind: st["launches_per_frame"][n]
-                for kind, st in loop["k_default"]["frame_kinds"].items()}}
+                for kind, st in loop["k_default"]["frame_kinds"].items()},
+            "launches_merge_step": merge["step"]["launches"][n],
+            "merge_step_calls": merge_calls[n],
+            "launches_merge_system": {
+                k: merge[k]["sequences"][0]["launches"][n]
+                for k in ("l_live", "m_resume")},
+            "launches_merge_frame": {
+                k: {kind: st["launches_per_frame"][n]
+                    for kind, st in merge[k]["frame_kinds"].items()}
+                for k in ("l_live", "m_resume")}}
 
     # K3s: no Pallas kernel; it ports the JAX package's XLA function.
     k3s_entry = {
@@ -4647,7 +5275,7 @@ def smoke(oracle) -> int:
         "plain32_err": plain32_err,
         "inertial": {k: v for k, v in vi_out.items() if k != "held"},
         "inertial_system": vi_sys, "fisheye": fish, "reloc": reloc,
-        "loop": loop,
+        "loop": loop, "merge": merge,
         "card": card}, default=str))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -79,6 +79,35 @@ def map_state_to_numpy(state):
                        obs=conv(state.obs))
 
 
+def atlas_to_torch(atlas_np, device=None):
+    """An atlas with the JAX package's ``Atlas`` attributes (``dims``,
+    ``maps`` of numpy or JAX map states, ``meta`` with ``n_kf``, ``n_lm``,
+    ``kf_parent``, ``current``) -> the port's ``Atlas`` on ``device``
+    (``None``: the card); the spanning trees copied."""
+    from .models import atlas as atlas_mod
+    dev = device_mod.resolve(device)
+    out = atlas_mod.Atlas(*atlas_np.dims, device=dev)
+    out.maps = [map_state_to_torch(s, dev) for s in atlas_np.maps]
+    out.meta = [atlas_mod.MapMeta(
+        n_kf=int(m.n_kf), n_lm=int(m.n_lm),
+        kf_parent=(None if m.kf_parent is None
+                   else np.asarray(m.kf_parent, np.int32).copy()))
+        for m in atlas_np.meta]
+    out.current = int(atlas_np.current)
+    return out
+
+
+def atlas_to_numpy(atlas) -> dict:
+    """The port's ``Atlas`` -> a dict: ``dims``, ``maps`` (numpy map
+    states, the JAX package's dtypes), ``meta`` (``(n_kf, n_lm,
+    kf_parent)`` tuples) and ``current``."""
+    return dict(dims=tuple(atlas.dims),
+                maps=[map_state_to_numpy(s) for s in atlas.maps],
+                meta=[(m.n_kf, m.n_lm, None if m.kf_parent is None
+                       else m.kf_parent.copy()) for m in atlas.meta],
+                current=atlas.current)
+
+
 def preint_to_torch(p, device=None):
     """A preintegration (any NamedTuple with the JAX package's
     ``PreintState`` fields, numpy or JAX leaves, batched or not) -> the
@@ -230,7 +259,8 @@ def keyframe_db_to_numpy(db) -> tuple:
 def carry_loop_closer(src, dst) -> None:
     """Set the port's ``LoopCloser`` ``dst`` to the databases, the active
     map, the loop edges (measurements kept as numpy: ``close`` uploads
-    them), the temporal streaks and the 4-DoF switch of ``src``, an object
+    them), the temporal streaks (the merge streak's other map, candidate,
+    counts and Sim3 as numpy) and the 4-DoF switch of ``src``, an object
     with the JAX package's ``LoopCloser`` attributes."""
     dst.dbs = {m: keyframe_db_to_torch(db, dst.voc)
                for m, db in src.dbs.items()}
@@ -238,6 +268,9 @@ def carry_loop_closer(src, dst) -> None:
     dst.loop_edges = {m: list(e) for m, e in src.loop_edges.items()}
     dst._streak = (None if getattr(src, "_streak", None) is None
                    else dict(src._streak))
-    dst._merge_streak = (None if getattr(src, "_merge_streak", None) is None
-                         else dict(src._merge_streak))
+    ms_ = getattr(src, "_merge_streak", None)
+    dst._merge_streak = (None if ms_ is None else dict(
+        ms_, corr=(np.asarray(ms_["corr"][0], np.float32),
+                   np.asarray(ms_["corr"][1], np.float32),
+                   float(ms_["corr"][2]), int(ms_["corr"][3]))))
     dst.inertial_4dof = bool(getattr(src, "inertial_4dof", False))

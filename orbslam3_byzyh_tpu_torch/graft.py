@@ -2939,3 +2939,372 @@ LOOP_JAX = dict(
     detect=[dict(query=q, n_kf=q + 1,
                  candidates=[-1, -1, -1] if q + 1 >= 12 else [],
                  fired=False, cand=None) for q in range(2, 43)])
+
+
+# --- The atlas merge ---------------------------------------------------------
+
+# The merge cells (``tests/test_map_merge_live.py``'s run at the EuRoC-mono
+# capacity): golden frames 0-29 (the test's t = 0.0-2.9 s), 6 noise frames
+# (uniform 0-30, numpy seed :data:`RELOC_NOISE_SEED`) past the
+# RECENTLY_LOST budget of 2, so that the mature map A is kept and a map B
+# started, then the revisit of golden frames 5-24 (the test's 0.5-2.4 s),
+# on which map B initialises and the merge branch welds A back. Stamps
+# continue 0.1 s apart. Cell (m) saves map A after frame 29 through
+# ``save_atlas_checkpoint``, loads it into a fresh system and plays the
+# revisit frames alone.
+MERGE_TRACKED = 30
+MERGE_NOISE = 6
+MERGE_REVISIT = tuple(range(5, 25))
+
+
+def merge_sequence(frames: GoldenFrames | None = None) -> list:
+    """Cell (l)'s frames as :class:`RelocFrame` s: the golden frames padded
+    to EuRoC's 752 columns, the noise blackout and the revisit (see
+    :data:`MERGE_TRACKED`). Cell (m) plays ``[:MERGE_TRACKED]`` into the
+    system it saves and ``[MERGE_TRACKED + MERGE_NOISE:]`` into the one it
+    loads."""
+    g = frames if frames is not None else golden_frames()
+    padded = pad_frames(g.frames)
+    h, w = padded.shape[1:]
+    rng = np.random.default_rng(RELOC_NOISE_SEED)
+    world = (list(range(MERGE_TRACKED)) + [-1] * MERGE_NOISE
+             + list(MERGE_REVISIT))
+    out = []
+    for i, k in enumerate(world):
+        img = (rng.uniform(0, 30, (h, w)).astype(np.float32) if k < 0
+               else padded[k])
+        out.append(RelocFrame(img, round(0.1 * i, 6), k))
+    return out
+
+
+def merge_golden_config(vocabulary=None, **changes):
+    """The merge cells' configuration: :func:`euroc_golden_config` with
+    ``vocabulary``, loop closing and the background GBA on (the defaults),
+    ``cross_map_reloc`` off and a RECENTLY_LOST budget of 2 frames, as
+    ``tests/test_map_merge_live.py:29-36`` sets them (with cross-map
+    relocalisation the revisit would re-enter map A directly instead of
+    merging it)."""
+    return euroc_golden_config(vocabulary=vocabulary, use_loop_closing=True,
+                               background_gba=True, cross_map_reloc=False,
+                               lost_grace_frames=2, **changes)
+
+
+# The JAX reference run's map slots (``scripts/merge_reference_jax.py``):
+# the test's 64 keyframe and 8192 landmark slots (the JAX init's one-hot
+# Schur does not fit 1,024 x 65,536 on a host).
+MERGE_CPU_SLOTS = dict(max_kf=64, max_lm=8192)
+
+
+def merge_maps(atlas, lc, kf_id: int, other_idx: int, corr, cam_params, *,
+               cfg: MonoConfig = EUROC_MONO, ba_kwargs=None) -> dict:
+    """The device half of ``MonoSlam._merge_maps`` (MergeLocal): weld atlas
+    map ``other_idx`` into the current one at its keyframe ``kf_id``.
+
+    ``corr`` (R, t, s, n) maps the current world onto the other's
+    (``LoopCloser.detect_merge``'s, read with its ladder): inverted on the
+    host in float64; ``atlas.merge`` through the inverse; the welded map's
+    spanning-tree root attached to ``kf_id``; ``lc.on_maps_merged`` (the
+    databases, the loop edges, the transplanted keyframes' BoW in one
+    ``add_range``); ``fuse_duplicates`` at ``kf_id`` (K2's window mode over
+    every landmark slot); then the global BA when the merged map holds 64
+    keyframes or fewer, else the covisibility-windowed BA around ``kf_id``
+    with ``max(cfg.local_window + 1, 12)`` free keyframes. No host read.
+    Returns ``info``: the inverse Sim3 (``R_i``, ``t_i``, ``s_i``, numpy
+    float64), the transplanted slots ``kf_lo``, ``kf_hi`` and ``ba``
+    ("global" or "windowed")."""
+    from .pipeline import mapping
+    kw = dict(ba_kwargs or {})
+    R_m, t_m, s_m = corr[:3]
+    R_i = np.asarray(R_m, np.float64).T
+    s_i = 1.0 / float(s_m)
+    t_i = -s_i * (R_i @ np.asarray(t_m, np.float64))
+    kf_lo = atlas.counts().n_kf
+    atlas.merge(other_idx, R_i, t_i, s_i)
+    meta = atlas.counts()
+    kf_hi = meta.n_kf
+    if meta.kf_parent is None:
+        meta.kf_parent = np.full(atlas.dims[0], -1, np.int32)
+    if kf_lo < kf_hi and meta.kf_parent[kf_lo] < 0:
+        meta.kf_parent[kf_lo] = kf_id
+    lc.on_maps_merged(atlas.current, other_idx, atlas.state, kf_lo, kf_hi)
+    # SearchAndFuse in the welding window (LoopClosing.cc:2689).
+    state = mapping.fuse_duplicates(atlas.state, kf_id, cam_params,
+                                    float(cfg.width), float(cfg.height))
+    # The merge refinement: the full map while small, else the welding
+    # window's local BA (Optimizer.cc:5195); the weld already moved the
+    # whole other map rigidly, so no pose graph follows.
+    if kf_hi <= 64:
+        state = mapping.global_ba(state, cam_params, **kw)
+        ba = "global"
+    else:
+        state = mapping.windowed_local_ba(
+            state, kf_id, cam_params,
+            n_free=max(cfg.local_window + 1, 12), n_window=cfg.ba_window,
+            n_lm_window=cfg.ba_lm_window, **kw)
+        ba = "windowed"
+    atlas.state = state
+    return dict(R_i=R_i, t_i=t_i, s_i=s_i, kf_lo=kf_lo, kf_hi=kf_hi, ba=ba)
+
+
+def map_merge_step(atlas, lc, kf_id: int, cam_params, *,
+                   cfg: MonoConfig = EUROC_MONO, ba_kwargs=None) -> dict:
+    """The merge branch of ``MonoSlam._run_loop_closing`` for keyframe
+    ``kf_id`` of the atlas's current map, as one entry point:
+    ``lc.detect_merge`` (each other map's database groups, each
+    candidate's verification ladder: K2 twice in window mode over the
+    other map's landmark slots, the Sim3 RANSAC and OptimizeSim3, the
+    temporal streak) and, when it fires, :func:`merge_maps` (the system
+    drops a background GBA in flight first). Returns ``info``: the detection's
+    record (each map's candidates and host reads, ``tried``, the streak's
+    count), ``fired``, and when it fired ``other``, ``cand``, ``sim3`` and
+    :func:`merge_maps`'s ``weld``."""
+    det = lc.detect_merge(atlas.state, kf_id, atlas)
+    info = dict(lc.info)
+    info["host_reads"] = list(info["host_reads"])
+    info.setdefault("fired", False)
+    if det is None:
+        return info
+    other, cand, corr = det
+    info.update(fired=True, other=int(other), cand=int(cand), sim3=corr)
+    info["weld"] = merge_maps(atlas, lc, kf_id, other, corr, cam_params,
+                              cfg=cfg, ba_kwargs=ba_kwargs)
+    return info
+
+
+class MergeAtlas(NamedTuple):
+    """:func:`euroc_merge_atlas`'s two maps (numpy leaves, the JAX
+    package's dtypes) and truth."""
+
+    maps: tuple               # (map A, map B) states
+    n_kf: tuple               # live keyframes of each, slots [0, n)
+    n_lm: tuple               # landmark rows of each, rows [0, n)
+    kf_parent: tuple          # each map's spanning tree (a chain)
+    revisit_of: tuple         # map A's keyframe each of B's re-observes
+    plant: tuple              # (R, t, s): x_B = s R x_A + t, float64
+    c_true_b: np.ndarray      # (n_b, 3) B's true centres in B's world
+    cam_params: np.ndarray    # (4,) float32
+
+
+# The planted weld: map A's world -> map B's (a rotation of 0.37 rad, a
+# translation, scale 0.8); map B's middle keyframe sits this far (m) from
+# its true centre before the merge (not the last, whose verification
+# fixes the weld: OptimizeSim3's scale about a misplaced query camera is
+# barely held by the reprojections).
+MERGE_PLANT_ROTVEC = (0.1, -0.3, 0.2)
+MERGE_PLANT_T = (0.5, -0.2, 1.0)
+MERGE_PLANT_S = 0.8
+MERGE_QUERY_OFFSET = (0.02, -0.01, 0.015)
+
+
+def euroc_merge_atlas(cfg: MonoConfig = EUROC_MONO, n_kf: int = 160,
+                      n_pts: int = 300, seed: int = 0) -> MergeAtlas:
+    """Two maps at ``cfg``'s capacity that the merge branch welds: the
+    circuit of :func:`euroc_loop_map` without scale creep (``n_kf``
+    keyframes at the defaults, 3 of them revisits), split in two. Map A is
+    the circuit without its revisits (``n_kf - 3`` keyframes, their
+    patches: about 47,000 landmarks; the last patch's points that only a
+    revisit saw again are dead). Map B is the 3 revisit keyframes with
+    their own patches (900 landmarks re-observing A's keyframes 0-2's
+    points with their descriptors), moved into a world of its own by the
+    planted Sim3 (:data:`MERGE_PLANT_S`: x_B = s R x_A + t); its middle
+    keyframe's centre is off by :data:`MERGE_QUERY_OFFSET`, which the
+    merge BA corrects with A's landmarks. B's keyframes sit in slots 0-2
+    and its landmarks in rows 0-899."""
+    full = euroc_loop_map(cfg, n_kf=n_kf, n_pts=n_pts, n_revisit=3,
+                          creep=1.0, seed=seed)
+    st = full.state
+    n_a = n_kf - 3
+    l_a = n_a * n_pts
+    K = cfg.max_kf
+    f32 = np.float32
+
+    # Map A: keyframes [0, n_a), landmarks [0, l_a), their observations.
+    kf_a = np.arange(K) < n_a
+    lm_a = np.arange(st.lms.pos.shape[0]) < l_a
+    ov_a = st.obs.valid & (st.obs.kf < n_a) & lm_a[:, None]
+    # The last patch's points that only a revisit saw again die with one
+    # observation, as the bundle's culling would have them.
+    lm_a &= ov_a.sum(1) >= 2
+    ov_a &= lm_a[:, None]
+    kfs_a = st.kfs._replace(valid=st.kfs.valid & kf_a,
+                            kp_valid=st.kfs.kp_valid & kf_a[:, None])
+    state_a = ms.MapState(
+        kfs=kfs_a,
+        lms=st.lms._replace(valid=st.lms.valid & lm_a,
+                            n_obs=ov_a.sum(1).astype(np.int32)),
+        obs=ms.Observations(kf=np.where(ov_a, st.obs.kf, -1).astype(np.int32),
+                            kp=np.where(ov_a, st.obs.kp, -1).astype(np.int32),
+                            valid=ov_a))
+
+    # Map B: the revisits and their patches, moved by the plant.
+    R_p = _rodrigues(MERGE_PLANT_ROTVEC)
+    t_p = np.asarray(MERGE_PLANT_T, np.float64)
+    s_p = MERGE_PLANT_S
+
+    def rows(x, lo, n):
+        out = np.zeros_like(x)
+        out[:n] = x[lo:lo + n]
+        return out
+
+    kf_b = np.arange(K) < 3
+    Rb = np.tile(np.eye(3), (K, 1, 1))
+    tb = np.zeros((K, 3))
+    R_src = st.kfs.R[n_a:n_kf].astype(np.float64)
+    t_src = st.kfs.t[n_a:n_kf].astype(np.float64)
+    Rb[:3] = R_src @ R_p.T
+    tb[:3] = s_p * t_src - np.einsum("kij,j->ki", Rb[:3], t_p)
+    c_true_b = s_p * full.c_true[n_a:n_kf].astype(np.float64) @ R_p.T + t_p
+    # The middle keyframe's centre moved by the offset: t = -R c.
+    c_off = -Rb[1].T @ tb[1] + np.asarray(MERGE_QUERY_OFFSET)
+    tb[1] = -Rb[1] @ c_off
+    kfs_b = ms.KeyFrames(
+        R=Rb.astype(f32), t=tb.astype(f32),
+        stamp=rows(st.kfs.stamp, n_a, 3),
+        kp_xy=rows(st.kfs.kp_xy, n_a, 3),
+        kp_level=rows(st.kfs.kp_level, n_a, 3),
+        kp_angle=rows(st.kfs.kp_angle, n_a, 3),
+        kp_desc=rows(st.kfs.kp_desc, n_a, 3),
+        kp_valid=rows(st.kfs.kp_valid, n_a, 3),
+        kp_ur=np.where(kf_b[:, None], rows(st.kfs.kp_ur, n_a, 3), -1.0
+                       ).astype(f32),
+        valid=kf_b)
+    l_b = 3 * n_pts
+    lm_b = np.arange(st.lms.pos.shape[0]) < l_b
+    pos_b = s_p * rows(st.lms.pos, l_a, l_b).astype(np.float64) @ R_p.T + t_p
+    okf = rows(st.obs.kf, l_a, l_b)
+    ov_b = rows(st.obs.valid, l_a, l_b) & lm_b[:, None]
+    state_b = ms.MapState(
+        kfs=kfs_b,
+        lms=ms.Landmarks(
+            pos=np.where(lm_b[:, None], pos_b, 0.0).astype(f32),
+            desc=rows(st.lms.desc, l_a, l_b),
+            normal=(rows(st.lms.normal, l_a, l_b) @ R_p.T).astype(f32),
+            min_dist=(rows(st.lms.min_dist, l_a, l_b) * s_p).astype(f32),
+            max_dist=np.where(lm_b, rows(st.lms.max_dist, l_a, l_b) * s_p,
+                              1e9).astype(f32),
+            n_obs=ov_b.sum(1).astype(np.int32),
+            n_found=lm_b.astype(np.int32), n_visible=lm_b.astype(np.int32),
+            first_kf=np.where(lm_b, rows(st.lms.first_kf, l_a, l_b) - n_a,
+                              0).astype(np.int32),
+            valid=lm_b),
+        obs=ms.Observations(
+            kf=np.where(ov_b, okf - n_a, -1).astype(np.int32),
+            kp=np.where(ov_b, rows(st.obs.kp, l_a, l_b), -1).astype(np.int32),
+            valid=ov_b))
+    par_a = np.full(K, -1, np.int32)
+    par_a[1:n_a] = np.arange(n_a - 1)
+    par_b = np.full(K, -1, np.int32)
+    par_b[1:3] = np.arange(2)
+    return MergeAtlas(
+        maps=(state_a, state_b), n_kf=(n_a, 3), n_lm=(l_a, l_b),
+        kf_parent=(par_a, par_b), revisit_of=(0, 1, 2),
+        plant=(R_p, t_p, s_p), c_true_b=c_true_b,
+        cam_params=full.cam_params)
+
+
+def merge_ate(traj, t0: float, seq: list,
+              frames: GoldenFrames | None = None) -> tuple:
+    """The Horn-aligned (with scale) ATE of a trajectory (``(stamp, R_cw,
+    t_cw)`` records, stamps relative to the system's first, ``t0``) over
+    the frames of ``seq`` that show a golden frame: (ATE m, frames
+    associated); (None, n) under 3."""
+    from .utils import evaluate
+    g = frames if frames is not None else golden_frames()
+    world = {round(f.stamp, 6): f.world for f in seq}
+    est, true = [], []
+    for s, R, t in traj:
+        k = world.get(round(float(s) + t0, 6), -1)
+        if k >= 0:
+            est.append(-np.asarray(R, np.float64).T
+                       @ np.asarray(t, np.float64))
+            true.append(g.centres[k])
+    if len(est) < 3:
+        return None, len(est)
+    return float(evaluate.horn_align(np.stack(est), np.stack(true))[3]), \
+        len(est)
+
+
+# The CPU tests' live merge cell ("s", ``tests/test_torch_merge_system.py``):
+# ``SynthWorld(seed=3)`` (the golden frames' world) rendered at 320x240
+# with fx = fy = 200 at these times (s; None: a frame of uniform 0-30
+# noise, numpy seed :data:`RELOC_NOISE_SEED`), stamps 0.1 s apart: map A
+# over 0.0-2.9 s, the blackout, the revisit of 0.5-1.4 s.
+MERGE_SMALL_TIMES = (tuple(round(0.1 * i, 3) for i in range(30))
+                     + (None,) * MERGE_NOISE
+                     + tuple(round(0.1 * i, 3) for i in range(5, 15)))
+
+
+def merge_small_config(vocabulary=None, **changes):
+    """Cell "s"'s configuration: the world's 320x240 pinhole, 1024
+    features, 48 keyframe / 4096 landmark slots, 8 observations, the
+    40-match init gate, TrackedMapPoints(1), loop closing on, cross-map
+    relocalisation off, a RECENTLY_LOST budget of 2 frames."""
+    from .pipeline.system import SlamConfig
+    cfg = SlamConfig(fx=200.0, fy=200.0, cx=160.0, cy=120.0, width=320,
+                     height=240, n_features=1024, max_kf=48, max_lm=4096,
+                     max_obs=8, fps=10, min_init_matches=40,
+                     kf_ref_min_obs=1, vocabulary=vocabulary,
+                     use_loop_closing=True, cross_map_reloc=False,
+                     lost_grace_frames=2)
+    return dataclasses.replace(cfg, **changes)
+
+
+# The JAX MonoSlam's runs of the merge cells (``scripts/merge_reference_jax.py
+# l | m`` on the CPU, ``synthetic_voc_10k.npz``, the map cut to
+# :data:`MERGE_CPU_SLOTS`): the sequence index of the frame that merged,
+# the active map's keyframe whose lagging detection fired (``kf_id``), the
+# other map and its candidate keyframe, the Sim3's scale, each map's
+# keyframe count before the weld, the keyframe count and the merged
+# trajectory's ATE at the end (cell (m): of the loaded system's frames),
+# and for (m) the saved map's keyframes and the checkpoint's bytes at those
+# slots. Both runs merge on the same keyframe. Cell "s" (the CPU tests',
+# :data:`MERGE_SMALL_TIMES` at its own slots) is held by its decisions
+# alone.
+MERGE_JAX = {
+    "l": dict(index=45, kf_id=7, other=0, cand=12,
+              scale=1.4790799617767334, n_kf_maps=(29, 8), n_kf=38,
+              ate_m=0.06963021162690618),
+    "m": dict(index=45, kf_id=7, other=0, cand=12,
+              scale=1.4790799617767334, n_kf_maps=(29, 8), n_kf=38,
+              ate_m=0.05404188751963639, n_kf_saved=29, bytes=1906887),
+    "s": dict(index=41, kf_id=4, other=0, cand=4, scale=1.039900779724121,
+              n_kf_maps=(24, 5), n_kf=30),
+}
+MERGE_ATE_GATE = (1.5, 0.002)        # x the JAX run's ATE, + m
+
+
+def merge_run_gates(cell: str, statuses, n_maps, merges, n_kf_a: int,
+                    n_kf_end: int, traj, t0: float, seq: list,
+                    frames: GoldenFrames | None = None) -> dict:
+    """A merge cell's gates on one run: ``statuses`` and ``n_maps`` (the
+    atlas's map count) after each frame of the run, dicts by sequence
+    index (cell (m) runs ``seq[:MERGE_TRACKED]`` then the revisit);
+    ``merges``, one dict per ``_merge_maps`` call (``index`` its frame,
+    ``kf_id``); map A's keyframe count before the blackout (cell (m): at
+    the save); the keyframe count at the end and the trajectory. Cell (l)
+    must hold two maps in the blackout; both must merge once, with the
+    active keyframe within one of the JAX run's, end with one map of more
+    than 0.8 x map A's keyframes, track (status OK) on every frame from
+    the merge on, and keep the merged trajectory's ATE within
+    :data:`MERGE_ATE_GATE` of the JAX run's. Returns the measures and
+    ``ok``."""
+    ref = MERGE_JAX[cell]
+    ate, n_assoc = merge_ate(traj, t0, seq, frames)
+    out = dict(jax=ref, merges=merges, n_kf_a=n_kf_a, n_kf_end=n_kf_end,
+               n_maps_end=n_maps[max(n_maps)], ate_m=ate, n_assoc=n_assoc)
+    idx = sorted(statuses)
+    blackout = [n_maps[i] for i in idx
+                if MERGE_TRACKED <= i < MERGE_TRACKED + MERGE_NOISE]
+    out["second_map_in_blackout"] = 2 in blackout
+    if len(merges) != 1:
+        return dict(out, ok=False)
+    m = merges[0]
+    out.update(merge_index=m["index"], merge_kf=m["kf_id"],
+               ok_after=all(statuses[i] == 1 for i in idx if i >= m["index"]))
+    gate = MERGE_ATE_GATE[0] * ref["ate_m"] + MERGE_ATE_GATE[1]
+    out["ok"] = bool(
+        (cell != "l" or out["second_map_in_blackout"])
+        and abs(m["kf_id"] - ref["kf_id"]) <= 1
+        and out["n_maps_end"] == 1 and n_kf_end > 0.8 * n_kf_a
+        and out["ok_after"] and ate is not None and ate < gate)
+    return out

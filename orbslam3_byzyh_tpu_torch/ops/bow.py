@@ -241,14 +241,18 @@ def transform(voc: Vocabulary, desc: torch.Tensor,
 def bow_vector(voc: Vocabulary, words: torch.Tensor) -> torch.Tensor:
     """Word ids (N,) -> the L1-normalised tf-idf dense vector (n_words,):
     one ``index_add_`` of ones into n_words + 1 bins (the last takes the
-    invalid keypoints; counts of 1.0 are exact in float32)."""
-    w_safe = torch.where(words >= 0, words, voc.n_words).long()
-    counts = torch.zeros(voc.n_words + 1, dtype=torch.float32,
+    invalid keypoints; counts of 1.0 are exact in float32). Batched: word
+    ids (B, N) -> (B, n_words), one ``index_add_`` for the batch."""
+    W = voc.n_words
+    w_safe = torch.where(words >= 0, words, W).long()
+    lead = w_safe.shape[:-1]
+    rows = torch.arange(w_safe[..., 0].numel(), device=words.device)
+    flat = (rows.reshape(lead + (1,)) * (W + 1) + w_safe).reshape(-1)
+    counts = torch.zeros(rows.numel() * (W + 1), dtype=torch.float32,
                          device=words.device)
-    counts.index_add_(0, w_safe, torch.ones_like(w_safe,
-                                                 dtype=torch.float32))
-    v = counts[:voc.n_words] * voc.idf
-    return v / v.abs().sum().clamp_min(1e-9)
+    counts.index_add_(0, flat, torch.ones_like(flat, dtype=torch.float32))
+    v = counts.reshape(lead + (W + 1,))[..., :W] * voc.idf
+    return v / v.abs().sum(-1, keepdim=True).clamp_min(1e-9)
 
 
 def l1_score(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -625,7 +625,8 @@ class MonoInertialSlam(system_mod.MonoSlam):
     (``_on_cross_map_reloc``). Loop closing opens after VIBA2
     (``_loops_allowed``) and solves its pose graph in 4 DoF once the IMU is
     initialised; a correction carries the body state with it
-    (``_on_map_corrected``). Map merging waits for ROADMAP item 12c.
+    (``_on_map_corrected``). A merge welds the other map in as
+    ``MonoSlam`` does and then runs the local VI-BA (``_merge_maps``).
 
     Host reads, beside ``MonoSlam``'s: a tracked inertial frame's one
     packed ``info`` (``track_inertial``), with a carried prior the
@@ -1057,6 +1058,26 @@ class MonoInertialSlam(system_mod.MonoSlam):
         """The inertial loop guard: the map IMU-initialised and past VIBA2
         (LoopClosing.cc:407-430)."""
         return self.imu_ready and self.viba_stage >= 2
+
+    def _merge_maps(self, kf_id: int, other_idx: int, cand: int, corr):
+        """The visual weld and merge BA of ``MonoSlam`` (MergeLocal2: the
+        active map keeps its gravity-aligned metric frame, the other map
+        moves into it), then, with the IMU initialised, MergeInertialBA
+        (Optimizer.cc:6017) as the local VI-BA around ``kf_id`` and the
+        body re-set on its result. The VI-BA's window is the active map's
+        chain from ``kf_id`` (``kf_prev``), which no transplanted slot
+        joins (``Atlas.merge`` leaves their chain links -1), so it reads no
+        transplanted slot's velocity or biases (which the weld does not
+        move)."""
+        super()._merge_maps(kf_id, other_idx, cand, corr)
+        if self.imu_ready:
+            self._set_imap(local_inertial_ba(self._imap(), kf_id,
+                                             self.map_first_kf, self.ctx))
+            self._body = self._body_of(kf_id)
+            if self._last is not None:
+                self._last["R"] = self.state.kfs.R[kf_id]
+                self._last["t"] = self.state.kfs.t[kf_id]
+            self._refresh_ref_cache()
 
     def _on_map_corrected(self, kf_id: int):
         """After a loop closure or a GBA merge the body follows the

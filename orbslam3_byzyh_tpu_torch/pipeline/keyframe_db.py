@@ -22,6 +22,11 @@ from ..models import map_state as ms
 from ..ops import bow, matching
 
 
+# Keyframes one ``add_range`` transform takes at a time: 128 x 1536
+# keypoints at depth 4 of k = 10 gather about 63 MB of child words a level.
+ADD_RANGE_CHUNK = 128
+
+
 def _top_k_stable(x: torch.Tensor, k: int):
     """``jax.lax.top_k`` of a 1-D float tensor: the k largest in
     descending order, the lower index first among equal values."""
@@ -49,6 +54,22 @@ class KeyframeDatabase:
         self.vecs.index_copy_(0, row, vec[None])
         self.words.index_copy_(0, row, words[None])
         self.valid.index_fill_(0, row, True)
+
+    def add_range(self, lo: int, desc: torch.Tensor, kp_valid: torch.Tensor):
+        """Store keyframes ``lo, lo + 1, ...``: ``desc`` (n, N, 8) and
+        ``kp_valid`` (n, N) are their keypoints, in place; the same rows as
+        ``add`` of each in turn, ``ADD_RANGE_CHUNK`` keyframes a transform
+        (no host read)."""
+        chunk = ADD_RANGE_CHUNK
+        for a in range(0, desc.shape[0], chunk):
+            d, v = desc[a:a + chunk], kp_valid[a:a + chunk]
+            n = d.shape[0]
+            words = bow.transform(self.voc, d.reshape(-1, 8),
+                                  v.reshape(-1)).reshape(n, -1)
+            rows = slice(lo + a, lo + a + n)
+            self.vecs[rows].copy_(bow.bow_vector(self.voc, words))
+            self.words[rows].copy_(words)
+            self.valid[rows].fill_(True)
 
     def remap(self, old2new: np.ndarray, n_valid: int):
         """Keyframe slots were compacted (``map_state.compact_keyframes``):

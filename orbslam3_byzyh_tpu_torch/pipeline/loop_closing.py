@@ -6,9 +6,10 @@ Port of ``orbslam3_byzyh_tpu/pipeline/loop_closing.py`` (ORB-SLAM3's
 which relocalisation mines too; ``detect``, the BoW candidate mining, the
 geometric verification ladder and the temporal streak
 (``NewDetectCommonRegions``); and ``close``, the Sim3 propagation, the
-essential-graph pose graph and the landmark correction (``CorrectLoop``).
-The atlas merge (``detect_merge``, ``on_maps_merged``) waits for ROADMAP
-item 12c and raises.
+essential-graph pose graph and the landmark correction (``CorrectLoop``);
+the merge branch, ``detect_merge`` (the same ladder against every other
+atlas map's database) and ``on_maps_merged`` (the databases and loop edges
+after ``Atlas.merge``).
 
 The ladder runs on the device. The JAX package reads the match, both
 keyframes' landmarks, the whole observation table for the window mask and
@@ -41,6 +42,10 @@ from .keyframe_db import KeyframeDatabase
 # count and the Sim3.
 HOST_READS = ("bow", "sim3", "refine")
 
+# A refined Sim3 scale this far (a factor either way) from the Sim3
+# RANSAC's is taken for a runaway of OptimizeSim3 (see _verify_projective).
+SCALE_RUNAWAY = 1.2
+
 
 @dataclasses.dataclass
 class LoopCloserConfig:
@@ -60,11 +65,6 @@ class LoopCloserConfig:
                                    # (reference: 100; smaller synthetic maps)
     fix_scale: bool = False        # SE3 pose graph for stereo/inertial
     opt_rows: int = 512            # static row budget for OptimizeSim3
-
-
-def _waits(what: str, item: str):
-    raise NotImplementedError(f"LoopCloser.{what} waits for ROADMAP item "
-                              f"{item}")
 
 
 def _kp_landmarks(state: ms.MapState, kf_id, n_feat: int):
@@ -157,6 +157,31 @@ class LoopCloser:
             (int(old2new[i]), int(old2new[j]), m)
             for i, j, m in self.loop_edges.get(self.active, [])
             if old2new[i] >= 0 and old2new[j] >= 0]
+
+    def on_maps_merged(self, kept_idx: int, removed_idx: int,
+                       state: ms.MapState, kf_lo: int, kf_hi: int):
+        """Map ``removed_idx`` was welded into the current map
+        (``Atlas.merge``), whose index after the deletion is ``kept_idx``;
+        the other map's keyframe k sits in slot ``kf_lo + k`` of ``state``
+        for the slots [kf_lo, kf_hi). The databases and loop edges of the
+        maps past ``removed_idx`` move down one index, the removed map's
+        loop edges move into the kept map with the shift (those with an
+        end the clip dropped die), and the transplanted keyframes join the
+        kept map's database (one ``add_range``; no host read)."""
+        moved = [(i + kf_lo, j + kf_lo, m)
+                 for i, j, m in self.loop_edges.get(removed_idx, [])
+                 if i + kf_lo < kf_hi and j + kf_lo < kf_hi]
+        self.dbs.pop(removed_idx, None)
+        self.loop_edges.pop(removed_idx, None)
+        self.dbs = {(i - 1 if i > removed_idx else i): d
+                    for i, d in self.dbs.items()}
+        self.loop_edges = {(i - 1 if i > removed_idx else i): e
+                           for i, e in self.loop_edges.items()}
+        self.active = kept_idx
+        self.loop_edges.setdefault(kept_idx, []).extend(moved)
+        if kf_hi > kf_lo:
+            self.dbs[kept_idx].add_range(kf_lo, state.kfs.kp_desc[kf_lo:kf_hi],
+                                         state.kfs.kp_valid[kf_lo:kf_hi])
 
     def add_keyframe(self, state: ms.MapState, kf_id):
         """Store keyframe ``kf_id``'s BoW (no host read)."""
@@ -253,7 +278,8 @@ class LoopCloser:
              keypoints that both bind a landmark;
           3. the guided projection of the candidate window's landmarks
              (radius 8 x scale, distance <= 1.5 TH_LOW) >= min_proj_matches;
-          4. OptimizeSim3's inliers (th2 = 10) >= min_sim3_inliers;
+          4. OptimizeSim3's inliers (th2 = 10) >= min_sim3_inliers (a
+             refined scale that runs off the RANSAC's is held at it);
           5. the tight re-projection with the refined Sim3 (radius 5 x
              scale, TH_LOW) >= min_proj_opt_matches.
 
@@ -387,24 +413,39 @@ class LoopCloser:
         # candidate keyframe itself observes the candidate landmark.
         valid_b = valid_a & (lm_q >= 0) & seen_c[lm_c]
         kp_c = torch.where(valid_b, kp_of_c[lm_c].long(), 0)
-        opt = sim3_solve.optimize_sim3(
-            R_u, t_u, s_u, state_c.lms.pos[lm_c], kfs_q.kp_xy[q][kp_q],
-            inv_s2[kfs_q.kp_level[q][kp_q].long()], valid_a, kfs_q.R[q],
-            kfs_q.t[q], state_q.lms.pos[lm_q.clamp_min(0)],
-            kfs_c.kp_xy[c][kp_c], inv_s2[kfs_c.kp_level[c][kp_c].long()],
-            valid_b, kfs_c.R[c], kfs_c.t[c], self.cam_params,
-            fix_scale=self.cfg.fix_scale)
+        rows = (state_c.lms.pos[lm_c], kfs_q.kp_xy[q][kp_q],
+                inv_s2[kfs_q.kp_level[q][kp_q].long()], valid_a, kfs_q.R[q],
+                kfs_q.t[q], state_q.lms.pos[lm_q.clamp_min(0)],
+                kfs_c.kp_xy[c][kp_c], inv_s2[kfs_c.kp_level[c][kp_c].long()],
+                valid_b, kfs_c.R[c], kfs_c.t[c], self.cam_params)
+        opt = sim3_solve.optimize_sim3(R_u, t_u, s_u, *rows,
+                                       fix_scale=self.cfg.fix_scale)
+        held = torch.zeros((), dtype=torch.bool, device=dev)
+        if not self.cfg.fix_scale:
+            # OptimizeSim3 is Gauss-Newton. Where the query and the
+            # candidate see the place from nearly one viewpoint, their
+            # reprojections barely hold the scale and its steps can run far
+            # along it (a revisit welded at 1.45 where the truth is 1.0),
+            # while the RANSAC's 3D-3D fit holds it: a refined scale
+            # SCALE_RUNAWAY or more from the RANSAC's gives way to the
+            # refinement at the RANSAC's scale.
+            fixed = sim3_solve.optimize_sim3(R_u, t_u, s_u, *rows,
+                                             fix_scale=True)
+            held = ((opt.s / s_u).log().abs()
+                    > float(np.log(SCALE_RUNAWAY))).reshape(())
+            opt = sim3_solve.OptimizeSim3Result(*(
+                torch.where(held, f, o) for f, o in zip(fixed, opt)))
         # Stage 5: the tight re-projection with the refined Sim3, run
         # before stage 4's gate is read (one read for both).
         mj2 = self._guided_projection(
             state_q, q, state_c, c, win_mask, opt.R, opt.t, opt.s,
             radius_factor=5.0, max_dist=matching.TH_LOW)
         R_f, t_f, s_f = lie.sim3_inv(opt.R, opt.t, opt.s)
-        n_sim3, n_final, R, t, s = device_mod.read(
-            opt.n_inliers, (mj2 >= 0).sum(), R_f, t_f, s_f)
+        n_sim3, n_final, R, t, s, scale_held = device_mod.read(
+            opt.n_inliers, (mj2 >= 0).sum(), R_f, t_f, s_f, held)
         self.info["host_reads"].append(f"candidate {c} refine")
         rec.update(sim3_inliers=int(n_sim3), projection_opt=int(n_final),
-                   s=float(s))
+                   s=float(s), scale_held=bool(scale_held))
         if n_sim3 < self.cfg.min_sim3_inliers:
             rec["failed"] = "sim3"
             return None
@@ -557,10 +598,75 @@ class LoopCloser:
                               lms=state.lms._replace(pos=pos_new))
 
     # ------------------------------------------------------------------
-    # Map merging: a later slice.
+    # The merge branch
     # ------------------------------------------------------------------
-    def detect_merge(self, *args, **kwargs):
-        _waits("detect_merge", "12c")
+    def detect_merge(self, state: ms.MapState, kf_id: int, atlas):
+        """Mine the other atlas maps for a common region at keyframe
+        ``kf_id`` of the active map (the merge branch of
+        NewDetectCommonRegions), with the loop branch's temporal streak
+        (mnMergeNumCoincidences). Returns (other map, candidate, (R, t, s,
+        n) with x_other = s R x_active + t) once ``consecutive_needed``
+        successive keyframes have verified the same place of one map, else
+        None. ``info`` records each map's candidates and host reads."""
+        self.info = {"query": int(kf_id), "host_reads": [], "tried": [],
+                     "merge": True, "maps": []}
+        hit = self._detect_merge_geometric(state, kf_id, atlas)
+        if hit is None:
+            if self._merge_streak is not None:
+                self._merge_streak["miss"] += 1
+                if self._merge_streak["miss"] > self.cfg.max_not_found:
+                    self._merge_streak = None
+            self.info["streak"] = (None if self._merge_streak is None
+                                   else self._merge_streak["count"])
+            return None
+        idx, cand, corr = hit
+        st = self._merge_streak
+        if (st is not None and st["map_idx"] == idx
+                and self._same_place(atlas.maps[idx], st["cand"], cand)):
+            count = st["count"] + 1
+        else:
+            count = 1
+        self._merge_streak = dict(map_idx=idx, cand=cand, count=count,
+                                  miss=0, corr=corr)
+        self.info["streak"] = count
+        if count >= self.cfg.consecutive_needed:
+            self._merge_streak = None
+            self.info["fired"] = True
+            return idx, cand, corr
+        return None
 
-    def on_maps_merged(self, *args, **kwargs):
-        _waits("on_maps_merged", "12c")
+    def _detect_merge_geometric(self, state: ms.MapState, kf_id: int, atlas):
+        """Each other map with 3 keyframes or more, in index order: its
+        database's covisibility groups against the query keyframe, then the
+        verification ladder on each candidate (``_verify`` with that map's
+        state and database). A system of fixed scale refuses a Sim3 scale
+        outside 0.9-1.1 (LoopClosing.cc:168)."""
+        kfs = state.kfs
+        for idx, db in sorted(self.dbs.items()):
+            if (idx == self.active or idx >= len(atlas.maps)
+                    or atlas.meta[idx].n_kf < 3):
+                continue
+            other = atlas.maps[idx]
+            n_reads = len(self.info["host_reads"])
+            ids, _, words_q = db.query_groups(
+                kfs.kp_desc[kf_id], kfs.kp_valid[kf_id],
+                ms.covisibility_matrix(other), top_n=3,
+                n_covisibles=self.cfg.n_covisibles, kf_valid=other.kfs.valid)
+            self.info["host_reads"].append(f"map {idx} candidates")
+            rec = {"map": idx, "candidates": [int(c) for c in ids]}
+            self.info["maps"].append(rec)
+            try:
+                for cand in ids:
+                    if cand < 0:
+                        continue
+                    m = self._verify(state, kf_id, other, int(cand), db,
+                                     words_q)
+                    if m is None:
+                        continue
+                    if self.cfg.fix_scale and not 0.9 <= m[2] <= 1.1:
+                        self.info["tried"][-1]["failed"] = "scale"
+                        continue
+                    return idx, int(cand), m
+            finally:
+                rec["host_reads"] = len(self.info["host_reads"]) - n_reads
+        return None

@@ -13,8 +13,12 @@ it also closes loops: each keyframe, once its bundle is read, runs
 ``graft.loop_closing_step``'s pieces (``_run_loop_closing``: detection,
 the essential-graph correction, the duplicate fusion) and a global BA,
 time-sliced in the background (``background_gba``, one LM iteration a
-tracked frame) or inline. The atlas merge, reached only while the atlas
-holds two maps, waits for ROADMAP item 12c.
+tracked frame) or inline. While the atlas holds another map, a keyframe
+that closes no loop mines the other maps (``LoopCloser.detect_merge``) and
+a confirmed common region welds the other map into the active one
+(``_merge_maps``: ``graft.merge_maps``, the device half of
+``graft.map_merge_step``). The atlas is saved and loaded through
+``save_atlas_checkpoint`` / ``load_atlas_checkpoint`` (``io/checkpoint``).
 Each frame runs the port's entry points:
 
   * ``graft.mono_extract`` (K1) on every frame;
@@ -28,7 +32,10 @@ Each frame runs the port's entry points:
     initialisation attempt while the atlas holds another map;
   * ``LoopCloser.detect`` (K2) for each keyframe once 12 are live, and on a
     loop ``LoopCloser.close``, ``mapping.fuse_duplicates`` (K2) and the
-    global BA.
+    global BA;
+  * ``LoopCloser.detect_merge`` (K2) for each keyframe that closes no loop
+    while the atlas holds another map, and on a merge ``Atlas.merge``,
+    ``mapping.fuse_duplicates`` (K2) and the global or windowed BA.
 
 The map lives on the device. The host keeps the counters, the spanning
 tree, the trajectory log, the last tracked pose and the velocity as numpy.
@@ -41,8 +48,11 @@ and each candidate it tries once; a loop detection reads its candidates
 once and each verified candidate up to three times
 (``loop_closing.HOST_READS``; the Sim3 RANSAC's two SVDs synchronise too),
 a closure its covisibility matrix, the background GBA's start the
-keyframe liveness. Each frame's uploads (the image; the predicted and last
-poses) come from page-locked memory and do not wait for the device.
+keyframe liveness; a merge detection reads each other map's candidates
+once and each verified candidate up to three times, and a merge reads
+only the keyframe's refined pose (the reference cache). Each frame's
+uploads (the image; the predicted and last poses) come from page-locked
+memory and do not wait for the device.
 
 The stereo and RGB-D systems (``pipeline/stereo_system.py``) extend it
 through ``_ba_kwargs`` (the stereo rows of the frame step's final pose
@@ -833,6 +843,57 @@ class MonoSlam:
         self._vel = None
         self._refresh_ref_cache()
 
+    # ------------------------------------------------------------------
+    # Atlas persistence (System::SaveAtlas / LoadAtlas)
+    # ------------------------------------------------------------------
+    def save_atlas_checkpoint(self, path: str):
+        """Write the atlas to the directory ``path`` (``io/checkpoint``'s
+        format, which the JAX package reads too), after the pending
+        keyframe's outputs are read and a background GBA in flight is
+        finished."""
+        from ..io import checkpoint
+        self._drain_pending()
+        self._gba_flush()
+        checkpoint.save_atlas(path, self.atlas)
+
+    def load_atlas_checkpoint(self, path: str):
+        """Resume from a saved atlas, loaded onto the system's device:
+        every loaded map's database is rebuilt (one ``add_range`` a map)
+        and tracking starts in a fresh active map; a loaded map is joined
+        again by relocalization or by the merge branch when its place is
+        revisited. The frame records of the outgoing map are frozen."""
+        from ..io import checkpoint
+        self._gba_abort()
+        self._traj.freeze_all(*self._host_poses())
+        self._ref_cache = None
+        self._pending_kf = None
+        atlas = checkpoint.load_atlas(path, self.device)
+        cfg = self.cfg
+        dims = (cfg.max_kf, cfg.max_lm, cfg.max_obs, cfg.n_features)
+        if tuple(atlas.dims) != dims:
+            raise ValueError(f"checkpoint capacities {atlas.dims} differ "
+                             f"from the system's {dims}")
+        self.atlas = atlas
+        lc = self.loop_closer
+        if lc is not None:
+            lc.dbs = {}
+            for idx, (state, meta) in enumerate(zip(atlas.maps, atlas.meta)):
+                lc.switch_map(idx)
+                if meta.n_kf:
+                    lc.db.add_range(0, state.kfs.kp_desc[:meta.n_kf],
+                                    state.kfs.kp_valid[:meta.n_kf])
+        atlas.create_new_map()
+        if lc is not None:
+            lc.switch_map(atlas.current)
+        self.status = NOT_INITIALIZED
+        self.lost_frames = 0
+        self._init_feats = None
+        self._init_stamp = None
+        self._last = None
+        self._vel = None
+        self.last_kf_id = -1
+        self.frames_since_kf = 0
+
     def _loops_allowed(self) -> bool:
         """The loop gate: none for a visual system (the inertial systems
         wait for VIBA2)."""
@@ -865,8 +926,31 @@ class MonoSlam:
             # and, inline, the GBA: one re-coordination of both).
             self._on_map_corrected(kf_id)
         elif len(self.atlas.maps) > 1:
-            # The merge branch: a common region in another map.
-            lc.detect_merge(self.state, kf_id, self.atlas)
+            # The merge branch: a common region in another map
+            # (LoopClosing::MergeLocal).
+            det = lc.detect_merge(self.state, kf_id, self.atlas)
+            if det is not None:
+                self._merge_maps(kf_id, *det)
+
+    def _merge_maps(self, kf_id: int, other_idx: int, cand: int, corr):
+        """Weld atlas map ``other_idx`` into the active one at keyframe
+        ``kf_id`` (MergeLocal): the background GBA in flight dropped (its
+        snapshot predates the weld), ``graft.merge_maps`` (the weld, the
+        databases, the fusion, the merge BA), the merged-away map's frozen
+        frame records moved into the active world, and the tracking context
+        re-set on the keyframe's refined pose. ``cand``: the other map's
+        keyframe that verified (the weld needs only the Sim3)."""
+        self._gba_abort()
+        w = graft.merge_maps(self.atlas, self.loop_closer, kf_id, other_idx,
+                             corr, self.cam_params, cfg=self.mcfg,
+                             ba_kwargs=self._ba_kwargs())
+        self._traj.transform_frozen(other_idx, w["R_i"], w["t_i"],
+                                    w["s_i"], self.atlas.current)
+        if self._last is not None:
+            self._last["R"] = self.state.kfs.R[kf_id]
+            self._last["t"] = self.state.kfs.t[kf_id]
+        self._vel = None
+        self._refresh_ref_cache()
 
     def _local_refine(self, kf_id: int, counts, order):
         """The local BA after a new keyframe when the bundle ran none

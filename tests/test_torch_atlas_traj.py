@@ -258,8 +258,15 @@ def test_atlas_reset_active(rng):
     assert not bool(at.state.kfs.valid.any())
     assert not bool(at.state.lms.valid.any())
     assert at.counts().n_kf == 0 and at.counts().n_lm == 0
-    with pytest.raises(NotImplementedError, match="item 12"):
-        at.merge(0, np.eye(3), np.zeros(3), 1.0)
+    # The merge is ported (test_torch_atlas_merge.py holds it against the
+    # JAX merge): a filled map welds into the reset one.
+    at.create_new_map()
+    _fill_map(at, rng)
+    at.current = 0
+    assert at.merge(1, np.eye(3), np.zeros(3), 1.0) == 0
+    assert len(at.maps) == 1
+    assert (at.counts().n_kf, at.counts().n_lm) == (3, 20)
+    assert int(at.state.obs.kf[0, 1]) == 1
 
 
 def test_evaluate_matches_jax(rng):

@@ -25,6 +25,7 @@ from torch_port_util import n
 from orbslam3_byzyh_tpu.ops import bow as jbow
 from orbslam3_byzyh_tpu.pipeline import loop_closing as jlc
 from orbslam3_byzyh_tpu_torch import convert
+from orbslam3_byzyh_tpu_torch.models import atlas as tatlas
 from orbslam3_byzyh_tpu_torch.ops import lie as tlie
 from orbslam3_byzyh_tpu_torch.pipeline import loop_closing as tlc
 from orbslam3_byzyh_tpu_torch.pipeline.trajectory_log import TrajectoryLog
@@ -256,8 +257,19 @@ def test_ladder_reads(vocs):
 
 
 def test_merge_waits_for_12c(vocs):
-    _, lt = closers(vocs, *circular_map()[:3])
-    with pytest.raises(NotImplementedError, match="12c"):
-        lt.detect_merge(None, 0, None)
-    with pytest.raises(NotImplementedError, match="12c"):
-        lt.on_maps_merged(0, 1, None, 0, 0)
+    """The merge branch is ported (``test_torch_merge_detect.py`` holds it
+    against the JAX package): with one map in the atlas ``detect_merge``
+    mines nothing, and ``on_maps_merged`` of an empty weld drops the
+    removed map's database and loop edges."""
+    state, port, n_kf = circular_map()[:3]
+    _, lt = closers(vocs, state, port, n_kf)
+    at = tatlas.Atlas(MAX_KF, port.lms.pos.shape[0], port.obs.kf.shape[1],
+                      N_FEAT, device="cpu")
+    at.maps, at.meta = [port], [tatlas.MapMeta(n_kf, n_kf * 60)]
+    assert lt.detect_merge(port, n_kf - 1, at) is None
+    assert lt.info["maps"] == [] and lt._merge_streak is None
+    lt.switch_map(1)
+    lt.loop_edges[1] = [(0, 1, None)]
+    lt.on_maps_merged(0, 1, port, n_kf, n_kf)
+    assert sorted(lt.dbs) == [0] and lt.active == 0
+    assert lt.loop_edges == {0: []}

@@ -39,8 +39,8 @@ def test_static_checks_cover_the_system():
     checked = {str(p.relative_to(PORT)) for p in PORT_SOURCES
                if p.is_relative_to(PORT)}
     for rel in ("pipeline/system.py", "pipeline/trajectory_log.py",
-                "models/atlas.py", "io/trajectory.py", "utils/evaluate.py",
-                "utils/verbose.py"):
+                "models/atlas.py", "io/trajectory.py", "io/checkpoint.py",
+                "utils/evaluate.py", "utils/verbose.py"):
         assert rel in checked, rel
 
 
@@ -63,6 +63,19 @@ def test_reads_no_jax_package_file(path):
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Constant) and isinstance(node.value, str):
             assert node.value.strip("/") != "orbslam3_byzyh_tpu", path
+
+
+@pytest.mark.parametrize("path", PORT_SOURCES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_raises_name_no_waiting_merge(path):
+    """The atlas merge and the checkpoints are ported: no module raises an
+    error naming ROADMAP item 12c."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Raise):
+            for sub in ast.walk(node):
+                if isinstance(sub, ast.Constant) and isinstance(sub.value,
+                                                                str):
+                    assert "12c" not in sub.value, (path, sub.value)
 
 
 def test_brief_pattern_is_the_ports_own_copy():

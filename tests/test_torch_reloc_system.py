@@ -343,8 +343,9 @@ def test_frame_matches_jax(i):
 def test_options():
     """A vocabulary with loop closing is ported (ROADMAP item 12b): the
     system builds its loop closer with the intrinsics; the loop closer's
-    merging raises naming item 12c; a vocabulary that is not the port's
-    is refused."""
+    merge branch (item 12c) mines no map of a one-map atlas and an empty
+    weld leaves its databases and loop edges; a vocabulary that is not
+    the port's is refused."""
     _, tv = _vocabularies()
     slam = tsys.MonoSlam(tsys.SlamConfig(**CFG, vocabulary=tv), device="cpu")
     assert slam.cfg.use_loop_closing and slam.cfg.background_gba
@@ -353,9 +354,10 @@ def test_options():
         tsys.MonoSlam(tsys.SlamConfig(**CFG, vocabulary=np.zeros(4),
                                       use_loop_closing=False), device="cpu")
     lc = tlc.LoopCloser(tv, 8, 32)
-    for name in ("detect_merge", "on_maps_merged"):
-        with pytest.raises(NotImplementedError, match="item 12c"):
-            getattr(lc, name)()
+    at = slam.atlas
+    assert lc.detect_merge(at.state, 0, at) is None
+    lc.on_maps_merged(0, 1, at.state, 0, 0)
+    assert sorted(lc.dbs) == [0] and lc.active == 0
     assert lc.loop_edges == {0: []} and lc.inertial_4dof is False
     assert lc._streak is None and lc.cam_params is None
 
