@@ -3222,6 +3222,313 @@ def phase_merge(dev, card, sk, check_call, timed, shape_of) -> tuple:
     return out, calls
 
 
+def phase_chessboard(dev, card, sk, check_call, system) -> dict:
+    """Phase "18 chessboard": the fork's chessboard world frame at the
+    Mycamera configuration (``graft.MYCAMERA_MONO``, 1280x1024 with radtan,
+    the 9 x 6 board of 24 mm squares). (a) The step,
+    ``graft.chessboard_pose`` (the device detector's ChESS responses and
+    candidates, one read; the lattice on the host; the corners' refinement
+    and the squares' colours, one read; the planar PnP's four orderings,
+    one read) on a frame with the board and on one without: 20 timed calls
+    each, their synchronisations counted, the pose against the truth, the
+    CPU plain path on the same frame (its corners within 1e-3 px of the
+    card's, its pose from the card's corners within 1e-5). (b) Cell (n):
+    ``MonoSlam`` at ``graft.chessboard_golden_config()`` on the full-size
+    chessboard frames: a warm-up sequence with every K1-K3 launch held
+    against its plain version, one timed sequence by frame kind (an
+    uninitialised frame that ran the detector is a "snoop" frame; the
+    tracked frame that moved the map into the board's frame a "rebase"
+    frame), a run counting synchronisations (tracked and keyframe frames
+    as phase 10's EuRoC cell), a run with ``enable_stage_timers()`` that
+    prints its report; each run held by ``graft.chessboard_run_gates``
+    against the JAX run (``graft.CHESS_JAX["full"]``). ``system``: phase
+    10's results. Returns the phase's results."""
+    from orbslam3_byzyh_tpu_torch import convert, graft
+    from orbslam3_byzyh_tpu_torch.ops import cuda_brief, cuda_match
+    from orbslam3_byzyh_tpu_torch.pipeline import system as system_mod
+    from orbslam3_byzyh_tpu_torch.solver import cuda_pose_opt
+    from orbslam3_byzyh_tpu_torch.utils import chessboard as cb
+
+    name = "18 chessboard"
+    t18 = time.perf_counter()
+    out = {}
+    f = graft.chessboard_frames()
+    board = graft.MYCAMERA_BOARD
+    e = graft.MYCAMERA_MONO
+    cam = torch.tensor([e.fx, e.fy, e.cx, e.cy], device=dev)
+    dist = torch.tensor(e.dist, device=dev)
+    with_board, without = 0, len(f.stamps) - 1
+    require(np.isfinite(f.corners[with_board]).all()
+            and not np.isfinite(f.corners[without]).any(),
+            "the fixture's board and board-less frames")
+
+    # (a) The step.
+    step = {}
+    for key, i in (("board", with_board), ("no_board", without)):
+        img = convert.to_torch(f.frames[i], dev).to(torch.float32)
+        res = graft.chessboard_pose(img, board, cam, dist)      # warm-up
+        with counted_syncs() as where:
+            res = graft.chessboard_pose(img, board, cam, dist)
+        times = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            graft.chessboard_pose(img, board, cam, dist)
+            times.append((time.perf_counter() - t0) * 1e3)
+        st_ = spread(times)
+        st_.update(syncs=len(where), sync_sites=where,
+                   found=res.R is not None)
+        if key == "board":
+            require(res.R is not None, "(a) no board found on frame 0")
+            ang, cen, flipped = graft.chessboard_pose_error(
+                res.R, res.t, f.R[i], f.t[i], board)
+            err = np.linalg.norm(res.corners[:, None] - f.corners[i][None],
+                                 axis=-1).min(1)
+            # The CPU plain path: the corners on the same frame, the pose
+            # from the card's corners.
+            t0 = time.perf_counter()
+            c_cpu = cb.detect_chessboard(img.cpu(), board)
+            K = np.array([[e.fx, 0, e.cx], [0, e.fy, e.cy], [0, 0, 1.0]])
+            p_cpu = cb.pose_from_chessboard(res.corners, board, K,
+                                            dist=np.array(e.dist),
+                                            device="cpu")
+            cpu_s = time.perf_counter() - t0
+            require(c_cpu is not None, "(a) the CPU path found no board")
+            gap_c = float(np.abs(c_cpu - res.corners).max())
+            gap_p = max(float(np.abs(p_cpu[0] - res.R).max()),
+                        float(np.abs(p_cpu[1] - res.t).max()))
+            st_.update(pose_deg=ang, pose_m=cen, flipped=flipped,
+                       corner_err_mean=float(err.mean()),
+                       corner_err_max=float(err.max()),
+                       opencv_err_mean=float(f.cv_err[i]),
+                       cpu_corner_gap_px=gap_c, cpu_pose_gap=gap_p,
+                       cpu_s=cpu_s)
+            require(ang < 0.5 and cen < 0.005,
+                    f"(a) pose {ang:.4f} deg, {cen:.5f} m from the truth")
+            require(gap_c <= 1e-3 and gap_p <= 1e-5,
+                    f"(a) CPU plain path: corners {gap_c:.2e} px, pose "
+                    f"{gap_p:.2e} from the card's")
+        else:
+            require(res.corners is None, "(a) a board on a board-less frame")
+        step[key] = st_
+        phase(name, f"(a) chessboard_pose {e.width}x{e.height} ({key}): "
+              f"median {st_['median']:.3f} ms, p80 {st_['p80']:.3f} ms over "
+              f"20 calls; {len(where)} synchronisations {where}"
+              + (f"; pose {st_['pose_deg']:.4f} deg, {st_['pose_m']:.5f} m "
+                 f"from the truth; corners {st_['corner_err_mean']:.4f} / "
+                 f"{st_['corner_err_max']:.4f} px (OpenCV "
+                 f"{st_['opencv_err_mean']:.4f}); the CPU path "
+                 f"{gap_c:.2e} px, pose {gap_p:.2e} ({cpu_s:.2f} s)"
+                 if key == "board" else "") + f" ({card})")
+    out["step"] = step
+
+    # (b) Cell (n).
+    cfg = graft.chessboard_golden_config()
+    spies = {"K1": (cuda_brief, "brief_descriptors_kernel"),
+             "K2": (cuda_match, "hamming_best2_kernel"),
+             "K3": (cuda_pose_opt, "pose_optimization_kernel")}
+    originals = {n: getattr(mod, fn) for n, (mod, fn) in spies.items()}
+    checked = {n: {"calls": 0, "max_abs_err": 0.0} for n in sk}
+    guard, bundles, events = [], [], {}
+    keyframe_step = graft.mono_keyframe_step
+    snoop = system_mod.MonoSlam._snoop_chessboard
+    rebase = system_mod.MonoSlam._apply_chessboard_rebase
+    at = [0]
+
+    def counted_bundle(*a, **kw):
+        bundles.append(1)
+        return keyframe_step(*a, **kw)
+
+    def recorded_snoop(self, img):
+        events.setdefault("snoops", []).append(at[0])
+        snoop(self, img)
+        if self._chess_pose is not None:
+            events.setdefault("snoop", at[0])
+
+    def recorded_rebase(self, *a):
+        events.setdefault("rebases", []).append(at[0])
+        out_ = rebase(self, *a)
+        # Keyframe 0 right after the rebase, read after the frame (a read
+        # here would count as the frame's).
+        events["kf0_after"] = (self.state.kfs.R[0].clone(),
+                               self.state.kfs.t[0].clone())
+        return out_
+
+    def checking(n):
+        fn = originals[n]
+
+        def spy(*a, **kw):
+            res = fn(*a, **kw)
+            if guard:
+                return res
+            guard.append(n)
+            try:
+                err, _ = check_call(n, a, kw, checked[n])
+            finally:
+                guard.pop()
+            checked[n]["calls"] += 1
+            checked[n]["max_abs_err"] = max(checked[n]["max_abs_err"],
+                                            float(err))
+            return res
+
+        return spy
+
+    def run_cell(syncs=False, timers=False):
+        events.clear()
+        slam = system_mod.MonoSlam(cfg)
+        if timers:
+            slam.enable_stage_timers()
+        recs = []
+        t_seq = time.perf_counter()
+        for i, (img, stamp) in enumerate(zip(f.frames, f.stamps)):
+            at[0] = i
+            was = slam.status
+            n_b, n_s = len(bundles), len(events.get("snoops", []))
+            n_r = len(events.get("rebases", []))
+            before = {n: k.launches for n, k in sk.items()}
+            ctx = counted_syncs() if syncs else contextlib.nullcontext([])
+            with ctx as where:
+                t0 = time.perf_counter()
+                slam.track(img, float(stamp))
+                ms_ = (time.perf_counter() - t0) * 1e3
+            if was == system_mod.NOT_INITIALIZED:
+                if slam.status != system_mod.NOT_INITIALIZED:
+                    kind = "init"
+                elif len(events.get("snoops", [])) > n_s:
+                    kind = "snoop"
+                else:
+                    kind = "uninitialised"
+            elif len(events.get("rebases", [])) > n_r:
+                kind = "rebase"
+            elif len(bundles) > n_b:
+                kind = "keyframe"
+            else:
+                kind = "tracked"
+            if kind == "init":
+                events["init"] = i
+                events["kf0"] = int(np.argmin(np.abs(
+                    f.stamps - (slam._init_stamp + slam.t0))))
+            recs.append({"kind": kind, "ms": ms_, "syncs": list(where),
+                         "launches": {n: k.launches - before[n]
+                                      for n, k in sk.items()}})
+        traj = slam.trajectory
+        sec = time.perf_counter() - t_seq
+        if "kf0_after" in events:
+            R0, t0_ = (convert.to_numpy(x) for x in events.pop("kf0_after"))
+            events["kf0_gap"] = max(
+                float(np.abs(R0 - slam._chess_pose[0]).max()),
+                float(np.abs(t0_ - slam._chess_pose[1]).max()))
+        res = graft.chessboard_run_gates(dict(events), slam, traj, f)
+        res.update(seconds=sec, fps=len(f.stamps) / sec,
+                   kinds=[r["kind"] for r in recs])
+        require(res["ok"], f"(n): {json.dumps(res, default=str)} against "
+                f"the JAX run {graft.CHESS_JAX['full']}")
+        return slam, recs, res
+
+    graft.mono_keyframe_step = counted_bundle
+    system_mod.MonoSlam._snoop_chessboard = recorded_snoop
+    system_mod.MonoSlam._apply_chessboard_rebase = recorded_rebase
+    try:
+        for n_, (mod, fn) in spies.items():
+            setattr(mod, fn, checking(n_))
+        try:
+            _, _, warm = run_cell()
+            torch.cuda.synchronize()
+            check_call.settle()
+        finally:
+            for n_, (mod, fn) in spies.items():
+                setattr(mod, fn, originals[n_])
+        require(all(checked[n]["calls"] > 0 for n in ("K1", "K2", "K3")),
+                f"(n): kernels launched {checked}")
+        phase(name, "(n) warm-up sequence, every launch held against its "
+              "plain version: " + ", ".join(
+                  f"{n} {checked[n]['calls']} calls max err "
+                  f"{checked[n]['max_abs_err']:.2e}" for n in sk)
+              + "; " + json.dumps(dict(warm, kinds=None, rot_deg=None),
+                                  default=str) + f" ({card})")
+        for k in sk.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        _, recs, timed_run = run_cell()
+        timed_run["launches"] = {n: k.launches for n, k in sk.items()}
+        require(all(timed_run["launches"][n] > 0
+                    for n in ("K1", "K2", "K3")),
+                f"(n): launches {timed_run['launches']}")
+        _, sync_recs, sync_run = run_cell(syncs=True)
+        slam_t, _, timers_run = run_cell(timers=True)
+    finally:
+        graft.mono_keyframe_step = keyframe_step
+        system_mod.MonoSlam._snoop_chessboard = snoop
+        system_mod.MonoSlam._apply_chessboard_rebase = rebase
+    kinds = {}
+    for kind in ("snoop", "uninitialised", "init", "rebase", "tracked",
+                 "keyframe"):
+        rs = [r for r in recs if r["kind"] == kind]
+        st_ = spread(r["ms"] for r in rs)
+        st_["launches_per_frame"] = {
+            n: (sum(r["launches"][n] for r in rs) / len(rs) if rs else None)
+            for n in sk}
+        ss = [r for r in sync_recs if r["kind"] == kind]
+        st_["syncs_per_frame"] = (sum(len(r["syncs"]) for r in ss) / len(ss)
+                                  if ss else None)
+        sites = {}
+        for r in ss:
+            for w_ in r["syncs"]:
+                sites[w_] = sites.get(w_, 0) + 1
+        st_["sync_sites"] = {k: v / len(ss) for k, v in sorted(sites.items())}
+        kinds[kind] = st_
+        if st_["n"]:
+            phase(name, f"(n) {kind} frames ({st_['n']}): track() median "
+                  f"{st_['median']:.3f} ms, p80 {st_['p80']:.3f} ms (min "
+                  f"{st_['min']:.3f}, max {st_['max']:.3f}); launches per "
+                  f"frame {st_['launches_per_frame']}; "
+                  f"{st_['syncs_per_frame']} synchronisations per frame "
+                  f"{st_['sync_sites']} ({card})")
+    # With the timers off, a tracked frame synchronises as phase 10's mono
+    # cells' do (once), and a keyframe frame at no site theirs do not (its
+    # count moves with the culling a run does: a culled keyframe's frame
+    # records are rebased with one more read).
+    ref = {k: v["frame_kinds"] for k, v in system.items()
+           if "frame_kinds" in v}
+    require(kinds["tracked"]["syncs_per_frame"] in (None, *(
+        r["tracked"]["syncs_per_frame"] for r in ref.values())),
+        f"(n) tracked: {kinds['tracked']['syncs_per_frame']} "
+        f"synchronisations per frame against phase 10's "
+        f"{[r['tracked']['syncs_per_frame'] for r in ref.values()]}")
+    sites = set().union(*(r["keyframe"].get("sync_sites", {})
+                          for r in ref.values()))
+    require(set(kinds["keyframe"]["sync_sites"]) <= sites,
+            f"(n) keyframe: synchronisation sites "
+            f"{kinds['keyframe']['sync_sites']} against phase 10's {sites}")
+    report = slam_t.timers.report()
+    phase(name, "(n) stage timers (enable_stage_timers, each stage "
+          "synchronised):\n" + report)
+    phase(name, f"(n) {len(f.stamps)} frames in {timed_run['seconds']:.3f} s "
+          f"= {timed_run['fps']:.2f} frames/s (the frame period at 30 fps is "
+          f"33.3 ms); the board on frame {timed_run['snoop']} (JAX "
+          f"{graft.CHESS_JAX['full']['snoop']}), keyframe 0 from frame "
+          f"{timed_run['kf0']}, rebase on frame {timed_run['rebase']} (JAX "
+          f"{graft.CHESS_JAX['full']['rebase']}); the snooped pose "
+          f"{timed_run['pose_deg']:.4f} deg, {timed_run['pose_m']:.5f} m "
+          f"from the truth; the largest tracked rotation error "
+          f"{timed_run['rot_deg_max']:.4f} deg; ATE after the scale fit "
+          f"{timed_run['ate_m']:.5f} m (JAX "
+          f"{graft.CHESS_JAX['full']['ate_m']:.5f}, gate "
+          f"{timed_run['ate_gate_m']:.5f}); launches "
+          f"{timed_run['launches']} ({card})")
+    out["n_chessboard"] = {
+        "config": {k: v for k, v in dataclasses.asdict(
+            dataclasses.replace(cfg, chessboard=None)).items()
+            if not isinstance(v, np.ndarray)},
+        "warmup": dict(warm, kinds=None), "sequences": [timed_run],
+        "sync_run": dict(sync_run, kinds=None),
+        "timers_run": dict(timers_run, kinds=None),
+        "stage_timers": slam_t.timers.stats(), "frame_kinds": kinds,
+        "checked": checked}
+    out["seconds"] = time.perf_counter() - t18
+    phase(name, f"phase took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5135,6 +5442,9 @@ def smoke(oracle) -> int:
     merge, merge_calls = phase_merge(dev, card, sk, check_call, timed,
                                      shape_of)
 
+    # -- 18: the chessboard world frame --------------------------------------
+    chess = phase_chessboard(dev, card, sk, check_call, system)
+
     sources = {"K1": ("steered-BRIEF sampler", "csrc/brief.cu",
                       "orbslam3_byzyh_tpu/ops/pallas_brief.py:161",
                       "none: no single PyTorch call gathers rotated sample "
@@ -5209,7 +5519,13 @@ def smoke(oracle) -> int:
             "launches_merge_frame": {
                 k: {kind: st["launches_per_frame"][n]
                     for kind, st in merge[k]["frame_kinds"].items()}
-                for k in ("l_live", "m_resume")}}
+                for k in ("l_live", "m_resume")},
+            "launches_chessboard_system": chess["n_chessboard"][
+                "sequences"][0]["launches"][n],
+            "launches_chessboard_frame": {
+                kind: st["launches_per_frame"][n]
+                for kind, st in chess["n_chessboard"][
+                    "frame_kinds"].items()}}
 
     # K3s: no Pallas kernel; it ports the JAX package's XLA function.
     k3s_entry = {
@@ -5275,7 +5591,7 @@ def smoke(oracle) -> int:
         "plain32_err": plain32_err,
         "inertial": {k: v for k, v in vi_out.items() if k != "held"},
         "inertial_system": vi_sys, "fisheye": fish, "reloc": reloc,
-        "loop": loop, "merge": merge,
+        "loop": loop, "merge": merge, "chessboard": chess,
         "card": card}, default=str))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

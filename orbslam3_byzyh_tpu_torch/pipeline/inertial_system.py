@@ -34,6 +34,7 @@ stereo-inertial system is ``pipeline/stereo_inertial.py``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import NamedTuple
 
@@ -245,7 +246,7 @@ def track_inertial(feats, ur, depth, last_bind, last_desc, last_angle,
                    lms: ms.Landmarks, obs: ms.Observations, n_kf: int,
                    last_kf_id: int, body, bias: np.ndarray, imu_window,
                    t0: float, t1: float, ctx: ViContext, prior_H=None,
-                   prior_L=None) -> ViFrameResult:
+                   prior_L=None, stage=None) -> ViFrameResult:
     """``MonoInertialSlam._track_inertial``'s device work on the frame's
     features ``feats`` (with the right-image u ``ur`` and ``depth``, -1
     where none, or None for a mono rig), against the map's landmarks
@@ -271,30 +272,36 @@ def track_inertial(feats, ur, depth, last_bind, last_desc, last_angle,
                    ba (3)] + [close tracked, close untracked] with depth.
     """
     dev = feats.xy.device
+    stage = stage or (lambda name: contextlib.nullcontext())
     R_wb, p_w, v_w = body
-    pre_f, walk_d = preintegrate(*imu_window, t0, t1, bias, FRAME_STEPS,
-                                 ctx, extra=walk_info(ctx.walk_var, t1 - t0))
-    bias_j = pre_f.bias
-    R_pred, v_pred, p_pred = imu.predict_state(R_wb, v_w, p_w, pre_f, bias_j)
+    with stage("imu_preint"):
+        pre_f, walk_d = preintegrate(*imu_window, t0, t1, bias, FRAME_STEPS,
+                                     ctx, extra=walk_info(ctx.walk_var,
+                                                          t1 - t0))
+        bias_j = pre_f.bias
+        R_pred, v_pred, p_pred = imu.predict_state(R_wb, v_w, p_w, pre_f,
+                                                   bias_j)
     Rc_pred, tc_pred = cam_from_body(R_pred, p_pred, ctx.R_cb, ctx.t_cb)
 
-    res = tracking.track_motion_model(
-        Rc_pred, tc_pred, lms.pos, lms.valid, last_bind, last_desc,
-        feats.xy, feats.level, feats.desc, feats.valid, ctx.cam_params,
-        last_angle=last_angle, feats_angle=feats.angle)
-    # The IMU prediction when the projection match is thin: a select on
-    # the device, not a host branch.
-    ok_mm = res.n_inliers >= tracking.RETRY_BELOW
-    res = res._replace(R=torch.where(ok_mm, res.R, Rc_pred),
-                       t=torch.where(ok_mm, res.t, tc_pred))
-    use_stereo = ctx.bf is not None and ur is not None
-    res = tracking.track_local_map_windowed(
-        res.R, res.t, res.bindings, lms.pos, lms.desc, lms.normal,
-        lms.min_dist, lms.max_dist, lms.valid, obs.kf, obs.valid, n_kf,
-        feats.xy, feats.level, feats.desc, feats.valid,
-        ur if use_stereo else None, ctx.bf if use_stereo else None,
-        ctx.cam_params, ctx.width, ctx.height, use_stereo=use_stereo,
-        **ctx.window)
+    with stage("pose_pred"):
+        res = tracking.track_motion_model(
+            Rc_pred, tc_pred, lms.pos, lms.valid, last_bind, last_desc,
+            feats.xy, feats.level, feats.desc, feats.valid, ctx.cam_params,
+            last_angle=last_angle, feats_angle=feats.angle)
+    with stage("lm_track"):
+        # The IMU prediction when the projection match is thin: a select
+        # on the device, not a host branch.
+        ok_mm = res.n_inliers >= tracking.RETRY_BELOW
+        res = res._replace(R=torch.where(ok_mm, res.R, Rc_pred),
+                           t=torch.where(ok_mm, res.t, tc_pred))
+        use_stereo = ctx.bf is not None and ur is not None
+        res = tracking.track_local_map_windowed(
+            res.R, res.t, res.bindings, lms.pos, lms.desc, lms.normal,
+            lms.min_dist, lms.max_dist, lms.valid, obs.kf, obs.valid, n_kf,
+            feats.xy, feats.level, feats.desc, feats.valid,
+            ur if use_stereo else None, ctx.bf if use_stereo else None,
+            ctx.cam_params, ctx.width, ctx.height, use_stereo=use_stereo,
+            **ctx.window)
 
     # The joint visual-inertial pose (PoseInertialOptimizationLastFrame).
     bind = res.bindings
@@ -749,7 +756,8 @@ class MonoInertialSlam(system_mod.MonoSlam):
         self._append_imu(imu_data)
         self._cur_stamp = stamp
         prior_L = self._queue_prior()
-        feats = self._extract(img)
+        with self._stage("orb_extract"):
+            feats = self._extract(img)
         if self.status == system_mod.NOT_INITIALIZED:
             pose = self._try_initialize(feats, stamp)
             # A relocalization into an older map made no new map (the JAX
@@ -1200,7 +1208,7 @@ class MonoInertialSlam(system_mod.MonoSlam):
             self.state.obs, self.n_kf, self.last_kf_id, self._body,
             self._bias, self.buf.window(self._last_stamp, stamp),
             self._last_stamp, stamp, self.ctx, prior_H=self._pose_prior_H,
-            prior_L=prior_L)
+            prior_L=prior_L, **self._stage_kwargs())
         info = res.info
         n_inliers = int(info[0])
         ref_matches = max(int(info[1]), 1)

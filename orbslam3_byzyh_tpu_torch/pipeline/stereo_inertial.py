@@ -57,7 +57,7 @@ class StereoInertialSlam(MonoInertialSlam, StereoSlam):
         prior_L = self._queue_prior()
         feats, _, m = graft.stereo_extract(
             self._upload(img_left), self._upload(img_right), self.cam_params,
-            self.dist, self.rig)
+            self.dist, self.rig, **self._stage_kwargs())
         self._depth, self._ur = m.depth, m.u_right      # -1 where none
         if self.status == base.NOT_INITIALIZED:
             pose = self._stereo_initialize(feats, stamp)

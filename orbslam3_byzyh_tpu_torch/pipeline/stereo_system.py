@@ -112,7 +112,7 @@ class StereoSlam(base.MonoSlam):
             return None
         feats, _, m = graft.stereo_extract(
             self._upload(img_left), self._upload(img_right), self.cam_params,
-            self.dist, self.rig)
+            self.dist, self.rig, **self._stage_kwargs())
         self._depth, self._ur = m.depth, m.u_right      # -1 where none
         return self._track_with_depth(feats, stamp)
 
@@ -268,7 +268,7 @@ class FisheyeStereoSlam(StereoSlam):
         (-1 where none). The right-image u stays None."""
         feats, _, m = graft.fisheye_stereo_extract(
             self._upload(img_left), self._upload(img_right), self.frig,
-            self._fish)
+            self._fish, **self._stage_kwargs())
         self._depth = m.depth
         return feats
 

@@ -3,8 +3,16 @@ steps.
 
 Port of the JAX package's ``pipeline/system.py`` ``MonoSlam`` (ORB-SLAM3's
 ``System::TrackMonocular`` with the state machine of ``Tracking``:
-NOT_INITIALIZED -> OK -> RECENTLY_LOST -> a new map), with the chessboard
-world frame off. Given a vocabulary (a port ``ops.bow.Vocabulary``), it
+NOT_INITIALIZED -> OK -> RECENTLY_LOST -> a new map). With a chessboard
+configuration (the fork's world frame, ``utils/chessboard``) each
+uninitialised frame is searched for the board until one gives its pose
+(``_snoop_chessboard``: the device detector and planar PnP, three reads),
+and once the initial map exists the map and the tracking context are moved
+into the board's frame (``_apply_chessboard_rebase``: on the device, read
+with the reference keyframe's pose). ``enable_stage_timers`` turns on
+ORB-SLAM3's per-stage timers (``utils/timers``), each stage ending in a
+synchronisation of the device; off, no stage synchronises. Given a
+vocabulary (a port ``ops.bow.Vocabulary``), it
 keeps a BoW database of each map's keyframes (``loop_closing.LoopCloser``)
 and relocalises: a RECENTLY_LOST frame into the active map, and a frame of
 a lost or uninitialised map into an older atlas map, which it then
@@ -64,6 +72,7 @@ when the map is full and no keyframe was made).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional
 
@@ -120,9 +129,9 @@ class SlamConfig:
     min_init_matches: int = 100            # two-view init gate (Tracking.cc:3620)
     triangulation_neighbors: int = 3
     # A vocabulary (``ops.bow.Vocabulary``) enables relocalization and,
-    # with use_loop_closing, loop closing; the chessboard and a device mesh
-    # raise until their ROADMAP items; the rest are kept so that a
-    # configuration reads the same in both packages.
+    # with use_loop_closing, loop closing; a device mesh raises until its
+    # ROADMAP item; the rest are kept so that a configuration reads the
+    # same in both packages.
     background_gba: bool = True
     vocabulary: Optional[object] = None    # ops.bow.Vocabulary for reloc/loops
     use_loop_closing: bool = True
@@ -130,6 +139,8 @@ class SlamConfig:
     min_reloc_inliers: int = 30            # Relocalization gate (~:5230)
     cross_map_reloc: bool = True
     lost_grace_frames: Optional[int] = None  # RECENTLY_LOST budget (~fps)
+    # The fork's chessboard world frame (MonoSlam only; the stereo, RGB-D
+    # and inertial systems ignore it, as the JAX classes do).
     chessboard: Optional[object] = None    # utils.chessboard.ChessboardConfig
 
     def cam_params(self):
@@ -152,9 +163,6 @@ class MonoSlam:
             raise NotImplementedError(
                 "a device mesh (the sharded global BA) waits for ROADMAP "
                 "item 14")
-        if config.chessboard is not None:
-            raise NotImplementedError(
-                "the chessboard world frame waits for ROADMAP item 13")
         self.cfg = config
         self.device = device_mod.resolve(device)
         self.mcfg = graft.mono_slam_config(config)
@@ -220,6 +228,40 @@ class MonoSlam:
         self._ur = None
         self._depth = None
         self._close_counts = (0, 0)
+        # The chessboard world frame: the board's camera pose (host float32,
+        # from the first uninitialised frame that shows the board) and
+        # whether the map was moved into the board's frame.
+        self._chess_pose = None
+        self._chess_applied = False
+        # Per-stage timers (ORB-SLAM3's REGISTER_TIMES): None = off.
+        self.timers = None
+
+    # ------------------------------------------------------------------
+    def enable_stage_timers(self):
+        """Turn on the per-stage timers (``utils.timers.StageTimers``); each
+        timed stage then ends with a synchronisation of the device."""
+        from ..utils.timers import StageTimers
+        self.timers = StageTimers()
+        return self.timers
+
+    def _stage(self, name: str):
+        """A context timing stage ``name``, or a null context (no
+        synchronisation) with the timers off."""
+        if self.timers is None:
+            return contextlib.nullcontext()
+        return self._timed(name)
+
+    def _stage_kwargs(self) -> dict:
+        """The stage timer for an entry point that times stages of its own
+        (``stage=``), passed only while the timers are on."""
+        return {} if self.timers is None else {"stage": self._stage}
+
+    @contextlib.contextmanager
+    def _timed(self, name: str):
+        with self.timers.time(name):
+            yield
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------------
     @property
@@ -269,14 +311,15 @@ class MonoSlam:
         return device_mod.read(self.state.kfs.R, self.state.kfs.t)
 
     # ------------------------------------------------------------------
-    def _extract(self, img: np.ndarray):
+    def _extract(self, img):
         """ORB features of a frame, rectified onto the (virtual) pinhole:
         through the Kannala-Brandt model when the camera has one, else
-        undistorted when it has radtan coefficients. The image goes up as
-        it is (uint8 stays uint8) and becomes float32 on the device. (The
-        fisheye rig's second camera is resolved once, in
-        ``graft.fisheye_rig_tensors``.)"""
-        x = device_mod.upload(np.asarray(img), self.device)
+        undistorted when it has radtan coefficients. A numpy image goes up
+        as it is (uint8 stays uint8); a tensor is the uploaded image. It
+        becomes float32 on the device. (The fisheye rig's second camera is
+        resolved once, in ``graft.fisheye_rig_tensors``.)"""
+        x = (img if isinstance(img, torch.Tensor)
+             else device_mod.upload(np.asarray(img), self.device))
         return graft.mono_extract(x.to(torch.float32), self.cam_params,
                                   self.dist, self.mcfg, kb8=self.kb8)
 
@@ -287,7 +330,12 @@ class MonoSlam:
         self._kf_host_pending = False
         if self._check_timestamp_jump(stamp):
             return None
-        feats = self._extract(img)
+        x = device_mod.upload(np.asarray(img), self.device)
+        if (self.cfg.chessboard is not None and self._chess_pose is None
+                and self.status == NOT_INITIALIZED):
+            self._snoop_chessboard(x)
+        with self._stage("orb_extract"):
+            feats = self._extract(x)
         if self.status == NOT_INITIALIZED:
             pose = self._try_initialize(feats, stamp)
         else:
@@ -452,16 +500,18 @@ class MonoSlam:
         # close-point counts) and one read: its info with the last pose.
         lms, obs = self.state.lms, self.state.obs
         st = self._stereo_kwargs()
-        res, info, n_found, n_visible = tracking.frame_step(
-            R_pred, t_pred, R_last, t_last, lms.pos, lms.desc, lms.normal,
-            lms.min_dist, lms.max_dist, lms.valid, last["bindings"],
-            last["feats"].desc, last["feats"].angle, feats.xy, feats.level,
-            feats.desc, feats.valid, feats.angle, st["feats_ur"], st["bf"],
-            st["th_depth"], obs.kf, obs.valid, self.last_kf_id,
-            self.cfg.kf_ref_min_obs, self.n_kf, lms.n_found, lms.n_visible,
-            self.cam_params, self.cfg.width, self.cfg.height,
-            use_stereo=st["use_stereo"], **self._window_kwargs())
-        info_np, R_lw, t_lw = device_mod.read(info, R_last, t_last)
+        with self._stage("lm_track"):
+            res, info, n_found, n_visible = tracking.frame_step(
+                R_pred, t_pred, R_last, t_last, lms.pos, lms.desc,
+                lms.normal, lms.min_dist, lms.max_dist, lms.valid,
+                last["bindings"], last["feats"].desc, last["feats"].angle,
+                feats.xy, feats.level, feats.desc, feats.valid, feats.angle,
+                st["feats_ur"], st["bf"], st["th_depth"], obs.kf, obs.valid,
+                self.last_kf_id, self.cfg.kf_ref_min_obs, self.n_kf,
+                lms.n_found, lms.n_visible, self.cam_params, self.cfg.width,
+                self.cfg.height, use_stereo=st["use_stereo"],
+                **self._window_kwargs())
+            info_np, R_lw, t_lw = device_mod.read(info, R_last, t_last)
         n_inliers = int(info_np[0])
         ref_matches = max(int(info_np[1]), 1)
         self._close_counts = (int(info_np[2]), int(info_np[3]))
@@ -506,6 +556,14 @@ class MonoSlam:
         self.state = self.state._replace(lms=self.state.lms._replace(
             n_found=n_found, n_visible=n_visible))
 
+        # The chessboard world frame, once, after the initial map
+        # (the fork's Tracking::Track after its initialisation): this
+        # frame's pose and the last frame's move with the map.
+        if (self._chess_pose is not None and not self._chess_applied
+                and self.n_kf >= 2):
+            R_np, t_np, R_lw, t_lw, res = self._apply_chessboard_rebase(
+                R_np, t_np, R_lw, t_lw, res)
+
         # Motion model update (host floats).
         Rv_new = R_np @ R_lw.T
         tv_new = t_np - Rv_new @ t_lw
@@ -513,9 +571,12 @@ class MonoSlam:
         self._last = dict(feats=feats, bindings=res.bindings, R=R_np,
                           t=t_np, stamp=stamp)
         self.frames_since_kf += 1
-        if (not self.localization_only
-                and self._need_new_keyframe(n_inliers, ref_matches)):
-            self._create_keyframe(feats, res, stamp, R_np, t_np)
+        with self._stage("new_kf_decision"):
+            need_kf = (not self.localization_only
+                       and self._need_new_keyframe(n_inliers, ref_matches))
+        if need_kf:
+            with self._stage("total_mapping"):
+                self._create_keyframe(feats, res, stamp, R_np, t_np)
         return (R_np, t_np)
 
     def _track_reference_keyframe(self, R_last, t_last, feats):
@@ -735,9 +796,12 @@ class MonoSlam:
         self._ref_cache = (kf_id, R_np, t_np)
         if not self._bundle_local_ba:
             # The host-scheduled refinement and culling (no read).
-            self._local_refine(kf_id, None, None)
-            self.state = mapping.cull_landmarks(self.state, kf_id)
-            self._maybe_cull_keyframes(kf_id)
+            with self._stage("lba"):
+                self._local_refine(kf_id, None, None)
+            with self._stage("mp_culling"):
+                self.state = mapping.cull_landmarks(self.state, kf_id)
+            with self._stage("kf_culling"):
+                self._maybe_cull_keyframes(kf_id)
             self._last["R"] = self.state.kfs.R[kf_id]
             self._last["t"] = self.state.kfs.t[kf_id]
         if self.loop_closer is not None:
@@ -797,8 +861,11 @@ class MonoSlam:
         """One bounded slice of the background solve (once a tracked
         frame); the merge when it completes."""
         g = self._bg_gba
-        if g is not None and g.active and g.tick():
-            self._merge_bg_gba()
+        if g is None or not g.active:
+            return
+        with self._stage("global_ba"):
+            if g.tick():
+                self._merge_bg_gba()
 
     def _gba_flush(self):
         """Finish a background GBA in flight inline (the save and shutdown
@@ -920,7 +987,7 @@ class MonoSlam:
             self.state, lc, kf_id, self.n_kf, self.cam_params,
             kf_parent=self.kf_parent, cfg=self.mcfg,
             gba="background" if bg is not None else "inline", bg=bg,
-            ba_kwargs=self._ba_kwargs())
+            ba_kwargs=self._ba_kwargs(), **self._stage_kwargs())
         if info["fired"]:
             # The tracking context follows the corrected map (the close
             # and, inline, the GBA: one re-coordination of both).
@@ -1100,6 +1167,62 @@ class MonoSlam:
 
     def _on_cross_map_reloc(self, cand: int):
         """Subclass hook (the inertial systems restart their chain)."""
+
+    # ------------------------------------------------------------------
+    # The chessboard world frame (the fork's ComputePoseFromChessboard and
+    # TransformAllMapElements; utils/chessboard)
+    # ------------------------------------------------------------------
+    def _snoop_chessboard(self, img: torch.Tensor):
+        """Search the uploaded frame for the board; keep the camera's pose
+        in the board's frame when it is found. The corners are undistorted
+        through the camera's radtan coefficients before the PnP (the JAX
+        system poses the distorted corners with K alone)."""
+        from ..utils import chessboard as cb
+        corners = cb.detect_chessboard(img, self.cfg.chessboard)
+        if corners is None:
+            return
+        K = np.array([[self.cfg.fx, 0, self.cfg.cx],
+                      [0, self.cfg.fy, self.cfg.cy], [0, 0, 1.0]])
+        pose = cb.pose_from_chessboard(corners, self.cfg.chessboard, K,
+                                       dist=self.dist, device=self.device)
+        if pose is not None:
+            self._chess_pose = pose
+
+    def _apply_chessboard_rebase(self, R_cur, t_cur, R_last, t_last, res):
+        """Move the map into the board's frame, M = Tc_board^-1 Tc_slam at
+        keyframe 0 (the frame the board was seen on is, approximately, the
+        initialisation's reference frame), computed and applied on the
+        device; then everything else that holds world coordinates: this
+        frame's pose (host) and track result (device), the last frame's
+        pose, the reference-pose cache (M comes back with the reference
+        keyframe's pose in one read). The velocity T_cur T_last^-1 is the
+        same in both frames; it is recomputed from the moved poses. A
+        background GBA's snapshot is dropped. Returns the moved (R_cur,
+        t_cur, R_last, t_last, res)."""
+        from ..utils import chessboard as cb
+        R_c, t_c = (device_mod.upload(np.asarray(x, np.float32), self.device)
+                    for x in self._chess_pose)
+        kfs = self.state.kfs
+        R_m, t_m = cb.rebase_transform(R_c, t_c, kfs.R[0], kfs.t[0])
+        self.state = cb.rebase_map(self.state, R_m, t_m)
+        self._gba_abort()
+        k = self.last_kf_id
+        R_m_np, t_m_np, R_k, t_k = device_mod.read(
+            R_m, t_m, self.state.kfs.R[k], self.state.kfs.t[k])
+        self._set_ref_cache(k, R_k, t_k)
+
+        def move(R, t):
+            R_n = (np.asarray(R, np.float32) @ R_m_np.T).astype(np.float32)
+            return R_n, (np.asarray(t, np.float32)
+                         - R_n @ t_m_np).astype(np.float32)
+
+        R_cur, t_cur = move(R_cur, t_cur)
+        R_last, t_last = move(R_last, t_last)
+        R_d = res.R @ R_m.T
+        res = res._replace(R=R_d, t=res.t - R_d @ t_m)
+        self._vel = None
+        self._chess_applied = True
+        return R_cur, t_cur, R_last, t_last, res
 
     # ------------------------------------------------------------------
     def keyframe_trajectory(self):

@@ -40,7 +40,8 @@ def test_static_checks_cover_the_system():
                if p.is_relative_to(PORT)}
     for rel in ("pipeline/system.py", "pipeline/trajectory_log.py",
                 "models/atlas.py", "io/trajectory.py", "io/checkpoint.py",
-                "utils/evaluate.py", "utils/verbose.py"):
+                "io/settings.py", "utils/evaluate.py", "utils/verbose.py",
+                "utils/chessboard.py", "utils/timers.py"):
         assert rel in checked, rel
 
 
@@ -53,6 +54,18 @@ def test_no_jax_imports(path):
     for mod in _imports(path):
         root = mod.split(".")[0]
         assert root not in ("jax", "jaxlib", "orbslam3_byzyh_tpu"), (path, mod)
+
+
+@pytest.mark.parametrize("path", PORT_SOURCES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_host_library_imports(path):
+    """The card's machine has no OpenCV, matplotlib or PyYAML: no module
+    of the port, nor the chip smoke script, imports ``cv2``,
+    ``matplotlib`` or ``yaml`` (the port has its own chessboard detector,
+    planar PnP and reader of OpenCV's YAML 1.0)."""
+    for mod in _imports(path):
+        assert mod.split(".")[0] not in ("cv2", "matplotlib", "yaml"), (
+            path, mod)
 
 
 @pytest.mark.parametrize("path", PORT_SOURCES,

@@ -334,12 +334,25 @@ def test_default_device_is_the_card(monkeypatch):
                                          ("chessboard", "13"),
                                          ("kb8", "10")])
 def test_unported_options_raise(option, item):
-    """A chessboard raises, naming its ROADMAP item. A vocabulary is ported
-    (items 12a-12c): one that is not the port's is refused, and with a
-    port vocabulary the system closes loops and its merge branch mines
-    the other maps (none here). A KB8 camera is ported (item 10b): the
-    system builds, and only the native KB8 pose optimizer, which no system
-    calls, raises, naming item 10c."""
+    """The chessboard world frame is ported (item 13): the system builds
+    and snoops each uninitialised frame for the board. A vocabulary is
+    ported (items 12a-12c): one that is not the port's is refused, and
+    with a port vocabulary the system closes loops and its merge branch
+    mines the other maps (none here). A KB8 camera is ported (item 10b):
+    the system builds, and only the native KB8 pose optimizer, which no
+    system calls, raises, naming item 10c."""
+    if option == "chessboard":
+        slam = tsys.MonoSlam(tsys.SlamConfig(
+            **CFG, chessboard=graft.MYCAMERA_BOARD), device="cpu")
+        snooped = []
+        snoop = slam._snoop_chessboard
+        slam._snoop_chessboard = lambda img: snooped.append(snoop(img))
+        world = SynthWorld(seed=3, w=W, h=H, fx=F, fy=F)
+        slam.track(world.render(float(STAMPS[0])).astype(np.uint8),
+                   float(STAMPS[0]))
+        assert len(snooped) == 1 and slam._chess_pose is None
+        assert not slam._chess_applied
+        return
     cfg = tsys.SlamConfig(**CFG, **{option: np.zeros(4)})
     if option == "vocabulary":
         with pytest.raises(TypeError, match="ops.bow.Vocabulary"):
