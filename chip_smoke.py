@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Builds the three CUDA kernels from ``orbslam3_byzyh_tpu_torch/csrc`` with
-nvcc (in parallel) and drives the port's entry points through them:
+Builds the CUDA kernels from ``orbslam3_byzyh_tpu_torch/csrc`` with nvcc
+(one process each, in parallel: K1-K3 and P1) and drives the port's entry
+points through them:
 
   * ``graft.tracking_step`` (480x640, 1024 features, 4096 landmarks) on a
     scene that tracks (the example image against a map lifted from its own
@@ -156,6 +157,27 @@ nvcc (in parallel) and drives the port's entry points through them:
     by frame kind with the merge frame apart, one synchronisation-counting
     run of each; the checkpoint's bytes and its save and load seconds.
 
+  * phase "19 runners" (run right after phase 13, while cell (f)'s CUDA
+    graphs are cached): the port's dataset runners (``runners.py``) as a
+    user calls them, on EuRoC-, KITTI- and TUM-layout datasets written
+    from the fixtures in the oracle pool while the earlier phases run
+    (``graft.write_runner_dataset``). Kernel P1, the PNG unfilter of the
+    port's decoder (a port kernel for ``cv2.imread``, not for a TPU
+    kernel), built with K1-K3: held bit for bit against the plain
+    unfilter on every row filter at 752x480, and the prefetcher timed with
+    1 and 4 threads on Paeth files. (o) The flagship runner,
+    ``main_euroc_stereo_inertial`` at its defaults (1200 features, 1024 /
+    65,536 / 12 slots) with ``--no-vocabulary``, on (d)'s 40 pairs through
+    a raw EuRoC-like rig (radtan, the 0.8-degree stereo rotation) and the
+    200 Hz IMU: every P1 launch bit-identical, every rectified pair within
+    1e-4 of the plain remap, the rig within 1e-6 of the plain rig, (f)'s
+    gates against the truth and the JAX runner's ATE, its files read
+    back; the user's frames/s, the prefetcher's wait, decode and
+    rectification by CUDA events; a second run without the ``T_bc`` repair
+    counting synchronisations (none between ``track`` calls). (p) The
+    other five runners on 10 frames each: each initialises on the frame
+    its CPU run does, writes its files, P1 and CLAHE equal to plain.
+
 Every kernel is held against its plain PyTorch version on the card: on
 synthetic inputs at both paths' shapes, and on the very inputs each path
 gave it (its wrapper's calls are recorded and replayed). K3 and K3s are
@@ -196,6 +218,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 import warnings
@@ -231,8 +254,11 @@ N_WARMUP_INITS = 2
 # each with a fresh MonoSlam (2 until phase 16 needed the room).
 N_TIMED_SEQUENCES = 1
 # The K3 / K3s plain version's timed runs at a system path's shapes (a
-# float64 LM of 0.2-0.7 s a call; 5 until phase 16 needed the room).
+# float64 LM of 0.2-0.7 s a call; 5 until phase 16 needed the room), after
+# one warm-up call (3 until phase 19 needed the room: about 25 such
+# timings a script, 0.3-0.8 s a call).
 K3_PLAIN_REPS = 2
+K3_PLAIN_WARMUP = 1
 
 
 def plain_reps_of(name: str) -> int:
@@ -406,11 +432,12 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def event_ms(fn, reps: int = N_TIMED_LAUNCHES, primed: bool = False) -> float:
-    """Median CUDA-event time of one call over ``reps`` calls, after warm-up.
-    ``primed`` queues a spin kernel first, so the events time the device
-    work alone and not the host's enqueueing."""
-    for _ in range(3):
+def event_ms(fn, reps: int = N_TIMED_LAUNCHES, primed: bool = False,
+             warmup: int = 3) -> float:
+    """Median CUDA-event time of one call over ``reps`` calls, after
+    ``warmup`` calls. ``primed`` queues a spin kernel first, so the events
+    time the device work alone and not the host's enqueueing."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -2714,7 +2741,6 @@ def phase_merge(dev, card, sk, check_call, timed, shape_of) -> tuple:
     fresh system and plays the revisit: the checkpoint's bytes and the
     save and load seconds. Returns the results and each kernel's held
     calls of the step with their times."""
-    import tempfile
 
     from orbslam3_byzyh_tpu_torch import convert, graft
     from orbslam3_byzyh_tpu_torch.ops import bow, cuda_brief, cuda_match
@@ -3529,24 +3555,509 @@ def phase_chessboard(dev, card, sk, check_call, system) -> dict:
     return out
 
 
+# Phase 19's Paeth files for the prefetcher's thread scaling.
+N_PAETH_FILES = 16
+
+
+def fabricate_dataset(kind: str, root: str):
+    """``graft.write_runner_dataset(kind)`` at phase 19's frames under
+    ``root``; runs in a worker process of the oracle pool."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    if here not in sys.path:
+        sys.path.insert(0, here)
+    torch.set_num_threads(1)
+    from orbslam3_byzyh_tpu_torch import graft
+    return graft.write_runner_dataset(kind, os.path.join(root, kind))
+
+
+class RunnerProbe:
+    """What a runner's frame loop did, seen from ``on_system``: each
+    ``track`` call's frame kind (as phase 13's: uninitialised, init, visual,
+    inertial, keyframe, imu_keyframe; tracked for the systems without an
+    IMU), its host-clock ms and, inside ``counted_syncs``, the
+    synchronisations inside ``track`` and between two ``track`` calls (the
+    runner's own: decode, rectification, CLAHE, the IMU batch)."""
+
+    def __init__(self, bundles, where=None):
+        self.bundles, self.where = bundles, where
+        self.frames, self.slam = [], None
+
+    def _n(self):
+        return len(self.where) if self.where is not None else 0
+
+    def __call__(self, slam):
+        from orbslam3_byzyh_tpu_torch.pipeline import system as system_mod
+        self.slam = slam
+        track = slam.track
+        mark = [self._n()]
+
+        def probed(*args):
+            uninit = slam.status == system_mod.NOT_INITIALIZED
+            imu = hasattr(slam, "imu_ready")
+            ready = imu and slam.imu_ready
+            stage = slam.viba_stage if imu else None
+            n_b = len(self.bundles)
+            s0 = self._n()
+            t0 = time.perf_counter()
+            pose = track(*args)
+            ms = (time.perf_counter() - t0) * 1e3
+            s1 = self._n()
+            if uninit:
+                kind = ("uninitialised"
+                        if slam.status == system_mod.NOT_INITIALIZED
+                        else "init")
+            elif len(self.bundles) > n_b:
+                kind = ("imu_keyframe" if imu and slam.viba_stage != stage
+                        else "keyframe")
+            elif imu:
+                kind = "inertial" if ready else "visual"
+            else:
+                kind = "tracked"
+            self.frames.append({"kind": kind, "ms": ms,
+                                "syncs_in": s1 - s0,
+                                "syncs_out": s0 - mark[0]})
+            mark[0] = s1
+            return pose
+
+        slam.track = probed
+
+    def init_frame(self):
+        return next((i for i, f in enumerate(self.frames)
+                     if f["kind"] == "init"), None)
+
+
+@contextlib.contextmanager
+def spied_method(cls, name: str, calls: list):
+    """Record (args, result) of every call of the method ``cls.name``."""
+    fn = getattr(cls, name)
+
+    def spy(self, *args):
+        out = fn(self, *args)
+        calls.append((args, out))
+        return out
+
+    setattr(cls, name, spy)
+    try:
+        yield calls
+    finally:
+        setattr(cls, name, fn)
+
+
+def rect_error(inputs, outputs, mx, my) -> float:
+    """The largest distance of rectified images from the float64 plain remap
+    of their inputs (numpy); runs in a worker process of the oracle pool."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    if here not in sys.path:
+        sys.path.insert(0, here)
+    from orbslam3_byzyh_tpu_torch.io import rectify
+    return max(float(np.abs(y - rectify.remap_plain(x, mx, my)).max())
+               for x, y in zip(inputs, outputs))
+
+
+def phase_runners(dev, card, sk, p1, vi_sys, datasets, oracle) -> dict:
+    """Phase "19 runners": the port's dataset runners (``runners.py``) as a
+    user calls them, on the datasets ``fabricate_dataset`` wrote in the
+    oracle pool. (a) P1 on synthetic scanlines of every row filter at
+    EuRoC's 752x480 (8 and 16 bit, and RGB) bit-identical to the plain
+    unfilter; the prefetcher's device path with 1 and 4 threads on
+    Paeth-filtered 752x480 files, and its CPU path. (o) The flagship:
+    ``main_euroc_stereo_inertial`` with the runner's defaults (1200
+    features, 1024 / 65,536 / 12 slots) and ``--no-vocabulary`` on (d)'s 40
+    pairs through ``graft.euroc_raw_rig`` with the 200 Hz IMU: a timed run
+    (the user's frames/s, the prefetcher wait, decode and rectification
+    by CUDA events, frame latency by kind) with every P1 launch held
+    against the plain unfilter bit for bit, every rectified pair against
+    the float64 plain remap within 1e-4, the runner's rig against the plain
+    float64 rig within 1e-6, (f)'s gates against the truth and the JAX
+    runner's ATE (``graft.RUNNER_JAX``), the ``f_`` / ``kf_`` files read
+    back with their ns stamps; a second run without the ``T_bc`` repair
+    (the JAX runner's extrinsic) counting synchronisations per frame
+    kind: none between two ``track`` calls, and those inside against
+    (f)'s. P1 timed alone, by its wrapper, plain and its bound. (p) The
+    other five runners on at most 10 frames each: they run on the card,
+    initialise on the frame the CPU run of the same runner does
+    (``graft.RUNNER_INIT_FRAMES``; a two-view init within the frames, as
+    its RANSAC draws on the card differ from the CPU's), write their files,
+    every P1 launch bit-identical, every CLAHE equal to its plain
+    version. It runs right after phase 13, whose cell (f) leaves the
+    flagship's CUDA graphs cached; the rectified pairs are held in the
+    ``oracle`` pool while the card goes on."""
+    from orbslam3_byzyh_tpu_torch import graft, runners
+    from orbslam3_byzyh_tpu_torch.io import png, rectify, trajectory
+    from orbslam3_byzyh_tpu_torch.io.prefetch import ImagePrefetcher
+    from orbslam3_byzyh_tpu_torch.ops import clahe as clahe_mod
+    from orbslam3_byzyh_tpu_torch.ops import cuda_png
+
+    name = "19 runners"
+    t19 = time.perf_counter()
+    out = {}
+    counters = dict(sk, P1=p1)
+    rng = np.random.default_rng(19)
+
+    # -- (a) P1 on every filter, and the prefetcher ---------------------------
+    h, w = 480, 752
+    img8 = ((rng.integers(0, 256, (h, w)) // 4
+             + np.add.outer(np.arange(h), 3 * np.arange(w))) % 256).astype(
+                 np.uint8)
+    cases = [("grey8", img8.reshape(h, w), 1, png.GREY8),
+             ("grey16", (img8.astype(np.uint16) * 251 + 7).astype(">u2")
+              .view(np.uint8).reshape(h, -1), 2, png.GREY16),
+             ("rgb8", np.repeat(img8, 3, 1) ^ rng.integers(
+                 0, 8, (h, 3 * w)).astype(np.uint8), 3, png.RGB8)]
+    n_held = 0
+    for label, by, bpp, mode in cases:
+        for filters in ((0,), (1,), (2,), (3,), (4,), (4, 3, 2, 1, 0)):
+            raw = png.filter_rows(by, bpp, filters)
+            got = cuda_png.unfilter_kernel(torch.from_numpy(raw).to(dev), w,
+                                           bpp, mode)
+            ref = cuda_png.unfilter_plain(torch.from_numpy(raw), w, bpp, mode)
+            torch.cuda.synchronize()
+            require(torch.equal(got.cpu(), ref),
+                    f"P1 {label} filters {filters} differs from plain")
+            n_held += 1
+    phase(name, f"(a) P1 {h}x{w}: {n_held} launches (grey 8, grey 16, RGB; "
+          "each filter alone and all five mixed) bit-identical to the plain "
+          "unfilter")
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = []
+        for i in range(N_PAETH_FILES):
+            paths.append(os.path.join(tmp, f"{i:03d}.png"))
+            png.write_png(paths[-1], np.roll(img8, 7 * i, 1), filters=(4,))
+        scaling = {}
+        for where in ("cuda", "cpu"):
+            for n_threads in (1, 4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pf = ImagePrefetcher(paths, n_threads=n_threads, capacity=8,
+                                     device=where)
+                imgs = [im for _, im in pf]
+                torch.cuda.synchronize()
+                dt = (time.perf_counter() - t0) * 1e3 / len(paths)
+                pf.close()
+                if where == "cuda":
+                    for p, im in zip(paths, imgs):
+                        require(np.array_equal(im.cpu().numpy(),
+                                               png.read_grey(p)),
+                                f"prefetcher: {p} differs from plain")
+                scaling[f"{where}_{n_threads}"] = {
+                    "ms_per_image": dt, "wait_ms_per_image":
+                        pf.wait_s * 1e3 / len(paths)}
+    out["prefetch_paeth_752x480"] = scaling
+    phase(name, "(a) prefetcher on 752x480 Paeth files (all rows Paeth, the "
+          "port's writer), ms an image end to end [wait]: " + ", ".join(
+              f"{k} {v['ms_per_image']:.2f} [{v['wait_ms_per_image']:.2f}]"
+              for k, v in scaling.items()) + f" ({card})")
+
+    # -- (o) the flagship -------------------------------------------------------
+    bundles = []
+    keyframe_step = graft.mono_keyframe_step
+
+    def counted_bundle(*a, **kw):
+        bundles.append(1)
+        return keyframe_step(*a, **kw)
+
+    def run(main, d, probe, **kw):
+        p1_calls, rect_calls, clahe_calls = [], [], []
+        unfilter = cuda_png.unfilter
+
+        def p1_spy(raw, width, bpp, mode):
+            res = unfilter(raw, width, bpp, mode)
+            p1_calls.append((raw, width, bpp, mode, res))
+            return res
+
+        cuda_png.unfilter = p1_spy
+        work = tempfile.mkdtemp()
+        try:
+            with spied_method(rectify.RectifiedRig, "rectify", rect_calls), \
+                    spied_method(clahe_mod.Clahe, "apply", clahe_calls):
+                for k in counters.values():
+                    k.launches = 0
+                t0 = time.perf_counter()
+                res = getattr(runners, main)(d.argv, out_dir=work,
+                                             on_system=probe, **kw)
+                seconds = time.perf_counter() - t0
+                launches = {n: k.launches for n, k in counters.items()}
+            files = {os.path.basename(p): os.path.getsize(p)
+                     for p in res.outputs}
+            traj, kf = (read_tum(res.outputs, "f_"),
+                        read_tum(res.outputs, "kf_"))
+        finally:
+            cuda_png.unfilter = unfilter
+            shutil.rmtree(work, ignore_errors=True)
+        return dict(res=res, seconds=seconds, launches=launches, files=files,
+                    traj=traj, kf=kf, p1=p1_calls, rect=rect_calls,
+                    clahe=clahe_calls)
+
+    def read_tum(paths, prefix):
+        """A runner's TUM file read back with the port's ``load_tum``;
+        None when it holds no pose."""
+        for p in paths:
+            if os.path.basename(p).startswith(prefix):
+                with open(p) as f:
+                    if f.read().strip():
+                        return trajectory.load_tum(p)
+        return None
+
+    def hold_p1(calls):
+        for raw, width, bpp, mode, res in calls:
+            ref = cuda_png.unfilter_plain(raw.cpu(), width, bpp, mode)
+            require(torch.equal(res.cpu(), ref), "P1 differs from plain")
+        return len(calls)
+
+    def hold_clahe(calls):
+        for (img,), res in calls:
+            ref = clahe_mod.clahe_plain(img.cpu().numpy())
+            require(np.array_equal(res.cpu().numpy(), ref),
+                    "CLAHE differs from its plain version")
+        return len(calls)
+
+    def stamps_ok(d, traj, scale):
+        s = traj[0] * scale
+        gap = np.abs(s[:, None] - d.stamps[None]).min(1).max()
+        require(gap < 1e-6, f"{d.kind}: stamps off the dataset's by {gap}")
+        return float(gap)
+
+    def kinds_of(frames):
+        by = {}
+        for f in frames:
+            by.setdefault(f["kind"], []).append(f)
+        return {k: dict(spread(x["ms"] for x in v),
+                        syncs_in=sum(x["syncs_in"] for x in v) / len(v),
+                        syncs_out=sum(x["syncs_out"] for x in v))
+                for k, v in by.items()}
+
+    graft.mono_keyframe_step = counted_bundle
+    try:
+        d = datasets["euroc_stereo_inertial"].result()
+        torch.cuda.synchronize()
+        probe = RunnerProbe(bundles)
+        r1 = run("main_euroc_stereo_inertial", d, probe)
+        res = r1["res"]
+        require(all(v > 0 for v in r1["launches"].values()),
+                f"(o): kernels launched {r1['launches']}")
+        n_p1 = hold_p1(r1["p1"])
+        rig = res.rig
+        rect_jobs = [oracle.submit(
+            rect_error, [c[0][k].cpu().numpy() for c in r1["rect"]],
+            [c[1][k].cpu().numpy() for c in r1["rect"]], mx, my)
+            for k, (mx, my) in enumerate(((rig.map1x, rig.map1y),
+                                          (rig.map2x, rig.map2y)))]
+        plain_rig = graft.raw_rig_rectification(graft.euroc_raw_rig())
+        rig_err = max(float(np.abs(getattr(rig, k) - getattr(plain_rig, k))
+                            .max() / np.abs(getattr(plain_rig, k)).max())
+                      for k in ("R1", "R2", "P1", "P2"))
+        require(rig_err <= 1e-6, f"(o): rig off the plain rig by {rig_err}")
+        slam = res.slam
+        v = slam._body[2] if slam._body is not None else torch.zeros(3)
+        g1 = graft.runner_gates(d, r1["traj"][0] * 1e-9, r1["traj"][1],
+                                v_est=v.detach().cpu().numpy(),
+                                jax_ate_m=graft.RUNNER_JAX["ate_m"])
+        g1.update(imu_ready=bool(slam.imu_ready), stamp_gap_s=stamps_ok(
+            d, r1["traj"], 1e-9), kf_stamp_gap_s=stamps_ok(d, r1["kf"], 1e-9),
+            n_kf_file=len(r1["kf"][0]))
+        require(g1["ok"] and slam.imu_ready,
+                f"(o): {g1} against imu_ready, >= "
+                f"{graft.VI_STEREO_MIN_FRAMES} frames, ATE < "
+                f"{graft.VI_STEREO_ATE_GATE_M} m and < "
+                f"{graft.RUNNER_JAX_ATE_GATE_M:.5f} m (1.5 x the JAX "
+                f"runner's + 0.002), speed within {graft.VI_SPEED_TOL_MPS}")
+        phase(name, f"(o) warm-up run: {r1['seconds']:.2f} s, every launch "
+              f"held (the rectified pairs in the oracle pool)")
+        # The timed run, warm: what a user's second sequence sees.
+        probe = RunnerProbe(bundles)
+        torch.cuda.synchronize()
+        rt = run("main_euroc_stereo_inertial", d, probe)
+        require(all(v > 0 for v in rt["launches"].values()),
+                f"(o) timed run: kernels launched {rt['launches']}")
+        hold_p1(rt["p1"])
+        res = rt["res"]
+        slam = res.slam
+        v = slam._body[2] if slam._body is not None else torch.zeros(3)
+        gt = graft.runner_gates(d, rt["traj"][0] * 1e-9, rt["traj"][1],
+                                v_est=v.detach().cpu().numpy(),
+                                jax_ate_m=graft.RUNNER_JAX["ate_m"])
+        require(gt["ok"] and slam.imu_ready, f"(o) timed run: {gt}")
+        rect_err = max(j.result() for j in rect_jobs)
+        require(rect_err <= 1e-4, f"(o): rectified pair off by {rect_err}")
+        waits = [f["wait_ms"] for f in res.frames]
+        preps = [f["prep_ms"] for f in res.frames]
+        o = {"frames": res.n_total, "main_s": rt["seconds"],
+             "warmup_main_s": r1["seconds"], "loop_s": res.wall_s,
+             "fps_user": res.n_total / rt["seconds"],
+             "fps_loop": res.n_total / res.wall_s,
+             "prefetch_wait_ms": dict(spread(waits), total=sum(waits)),
+             "prep_host_ms": spread(preps),
+             "decode_rectify_device_ms": spread(res.prep_device_ms or []),
+             "launches": rt["launches"], "p1_held": n_p1,
+             "rectified_pairs_held": len(r1["rect"]),
+             "rect_max_abs_err": rect_err, "rig_rel_err": rig_err,
+             "files": rt["files"], "gates": g1, "gates_timed": gt,
+             "frame_kinds": kinds_of(probe.frames), "rig": {
+                 "fx": rig.fx, "cx": rig.cx, "cy": rig.cy, "bf": rig.bf,
+                 "R1_deg": float(np.degrees(np.linalg.norm(
+                     rectify.rodrigues_to_vector(rig.R1))))},
+             "T_bc": np.asarray(res.T_bc).tolist()}
+        phase(name, f"(o) main_euroc_stereo_inertial, {res.n_total} frames: "
+              f"{o['fps_user']:.2f} frames/s as the user sees it "
+              f"({rt['seconds']:.2f} s, the files included), loop "
+              f"{o['fps_loop']:.2f} frames/s; prefetcher wait "
+              f"{o['prefetch_wait_ms']['total']:.2f} ms in all (median "
+              f"{o['prefetch_wait_ms']['median']:.3f} ms a frame); decode + "
+              f"rectify on the device median "
+              f"{o['decode_rectify_device_ms'].get('median', -1):.3f} ms a "
+              f"frame, host {o['prep_host_ms']['median']:.3f} ms; launches "
+              f"{rt['launches']}; P1 {n_p1} launches bit-identical, "
+              f"{len(r1['rect'])} pairs within {rect_err:.2e} of the plain "
+              f"remap, rig within {rig_err:.1e}; gates {json.dumps(g1)} "
+              f"({card})")
+        for k_, st in o["frame_kinds"].items():
+            phase(name, f"(o) {k_} frames ({st['n']}): track() median "
+                  f"{st['median']:.3f} ms, p80 {st['p80']:.3f} ms ({card})")
+
+        # The same run without the T_bc repair, counting synchronisations.
+        probe2 = RunnerProbe(bundles)
+        callers = []
+        with counted_syncs(callers=callers) as where:
+            probe2.where = where
+            r2 = run("main_euroc_stereo_inertial", d, probe2,
+                     repair_tbc=False)
+        hold_p1(r2["p1"])
+        slam2 = r2["res"].slam
+        v2 = slam2._body[2] if slam2._body is not None else torch.zeros(3)
+        g2 = graft.runner_gates(d, r2["traj"][0] * 1e-9, r2["traj"][1],
+                                v_est=v2.detach().cpu().numpy(),
+                                jax_ate_m=graft.RUNNER_JAX["ate_m"])
+        outside = sum(f["syncs_out"] for f in probe2.frames)
+        require(outside == 0, f"(o): {outside} synchronisations between "
+                "track calls (decode, rectify, the IMU batch)")
+        kinds2 = kinds_of(probe2.frames)
+        f_kinds = vi_sys.get("f_euroc_vi", {}).get("frame_kinds", {})
+        compare = {}
+        for k_, st in kinds2.items():
+            ref = f_kinds.get(k_, {}).get("syncs_per_frame")
+            compare[k_] = {"runner": st["syncs_in"], "f": ref}
+            if k_ in ("uninitialised", "init", "visual") and ref is not None:
+                require(st["syncs_in"] == ref,
+                        f"(o): {k_} frames synchronise {st['syncs_in']} "
+                        f"times, (f)'s {ref}")
+        o.update(no_repair=dict(gates=g2, imu_ready=bool(slam2.imu_ready),
+                                T_bc=np.asarray(r2["res"].T_bc).tolist()),
+                 syncs=compare, syncs_between_tracks=outside)
+        out["o_flagship"] = o
+        phase(name, f"(o) ATE with the T_bc repair {g1['ate_m']:.5f} m, "
+              f"without {g2['ate_m']:.5f} m (JAX runner "
+              f"{graft.RUNNER_JAX['ate_m']:.5f} m at 48 / 4096 slots); "
+              f"synchronisations between track calls {outside}; inside, "
+              f"per frame by kind (runner vs (f)): {json.dumps(compare)}")
+
+        # -- (p) the other five runners -----------------------------------------
+        cells = {}
+        for kind in graft.RUNNER_KINDS[1:]:
+            d = datasets[kind].result()
+            probe = RunnerProbe(bundles)
+            r = run(graft.RUNNER_MAIN[kind], d, probe)
+            n_p1 = hold_p1(r["p1"])
+            n_cl = hold_clahe(r["clahe"])
+            init = probe.init_frame()
+            want = graft.RUNNER_INIT_FRAMES[kind]
+            tracked = len(r["res"].slam.trajectory)
+            need = ["P1", "K1"] + (["K2", "K3"] if tracked else [])
+            require(all(r["launches"][n] > 0 for n in need),
+                    f"({kind}): kernels launched {r['launches']}")
+            require(set(r["files"]) == set(d.outputs),
+                    f"({kind}): files {r['files']}")
+            # A one-frame init lands where the CPU run's does; a two-view
+            # init, whose RANSAC draws come from the card's generator,
+            # within the frames where the CPU run's does.
+            if kind in graft.RUNNER_TWO_VIEW:
+                require(want is None or init is not None,
+                        f"({kind}): no init; the CPU run's on frame {want}")
+            else:
+                require(init == want, f"({kind}): initialised on frame "
+                        f"{init}, the CPU run {want}")
+            if d.clahe:
+                require(n_cl > 0, f"({kind}): CLAHE never ran")
+            if r["traj"] is not None:
+                stamps_ok(d, r["traj"], 1.0 if kind in ("kitti", "tum_rgbd")
+                          else 1e-9)
+            cells[kind] = {"frames": r["res"].n_total, "tracked": tracked,
+                           "init_frame": init, "init_frame_cpu": want,
+                           "seconds": r["seconds"],
+                           "fps_user": r["res"].n_total / r["seconds"],
+                           "launches": r["launches"], "p1_held": n_p1,
+                           "clahe_held": n_cl, "files": r["files"],
+                           "frame_kinds": kinds_of(probe.frames)}
+            phase(name, f"(p) {kind}: {tracked}/{r['res'].n_total} frames "
+                  f"tracked, initialised on frame {init} (CPU run {want}); "
+                  f"{cells[kind]['fps_user']:.2f} frames/s; launches "
+                  f"{r['launches']}; P1 {n_p1} and CLAHE {n_cl} calls equal "
+                  f"to plain; files {sorted(r['files'])} ({card})")
+        out["p_runners"] = cells
+
+        # -- P1 timed at the flagship's shape -------------------------------
+        raw, width, bpp, mode, _ = r1["p1"][0]
+        res_, again = captured_launch(cuda_png.KERNEL, lambda: (
+            cuda_png.unfilter_kernel(raw, width, bpp, mode)))
+        t = {"ms": event_ms(again, primed=True),
+             "wrapper_ms": event_ms(lambda: cuda_png.unfilter_kernel(
+                 raw, width, bpp, mode))}
+        raw_cpu = raw.cpu()
+        plain = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            cuda_png.unfilter_plain(raw_cpu, width, bpp, mode)
+            plain.append((time.perf_counter() - t0) * 1e3)
+        t["plain_ms"] = statistics.median(plain)
+        paeth = torch.from_numpy(png.filter_rows(img8, 1, (4,))).to(dev)
+        _, again_p = captured_launch(cuda_png.KERNEL, lambda: (
+            cuda_png.unfilter_kernel(paeth, w, 1, png.GREY8)))
+        t["ms_paeth"] = event_ms(again_p, primed=True)
+        hh = raw.shape[0]
+        t["bound_ms"], t["bound_by"] = bound(
+            cuda_png.bound_bytes(hh, width, bpp), {})
+        t["bound"] = (f"{hh} x {1 + width * bpp} filtered bytes in + {hh} x "
+                      f"{width} x 4 B out over {HBM_BPS / 1e12} TB/s")
+        t["shape"] = {"height": hh, "width": width, "bpp": bpp,
+                      "filters": sorted(set(raw_cpu[:, 0].tolist()))}
+        t["launches"] = o["launches"]["P1"]
+        t["max_abs_err"] = 0.0
+        del res_
+        out["p1"] = t
+        phase(name, f"P1 {hh}x{width} (the flagship's files, filters "
+              f"{t['shape']['filters']}): launch alone {t['ms']:.4f} ms "
+              f"(all rows Paeth {t['ms_paeth']:.4f}), wrapper "
+              f"{t['wrapper_ms']:.4f} ms, plain (numpy, host) "
+              f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.5f} ms by "
+              f"bytes ({card})")
+    finally:
+        graft.mono_keyframe_step = keyframe_step
+    out["seconds"] = time.perf_counter() - t19
+    phase(name, f"phase took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     ctx = multiprocessing.get_context("spawn")
-    with concurrent.futures.ProcessPoolExecutor(ORACLE_WORKERS,
-                                                mp_context=ctx) as oracle:
-        return smoke(oracle)
+    root = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        with concurrent.futures.ProcessPoolExecutor(
+                ORACLE_WORKERS, mp_context=ctx) as oracle:
+            return smoke(oracle, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
-def smoke(oracle) -> int:
+def smoke(oracle, root) -> int:
     """The phases; ``oracle`` is the pool that runs K3's and K3s's float64
-    oracle."""
+    oracle (and writes phase 19's datasets under ``root``)."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from orbslam3_byzyh_tpu_torch import convert, graft
     from orbslam3_byzyh_tpu_torch import device as device_mod
     from orbslam3_byzyh_tpu_torch.ops import cuda_brief, cuda_match, fast_orb
-    from orbslam3_byzyh_tpu_torch.ops import lie, matching
+    from orbslam3_byzyh_tpu_torch.ops import cuda_png, lie, matching
     from orbslam3_byzyh_tpu_torch.pipeline import tracking
     from orbslam3_byzyh_tpu_torch.solver import cuda_pose_opt
 
@@ -3554,20 +4065,27 @@ def smoke(oracle) -> int:
     card = card_line()
     phase("0 device", f"{card} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
+    # Phase 19's datasets, written in the oracle pool meanwhile.
+    datasets = {k: oracle.submit(fabricate_dataset, k, root)
+                for k in graft.RUNNER_KINDS}
 
     # -- 1: build, one nvcc per source, all started together ----------------
     kernels = {"K1": cuda_brief.KERNEL, "K2": cuda_match.KERNEL,
                "K3": Launcher(cuda_pose_opt.KERNEL, cuda_pose_opt.MONO_FN)}
     # K3s, K3's stereo launcher: built with K3's source, counted apart.
     k3s = Launcher(cuda_pose_opt.KERNEL, cuda_pose_opt.STEREO_FN)
+    # P1, the PNG unfilter of phase 19's runners: a port kernel for a host
+    # OpenCV function, built with the others.
+    p1 = cuda_png.KERNEL
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
-        for f in [pool.submit(k.build) for k in kernels.values()]:
+    builds = dict(kernels, P1=p1)
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
+        for f in [pool.submit(k.build) for k in builds.values()]:
             f.result()
     phase("1 build", f"{time.perf_counter() - t0:.1f} s wall; " + ", ".join(
         f"{n} {k.source.name} {k.build_seconds:.1f} s"
-        for n, k in kernels.items()))
-    ptxas = {n: ptxas_summary(k) for n, k in kernels.items()}
+        for n, k in builds.items()))
+    ptxas = {n: ptxas_summary(k) for n, k in builds.items()}
     for n, entries in ptxas.items():
         for e in entries:
             phase("1 build", f"{n} ptxas {e}")
@@ -3863,14 +4381,16 @@ def smoke(oracle) -> int:
                                      lambda: wrap(*args, **kwargs))
         t = {"ms": event_ms(again, primed=True),
              "wrapper_ms": event_ms(lambda: wrap(*args, **kwargs))}
+        warm = K3_PLAIN_WARMUP if plain_reps == K3_PLAIN_REPS else 3
         if name == "K3" and args[0].dim() == 3:     # plain: one problem each
             probs = [tuple(a[i] for a in args[:6]) + (args[6],)
                      for i in range(args[0].shape[0])]
             t["plain_ms"] = event_ms(
-                lambda: [plains[name](*p) for p in probs], reps=plain_reps)
+                lambda: [plains[name](*p) for p in probs], reps=plain_reps,
+                warmup=warm)
         else:
             t["plain_ms"] = event_ms(lambda: plains[name](*args, **kwargs),
-                                     reps=plain_reps)
+                                     reps=plain_reps, warmup=warm)
         del out
         return t
 
@@ -5406,6 +5926,10 @@ def smoke(oracle) -> int:
     phase("13 inertial system", f"{vi_sys['graphs_kept']} CUDA graphs kept "
           f"at the end (at most 32 are)")
 
+    # -- 19: the dataset runners, run here while cell (f)'s CUDA graphs (the
+    # flagship runner's shapes) are still cached ------------------------------
+    runs = phase_runners(dev, card, sk, p1, vi_sys, datasets, oracle)
+
     # -- 14: non-rectified (fisheye) stereo and the KB8 camera --------------
     t14 = time.perf_counter()
     fish, fish_a, fish_g, fish_h = phase_fisheye(dev, card, sk, check_call,
@@ -5525,7 +6049,10 @@ def smoke(oracle) -> int:
             "launches_chessboard_frame": {
                 kind: st["launches_per_frame"][n]
                 for kind, st in chess["n_chessboard"][
-                    "frame_kinds"].items()}}
+                    "frame_kinds"].items()},
+            "launches_runner_flagship": runs["o_flagship"]["launches"][n],
+            "launches_runners": {k: v["launches"][n]
+                                 for k, v in runs["p_runners"].items()}}
 
     # K3s: no Pallas kernel; it ports the JAX package's XLA function.
     k3s_entry = {
@@ -5547,6 +6074,26 @@ def smoke(oracle) -> int:
             k: {"calls": v["K3s"]["calls"],
                 "max_abs_err": v["K3s"]["max_abs_err"]}
             for k, v in st_checked.items()}, **stereo_keys("K3s")}
+    # P1: a port kernel for a host OpenCV function (cv2.imread's libpng
+    # unfilter), not for a TPU kernel; its main path is phase 19's runners.
+    t1 = runs["p1"]
+    p1_entry = {
+        "name": "P1 PNG unfilter", "route": "cuda",
+        "source": "orbslam3_byzyh_tpu_torch/csrc/png.cu",
+        "replaces": "cv2.imread (host OpenCV), no TPU kernel",
+        "replaces_note": "orbslam3_byzyh_tpu/io/euroc.py:31-32, kitti.py:27-"
+                         "29, tum_rgbd.py:42-44 and the native prefetcher "
+                         "decode with OpenCV on the host",
+        "launches": t1["launches"], "max_abs_err": t1["max_abs_err"],
+        "ms": t1["ms"], "plain_ms": t1["plain_ms"],
+        "bound_ms": t1["bound_ms"], "bound_by": t1["bound_by"],
+        "library_ms": None,
+        "library": "none: torch has no PNG decode, and torchvision (decode_"
+                   "png) is not installed on the card's machine",
+        "wrapper_ms": t1["wrapper_ms"], "ms_paeth": t1["ms_paeth"],
+        "bound": t1["bound"], "shape": t1["shape"], "ptxas": ptxas["P1"],
+        "launches_runners": {k: v["launches"]["P1"]
+                             for k, v in runs["p_runners"].items()}}
     settle()
     require(not pending, "oracle comparisons left unsettled")
     print(json.dumps({"kernels": [
@@ -5576,7 +6123,8 @@ def smoke(oracle) -> int:
              k: {"calls": v[n]["calls"], "max_abs_err": v[n]["max_abs_err"]}
              for k, v in sys_checked.items()},
          "system_calls": sys_calls[n], **stereo_keys(n)}
-        for n in kernels] + [k3s_entry], "k2_sass_tensor_instructions":
+        for n in kernels] + [k3s_entry, p1_entry],
+        "k2_sass_tensor_instructions":
         tensor_ops,
         "step_ms": step_med, "step_p80_ms": step_p80,
         "mono_frame_step_ms": mono_med, "mono_frame_step_p80_ms": mono_p80,
@@ -5591,7 +6139,7 @@ def smoke(oracle) -> int:
         "plain32_err": plain32_err,
         "inertial": {k: v for k, v in vi_out.items() if k != "held"},
         "inertial_system": vi_sys, "fisheye": fish, "reloc": reloc,
-        "loop": loop, "merge": merge, "chessboard": chess,
+        "loop": loop, "merge": merge, "chessboard": chess, "runners": runs,
         "card": card}, default=str))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -32,7 +32,14 @@ def upload(a, device: torch.device) -> torch.Tensor:
     """A numpy array -> a tensor of its own on ``device``, in one copy. On
     CUDA the copy goes from page-locked memory and does not wait for the
     stream (a copy from pageable memory synchronises); the caching host
-    allocator keeps the page-locked block until the copy has run."""
+    allocator keeps the page-locked block until the copy has run. A tensor
+    already on ``device`` (an image the prefetcher decoded there) passes
+    through as it is."""
+    if isinstance(a, torch.Tensor):
+        if a.device == device or (a.device.type == device.type == "cuda"
+                                  and device.index is None):
+            return a
+        a = a.cpu().numpy()
     t = torch.from_numpy(np.array(a, order="C"))
     if device.type != "cuda":
         return t

@@ -99,7 +99,7 @@ class StereoSlam(base.MonoSlam):
 
     def _upload(self, img) -> torch.Tensor:
         """A frame as float32 on the device (uploaded as it is)."""
-        return device_mod.upload(np.asarray(img), self.device).to(
+        return device_mod.upload(img, self.device).to(
             torch.float32)
 
     def track(self, img_left: np.ndarray, img_right: np.ndarray,

@@ -319,7 +319,7 @@ class MonoSlam:
         becomes float32 on the device. (The fisheye rig's second camera is
         resolved once, in ``graft.fisheye_rig_tensors``.)"""
         x = (img if isinstance(img, torch.Tensor)
-             else device_mod.upload(np.asarray(img), self.device))
+             else device_mod.upload(img, self.device))
         return graft.mono_extract(x.to(torch.float32), self.cam_params,
                                   self.dist, self.mcfg, kb8=self.kb8)
 
@@ -330,7 +330,7 @@ class MonoSlam:
         self._kf_host_pending = False
         if self._check_timestamp_jump(stamp):
             return None
-        x = device_mod.upload(np.asarray(img), self.device)
+        x = device_mod.upload(img, self.device)
         if (self.cfg.chessboard is not None and self._chess_pose is None
                 and self.status == NOT_INITIALIZED):
             self._snoop_chessboard(x)

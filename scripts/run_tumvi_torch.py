@@ -1,0 +1,21 @@
+#!/usr/bin/env python3
+"""TUM-VI runner on the PyTorch port
+(mono_inertial_tum_vi.cc; --stereo: stereo_inertial_tum_vi.cc).
+
+    python scripts/run_tumvi_torch.py <settings.yaml> <sequence> [flags]
+
+The flags, defaults, printed lines and files of ``scripts/run_tumvi.py``,
+plus ``--device`` (the CUDA card by default; ``--device cpu`` runs the
+plain versions on the CPU). See ``orbslam3_byzyh_tpu_torch/runners.py``.
+"""
+
+import os
+import sys
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                ".."))
+
+from orbslam3_byzyh_tpu_torch.runners import main_tumvi  # noqa: E402
+
+if __name__ == "__main__":
+    main_tumvi()

@@ -24,6 +24,13 @@ JAX system is given the port's state (map and host context) before each
 frame, and both run it: frame by frame from the repaired state (the test's
 repair; the JAX package is not edited).
 
+The JAX side of that run is recorded (``tests/chessboard_parity.py``,
+written by ``scripts/chessboard_parity_jax.py`` into
+``tests/golden/chessboard_parity_jax.pkl.xz``): the tests replay the
+port's side from the record (the JAX contexts it is synced from, the JAX
+RANSAC draws) and compare it with the recorded JAX frames, without
+compiling the JAX system.
+
 A rebase-invariance case runs the port freely with and without the board:
 up to the next keyframe, the frames after the rebase are the board-less
 run's moved by M (within 1e-4). The stereo, RGB-D and inertial systems
@@ -31,157 +38,26 @@ ignore the chessboard configuration, as the JAX classes do.
 """
 
 import dataclasses
-import functools
 import inspect
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_system import _feats_np, _pose, _snapshot, _sync
-from torch_port_util import assert_states_close, jax_feats, jax_map_state, n
+from chessboard_parity import CFG, N_FRAMES, moved, replay
+from torch_port_util import assert_states_close
 
-from orbslam3_byzyh_tpu.models import atlas as jatlas
-from orbslam3_byzyh_tpu.ops import geometry as jgeo
 from orbslam3_byzyh_tpu.pipeline import inertial_system as jinert
 from orbslam3_byzyh_tpu.pipeline import stereo_inertial as jsi
 from orbslam3_byzyh_tpu.pipeline import stereo_system as jstereo
-from orbslam3_byzyh_tpu.pipeline import system as jsys
-from orbslam3_byzyh_tpu.utils import chessboard as jcb
-from orbslam3_byzyh_tpu_torch import convert, graft
+from orbslam3_byzyh_tpu_torch import graft
 from orbslam3_byzyh_tpu_torch.pipeline import inertial_system as tinert
 from orbslam3_byzyh_tpu_torch.pipeline import stereo_inertial as tsi
 from orbslam3_byzyh_tpu_torch.pipeline import stereo_system as tstereo
 from orbslam3_byzyh_tpu_torch.pipeline import system as tsys
 from orbslam3_byzyh_tpu_torch.utils import chessboard as tcb
 
-N_FRAMES = 9
-CFG = graft.chessboard_golden_config(half=True, **graft.CHESS_CPU_SLOTS)
 CAM = CFG.cam_params()
-
-
-def _jax_config(cfg):
-    fields = dataclasses.asdict(dataclasses.replace(cfg, chessboard=None))
-    fields.update(chessboard=jcb.ChessboardConfig(
-        **dataclasses.asdict(cfg.chessboard)), device_mesh=False,
-        use_loop_closing=False, background_gba=False)
-    return jsys.SlamConfig(**fields)
-
-
-def _moved(R, t, R_m, t_m):
-    R = np.asarray(R, np.float32) @ R_m.T
-    return R, np.asarray(t, np.float32) - R @ t_m
-
-
-def _sync_back(js, ts):
-    """Give the JAX system the port system's map and host state (the
-    reverse of ``test_torch_system._sync``)."""
-    js.atlas.maps = [jax_map_state(convert.map_state_to_numpy(m))
-                     for m in ts.atlas.maps]
-    js.atlas.meta = [jatlas.MapMeta(m.n_kf, m.n_lm, None if m.kf_parent is None
-                                    else m.kf_parent.copy())
-                     for m in ts.atlas.meta]
-    js.atlas.current = ts.atlas.current
-    for k in ("status", "lost_frames", "frames_since_kf", "last_kf_id",
-              "_ref_cache_gen", "_t0", "_init_stamp", "_chess_applied"):
-        setattr(js, k, getattr(ts, k))
-    js._vel = None if ts._vel is None else tuple(np.array(v) for v in ts._vel)
-    last = ts._last
-
-    def host(x):
-        return jnp.asarray(n(x)) if isinstance(x, torch.Tensor) else \
-            np.array(x)
-
-    js._last = dict(feats=jax_feats(_feats_np(last["feats"])),
-                    bindings=jnp.asarray(n(last["bindings"])),
-                    R=host(last["R"]), t=host(last["t"]), stamp=last["stamp"])
-    for k in ("stamps", "refs", "tags"):
-        setattr(js._traj, k, list(getattr(ts._traj, k)))
-    js._traj.R_cr = [np.array(r) for r in ts._traj.R_cr]
-    js._traj.t_cr = [np.array(t) for t in ts._traj.t_cr]
-    c = ts._ref_cache
-    js._ref_cache = None if c is None else (c[0], np.array(c[1]),
-                                            np.array(c[2]))
-    p = ts._pending_kf
-    if p is None:
-        js._pending_kf = None
-    else:
-        out = n(p["out"])
-        k = CFG.max_kf
-        js._pending_kf = dict(kf_id=p["kf_id"], ref_gen=p["ref_gen"],
-                              info=jnp.asarray(out[:15]),
-                              culled=jnp.asarray(out[15:15 + k] > 0),
-                              valid_before=out[15 + k:] > 0)
-
-
-@functools.cache
-def _run():
-    """Both systems through the first frames, the port from the JAX
-    system's state at every frame: per frame a record of each side, and
-    the events (each side's snoop, the rebase and its M)."""
-    f = graft.chessboard_frames()
-    js = jsys.MonoSlam(_jax_config(CFG))
-    ts = tsys.MonoSlam(CFG, device="cpu")
-    key = [jax.random.PRNGKey(0)]
-
-    def jax_indices(matched):
-        key[0], sub = jax.random.split(key[0])
-        w = jnp.asarray(n(matched).astype(np.float32)) + 1e-9
-        return torch.from_numpy(np.array(
-            jgeo._sample_indices(sub, 200, 8, w))).long()
-
-    ts._ransac_indices = jax_indices
-    two_view = jgeo.two_view_reconstruct
-    jgeo.two_view_reconstruct = jax.jit(two_view)
-    records, events = [], {}
-    try:
-        for i in range(N_FRAMES):
-            img = f.frames_half[i]
-            x = torch.from_numpy(img)
-            feats = graft.mono_extract(x.to(torch.float32), ts.cam_params,
-                                       ts.dist, ts.mcfg)
-            jf = jax_feats(_feats_np(feats))
-            ts._extract = lambda _, feats=feats: feats
-            js._extract = lambda *_, jf=jf, **__: jf
-            if "rebase" in events:
-                _sync_back(js, ts)
-            else:
-                _sync(ts, js)
-                ts._chess_pose = (None if js._chess_pose is None else tuple(
-                    np.array(a) for a in js._chess_pose))
-                ts._chess_applied = js._chess_applied
-            snoop_before = js._chess_pose is None
-            applied_before = js._chess_applied
-            kf0 = (np.asarray(js.state.kfs.R[0]), np.asarray(js.state.kfs.t[0]))
-            rec = {"stamp": float(f.stamps[i])}
-            moved = {}
-            for name, slam in (("jax", js), ("port", ts)):
-                rebase = slam._apply_chessboard_rebase
-
-                def spy(*a, name=name, slam=slam, rebase=rebase):
-                    out = rebase(*a)
-                    moved[name] = _snapshot(slam, None, name == "jax")
-                    return out
-
-                slam._apply_chessboard_rebase = spy
-                try:
-                    pose = _pose(slam.track(img, float(f.stamps[i])))
-                finally:
-                    del slam._apply_chessboard_rebase
-                rec[name] = _snapshot(slam, pose, name == "jax")
-                rec[name]["chess_pose"] = slam._chess_pose
-            if snoop_before and js._chess_pose is not None:
-                events["snoop"] = i
-            if not applied_before and js._chess_applied:
-                R_m, t_m = jcb.rebase_transform(*js._chess_pose, *kf0)
-                events.update(rebase=i, R_m=R_m, t_m=t_m, moved=moved)
-                # The JAX system's pose of this frame is in the old frame.
-                rec["jax_pose_moved"] = _moved(*rec["jax"]["pose"], R_m, t_m)
-            records.append(rec)
-    finally:
-        jgeo.two_view_reconstruct = two_view
-    return records, events
+_run = replay
 
 
 def _assert_same(ref, got):
@@ -291,7 +167,7 @@ def test_rebase_invariance():
             break
         Rb, tb = poses["board"][0][j]
         Rn, tn = poses["none"][0][j]
-        Rm, tm = _moved(Rn, tn, R_w, t_w)
+        Rm, tm = moved(Rn, tn, R_w, t_w)
         np.testing.assert_allclose(Rb, Rm, atol=1e-4)
         np.testing.assert_allclose(tb, tm, atol=1e-4)
         held += 1

@@ -685,3 +685,73 @@ def test_k3_pnp_refine_shape(dev, gen):
     assert bool(res.ok) and int(res.n_inliers) > 250
     assert float((res.t.cpu() - t_gt).abs().max()) < 0.05
     assert not bool(res.inlier.cpu()[torch.from_numpy(out)].any())
+
+
+# -- P1: the PNG unfilter (a port kernel for cv2.imread's libpng) ----------
+
+def _p1_case(gen, h, w, depth, filters):
+    from orbslam3_byzyh_tpu_torch.io import png
+    hi = 256 if depth == 8 else 65536
+    img = ((gen.integers(0, hi, (h, w)) // 4
+            + np.add.outer(np.arange(h), 3 * np.arange(w))) % hi).astype(
+                np.uint8 if depth == 8 else np.uint16)
+    by = (img if depth == 8 else img.astype(">u2")).view(np.uint8).reshape(
+        h, -1)
+    raw = png.filter_rows(by, depth // 8, filters)
+    return png.Inflated("<case>", w, h, depth // 8,
+                        png.GREY8 if depth == 8 else png.GREY16, raw), img
+
+
+@pytest.mark.parametrize("filters", [(0,), (1,), (2,), (3,), (4,),
+                                     (4, 3, 2, 1, 0)])
+@pytest.mark.parametrize("depth", [8, 16])
+@pytest.mark.parametrize("h,w", [(480, 752), (1030, 37), (1, 5)])
+def test_p1_kernel_matches_plain(dev, gen, filters, depth, h, w):
+    """P1 bit-identical to the plain unfilter over every filter, at 8 and
+    16 bits, at EuRoC's size, past 1,024 rows (two wavefront chunks) and
+    on one row."""
+    from orbslam3_byzyh_tpu_torch.ops import cuda_png
+    inf, img = _p1_case(gen, h, w, depth, filters)
+    raw = torch.from_numpy(inf.raw.copy()).to(dev)
+    out = cuda_png.unfilter_kernel(raw, inf.width, inf.bpp, inf.mode)
+    torch.cuda.synchronize()
+    ref = cuda_png.unfilter_plain(raw.cpu(), inf.width, inf.bpp, inf.mode)
+    assert torch.equal(out.cpu(), ref)
+    np.testing.assert_array_equal(out.cpu().numpy(), img.astype(np.float32))
+
+
+@pytest.mark.parametrize("ctype,c", [(2, 3), (6, 4), (4, 2)])
+def test_p1_colour_to_grey_matches_plain(dev, gen, ctype, c):
+    """RGB, RGBA and grey + alpha: libpng's grey rule fused into P1."""
+    from orbslam3_byzyh_tpu_torch.io import png
+    from orbslam3_byzyh_tpu_torch.ops import cuda_png
+    h, w = 96, 131
+    px = gen.integers(0, 256, (h, w * c)).astype(np.uint8)
+    raw = png.filter_rows(px, c, (4, 3, 1, 2, 0))
+    mode = {2: png.RGB8, 6: png.RGBA8, 4: png.GREYA8}[ctype]
+    out = cuda_png.unfilter_kernel(torch.from_numpy(raw).to(dev), w, c, mode)
+    ref = cuda_png.unfilter_plain(torch.from_numpy(raw), w, c, mode)
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), ref)
+
+
+def test_p1_prefetcher_on_the_card(dev, gen, tmp_path):
+    """The prefetcher's device path: the images arrive on the card, equal
+    to the plain decode, in order, and P1 launched once an image."""
+    from orbslam3_byzyh_tpu_torch.io import png
+    from orbslam3_byzyh_tpu_torch.io.prefetch import ImagePrefetcher
+    from orbslam3_byzyh_tpu_torch.ops import cuda_png
+    paths = []
+    for i in range(6):
+        img = gen.integers(0, 256, (48, 64)).astype(np.uint8)
+        paths.append(str(tmp_path / f"{i}.png"))
+        png.write_png(paths[-1], img, filters=(i % 5,))
+    before = cuda_png.KERNEL.launches
+    pf = ImagePrefetcher(paths, n_threads=3, capacity=2, device=dev)
+    got = list(pf)
+    pf.close()
+    assert [i for i, _ in got] == list(range(6))
+    assert cuda_png.KERNEL.launches - before == 6
+    for (i, im), p in zip(got, paths):
+        assert im.is_cuda
+        np.testing.assert_array_equal(im.cpu().numpy(), png.read_grey(p))

@@ -31,7 +31,24 @@ def _imports(path):
             yield node.module
 
 
-PORT_SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+RUNNER_SCRIPTS = sorted((REPO / "scripts").glob("run_*_torch.py"))
+PORT_SOURCES = (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+                + RUNNER_SCRIPTS)
+
+
+def test_static_checks_cover_the_runners():
+    """The six runner scripts and the dataset path's modules are among the
+    checked sources."""
+    names = {p.name for p in RUNNER_SCRIPTS}
+    assert names == {f"run_{k}_torch.py" for k in (
+        "euroc_mono", "euroc_mono_inertial", "euroc_stereo_inertial",
+        "kitti", "tum_rgbd", "tumvi")}, names
+    checked = {str(p.relative_to(PORT)) for p in PORT_SOURCES
+               if p.is_relative_to(PORT)}
+    for rel in ("runners.py", "io/png.py", "io/prefetch.py", "io/euroc.py",
+                "io/kitti.py", "io/tum_rgbd.py", "io/rectify.py",
+                "ops/cuda_png.py", "ops/clahe.py"):
+        assert rel in checked, rel
 
 
 def test_static_checks_cover_the_system():
@@ -59,13 +76,14 @@ def test_no_jax_imports(path):
 @pytest.mark.parametrize("path", PORT_SOURCES,
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_host_library_imports(path):
-    """The card's machine has no OpenCV, matplotlib or PyYAML: no module
-    of the port, nor the chip smoke script, imports ``cv2``,
-    ``matplotlib`` or ``yaml`` (the port has its own chessboard detector,
-    planar PnP and reader of OpenCV's YAML 1.0)."""
+    """The card's machine has no OpenCV, matplotlib, PyYAML or Pillow: no
+    module of the port, nor the chip smoke script, nor a port runner script
+    imports ``cv2``, ``matplotlib``, ``yaml`` or ``PIL`` (the port has its
+    own chessboard detector, planar PnP, reader of OpenCV's YAML 1.0, PNG
+    codec, rectification and CLAHE)."""
     for mod in _imports(path):
-        assert mod.split(".")[0] not in ("cv2", "matplotlib", "yaml"), (
-            path, mod)
+        assert mod.split(".")[0] not in ("cv2", "matplotlib", "yaml",
+                                         "PIL"), (path, mod)
 
 
 @pytest.mark.parametrize("path", PORT_SOURCES,

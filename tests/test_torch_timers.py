@@ -3,9 +3,9 @@ the JAX package's.
 
 ``StageTimers`` fed the same samples gives the same statistics, report
 and ``ExecTimeMean.txt`` in both packages; the stage names are the same.
-A short timed ``MonoSlam`` run (``tests/test_torch_system.py``'s world and
-configuration) times the stages the JAX system's run times, and with the timers off the
-system's ``_stage`` is a null context.
+A short timed ``MonoSlam`` run (the chessboard cell's first frames) times
+the stages the JAX system's recorded run of the same frames timed, and
+with the timers off the system's ``_stage`` is a null context.
 """
 
 import contextlib
@@ -14,7 +14,6 @@ import numpy as np
 import pytest
 import torch_port_util  # noqa: F401  (caps torch's threads)
 
-from orbslam3_byzyh_tpu.pipeline import system as jsys
 from orbslam3_byzyh_tpu.utils import timers as jtimers
 from orbslam3_byzyh_tpu_torch import graft
 from orbslam3_byzyh_tpu_torch.pipeline import system as tsys
@@ -54,39 +53,26 @@ def _small_config(**kw):
     return tsys.SlamConfig(**dict(CFG, **kw))
 
 
-def _frames(n):
-    from synth_world import SynthWorld
-    from test_torch_system import F, H, STAMPS, W
-    world = SynthWorld(seed=3, w=W, h=H, fx=F, fy=F)
-    return ([world.render(float(t)).astype(np.uint8) for t in STAMPS[:n]],
-            STAMPS[:n])
-
-
 def test_timed_monoslam_stages_match_jax():
-    """The stages a short timed run records (the init, tracked frames and
-    keyframes) are the JAX system's on the same frames."""
-    import dataclasses
-    import jax
-    from orbslam3_byzyh_tpu.ops import geometry as jgeo
-    frames, stamps = _frames(9)          # the map is made on frame 7
-    cfg = _small_config()
-    port = tsys.MonoSlam(cfg, device="cpu")
-    jax_ = jsys.MonoSlam(jsys.SlamConfig(**dict(
-        dataclasses.asdict(cfg), device_mesh=False)))
-    tp, tj = port.enable_stage_timers(), jax_.enable_stage_timers()
+    """The stages a short timed run records (the snoop, the init, tracked
+    frames and keyframes) are the JAX system's on the same frames: the
+    chessboard cell's first 9 frames at 640x512, whose JAX run with its
+    stage timers on is recorded once (``tests/chessboard_parity.py``,
+    ``scripts/chessboard_parity_jax.py``) and shared with
+    ``test_torch_chessboard_system.py``."""
+    import chessboard_parity as cp
+    f = graft.chessboard_frames()
+    port = tsys.MonoSlam(cp.CFG, device="cpu")
+    tp = port.enable_stage_timers()
     assert isinstance(tp, ttimers.StageTimers)
-    two_view = jgeo.two_view_reconstruct
-    jgeo.two_view_reconstruct = jax.jit(two_view)
-    try:
-        for img, s in zip(frames, stamps):
-            port.track(img, float(s))
-            jax_.track(img, float(s))
-    finally:
-        jgeo.two_view_reconstruct = two_view
-    assert port.status == jax_.status == tsys.OK
-    assert set(tp.samples) == set(tj.samples)
+    for i in range(cp.N_FRAMES):
+        port.track(f.frames_half[i], float(f.stamps[i]))
+    recorded = cp.load()
+    assert port.status == tsys.OK
+    assert sorted(tp.samples) == recorded["stages"]
     assert {"orb_extract", "lm_track", "new_kf_decision"} <= set(tp.samples)
-    assert len(tp.samples["orb_extract"]) == len(frames)
+    assert len(tp.samples["orb_extract"]) == cp.N_FRAMES == \
+        recorded["stage_counts"]["orb_extract"]
     assert "stage" in tp.report().splitlines()[0]
 
 
