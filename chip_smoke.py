@@ -178,6 +178,27 @@ points through them:
     other five runners on 10 frames each: each initialises on the frame
     its CPU run does, writes its files, P1 and CLAHE equal to plain.
 
+  * phase "20" (the port's last modules; run after phase 17, its runner
+    part right after phase 19's timed run of (o)): (a) phase 16's closure
+    with the inline GBA over a 4-shard device mesh on the one card
+    (``parallel.dist_ba``) against the unsharded closure (the same loop
+    edge, the cost within 5 % + 1, the rotations within 1.4e-2: float32
+    determines this GBA's poses only to about 1e-2, and its translations
+    are reported), and the GBA alone in float64 with 4
+    shards and with 1 (poses within 5e-4 and 5e-3 m), both forms timed;
+    (b) the edge-sharded pose graph (``parallel.dist_posegraph``) on the
+    essential graph of that closure against the unsharded one (1e-3,
+    5e-3); (c) ``graft.dryrun_multichip(4)``; (d) K3 and K3s with the KB8
+    camera at TUM-VI 512's coefficients and 1000 points, held at float64
+    and timed; (e) tests/test_kb8_ab.py's A/B study (24 trials at 85
+    degrees, 16 at 50) under its gates, every launch held at float64 (in
+    the oracle pool, settled later); the KB8 launches of K3 and K3s, as
+    their wrappers count them, in phase 20 and in the rest of the run,
+    where every system path runs and none may launch KB8; (f) the flagship
+    runner with ``--snapshot-every 10`` (its four PNGs read back, the
+    snapshots' host time its cost) and ``viewer.main_view_atlas``
+    (``scripts/view_atlas_torch.py``) on cell (m)'s checkpoint.
+
 Every kernel is held against its plain PyTorch version on the card: on
 synthetic inputs at both paths' shapes, and on the very inputs each path
 gave it (its wrapper's calls are recorded and replayed). K3 and K3s are
@@ -210,6 +231,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import dataclasses
+import functools
 import json
 import multiprocessing
 import os
@@ -234,6 +256,25 @@ N_WARMUP_STEPS = 100
 # Spin (clock cycles, ~0.5 ms) queued before a launch-alone sample, so that
 # the launch is queued before the start event executes.
 PRIME_CYCLES = 1_000_000
+# K3 and K3s with the KB8 camera (ops/camera.py's kb8_project and
+# kb8_project_jac in csrc/pose_opt.cu), counting atan2 and sqrt as one
+# operation each: the projection adds 17 operations to each residual over
+# the pinhole's (the radius, theta, the polynomial, psi), the Jacobian 91 to
+# each masked point's (the 2 x 3 projection Jacobian, 6 entries of about 8
+# operations on r, theta, f and f', and its product with [I | -skew(pc)],
+# where the pinhole's has zeros).
+KB8_RESIDUAL_FLOPS = 17
+KB8_JACOBIAN_FLOPS = 91
+# ops/camera.py's model ids.
+KB8 = 1
+# Phase 20 (a): the float32 sharded closure's keyframe rotations (the
+# largest entry gap) against the unsharded closure's. The bound lies
+# between the honest spread and a planted fault (scripts/gba_spread_torch.py
+# --plant, NVIDIA H100 80GB HBM3, 700 W: float32 GBAs of the closed map,
+# repeated and 4-shard, at most 7.3e-3 apart; the first shard left out of
+# the sums, 2.1e-2 to 2.5e-2). The translations part no such way (honest
+# up to 0.085 m, the fault from 0.076 m): they are reported.
+F32_CLOSURE_R = 1.4e-2
 # Published H100 SXM peaks at 700 W: HBM3 bytes/s, float32 outside the
 # tensor cores FLOP/s, int8 tensor-core OP/s.
 HBM_BPS = 3.35e12
@@ -417,6 +458,54 @@ def oracle_solve(name: str, problem: tuple, kwargs: dict):
              else cuda_pose_opt.pose_optimization_stereo_plain)
     return plain(*(f64(a) for a in problem),
                  **{k: f64(v) for k, v in kwargs.items()})
+
+
+def init_cpu(scene, eu, cam, idx) -> tuple:
+    """Phase 9's CPU plain path: ``graft.mono_initialize`` on the CPU with
+    the RANSAC indices the card drew, from ``graft.euroc_mono_two_view``'s
+    scene at the config ``eu``. Runs in a worker process of the oracle
+    pool: (success, used_h, live landmarks, bindings, R)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    torch.set_num_threads(2)
+    from orbslam3_byzyh_tpu_torch import convert, graft
+    from orbslam3_byzyh_tpu_torch.models import map_state
+    from orbslam3_byzyh_tpu_torch.ops import fast_orb
+    cpu = torch.device("cpu")
+    frames = [fast_orb.FrameFeatures(*convert.tree_to_torch(f, cpu))
+              for f in (scene.ref, scene.cur)]
+    empty = map_state.empty_map(eu.max_kf, eu.max_lm, eu.max_obs,
+                                eu.n_features, device=cpu)
+    r = graft.mono_initialize(empty, *frames, 0.0, 0.05, cam, idx=idx)
+    return (r.success, bool(r.info["used_h"]),
+            int(r.state.lms.valid.sum()) if r.success else 0,
+            r.bindings if r.success else None, r.R if r.success else None)
+
+
+def init_cpu_held(case: str, fut, card: tuple, out: dict) -> None:
+    """Hold phase 9's card result ``card`` (as :func:`init_cpu` returns it)
+    against the CPU plain path's (``fut``): the same decision, R within
+    1e-3, the landmark count within 1 % and the bindings equal, or within
+    1 % where the counts differ. Updates ``out``, the case's record."""
+    ok, used_h, n_g, bind_g, R_g = card
+    ok_c, used_h_c, n_c, bind_c, R_c = fut.result()
+    require((ok_c, used_h_c) == (ok, used_h),
+            f"init ({case}): CPU success {ok_c} used_h {used_h_c}")
+    if ok:
+        d_bind = int((bind_g != bind_c).sum())
+        r_gap = float((R_g - R_c).abs().max())
+        require(r_gap <= 1e-3, f"init ({case}): R differs from the CPU by "
+                f"{r_gap}")
+        require(abs(n_g - n_c) <= 0.01 * n_c
+                and (d_bind == 0 or (n_g != n_c and d_bind <= 0.01 * n_c)),
+                f"init ({case}): landmarks {n_g} vs CPU {n_c}, bindings "
+                f"differ at {d_bind}")
+        out.update(live_landmarks_cpu=n_c, bindings_differ_cpu=d_bind,
+                   R_gap_cpu=r_gap)
+    phase("9 init", f"{case}: the CPU plain path with the card's indices "
+          f"agrees: success {ok_c}, used_h {used_h_c}, {n_c} landmarks "
+          f"(the card {n_g}); {json.dumps(out)}")
 
 
 def phase(name: str, msg: str) -> None:
@@ -2154,7 +2243,7 @@ def loop_cost(state, cam, before=None) -> float:
     return float(s["cost"])
 
 
-def phase_loop(dev, card, sk, check_call, timed, shape_of) -> tuple:
+def phase_loop(dev, card, sk, check_call, timed, shape_of, shared) -> tuple:
     """Phase "16 loop": loop closing and the global BA at the EuRoC-mono
     capacity with the runners' 10k-word vocabulary. The step,
     ``graft.loop_closing_step`` on ``graft.euroc_loop_map`` (160 keyframes
@@ -2174,7 +2263,8 @@ def phase_loop(dev, card, sk, check_call, timed, shape_of) -> tuple:
     warm-up, the gates of cell (b) and of the JAX run's decisions
     (``graft.LOOP_JAX``), timed sequences by frame kind with the keyframes
     that mined the database apart. Returns the results and each kernel's
-    held calls of the step with their times."""
+    held calls of the step with their times; leaves the map and its
+    closer in ``shared["loop"]`` for phase 20."""
     from orbslam3_byzyh_tpu_torch import convert, graft
     from orbslam3_byzyh_tpu_torch.ops import bow, cuda_brief, cuda_match
     from orbslam3_byzyh_tpu_torch.pipeline import loop_closing as lc_mod
@@ -2473,6 +2563,8 @@ def phase_loop(dev, card, sk, check_call, timed, shape_of) -> tuple:
         live_keyframes=m.n_kf, live_landmarks=int(state0.lms.valid.sum()),
         timed=timed_calls)
     del st_a, st_b, st_c, st_bg, st_m, lc, lc_b, lc_c, lc_bg, bg, bg2
+    shared["loop"] = dict(m=m, state0=state0, cam=cam, cfg=cfg,
+                          closer=closer)
 
     # (e) Cell (k): the runners' default configuration.
     gold = graft.golden_frames()
@@ -2715,7 +2807,8 @@ def copy_merge_inputs(at, lc):
     return at2, lc2
 
 
-def phase_merge(dev, card, sk, check_call, timed, shape_of) -> tuple:
+def phase_merge(dev, card, sk, check_call, timed, shape_of,
+                keep_checkpoint=None) -> tuple:
     """Phase "17 merge": the atlas merge and the atlas checkpoints at the
     EuRoC-mono capacity with the runners' 10k-word vocabulary. The step,
     ``graft.map_merge_step`` on ``graft.euroc_merge_atlas`` (map A: 157
@@ -2739,8 +2832,9 @@ def phase_merge(dev, card, sk, check_call, timed, shape_of) -> tuple:
     the merge frame apart, one more run of each counting synchronisations;
     (m) saves map A through ``save_atlas_checkpoint``, loads it into a
     fresh system and plays the revisit: the checkpoint's bytes and the
-    save and load seconds. Returns the results and each kernel's held
-    calls of the step with their times."""
+    save and load seconds (a copy of the checkpoint goes to
+    ``keep_checkpoint`` for phase 20's viewer). Returns the results and
+    each kernel's held calls of the step with their times."""
 
     from orbslam3_byzyh_tpu_torch import convert, graft
     from orbslam3_byzyh_tpu_torch.ops import bow, cuda_brief, cuda_match
@@ -3130,6 +3224,9 @@ def phase_merge(dev, card, sk, check_call, timed, shape_of) -> tuple:
                 ck["save_s"] = time.perf_counter() - t0
                 ck["bytes"] = sum(os.path.getsize(os.path.join(path, f_))
                                   for f_ in os.listdir(path))
+                if keep_checkpoint is not None:
+                    shutil.copytree(path, keep_checkpoint,
+                                    dirs_exist_ok=True)
                 slam = system_mod.MonoSlam(cfg_l)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -3555,6 +3652,340 @@ def phase_chessboard(dev, card, sk, check_call, system) -> dict:
     return out
 
 
+def phase_last_modules(dev, card, sk, check_call, timed, shape_of, shared,
+                       checkpoint) -> dict:
+    """Phase "20": the last modules of the port, run after phase 17 with
+    phase 16's map. (a) The sharded closure: phase 16's
+    ``graft.loop_closing_step`` with the inline GBA on
+    ``graft.euroc_loop_map`` at the EuRoC-mono capacity, once unsharded
+    and once over a 4-shard mesh on the one card
+    (``parallel.dist_ba``): the same loop edge, the GBA's cost within
+    5 % + 1 (tests/test_dist_ba.py's tolerance) and the keyframe
+    rotations within ``F32_CLOSURE_R``; the GBA alone on the
+    closed map in float64 with 4 shards and with 1, keyframe poses within
+    5e-4 (R) and 5e-3 m (t) (tests/test_dist_ba.py's; in float32 the GBA
+    of this map is determined only to about 1e-2, so the float32 poses'
+    distances, and two unsharded float32 runs' distance from each other,
+    are reported beside it); the GBA timed with 1 and 4 shards
+    and the sharded one's synchronisations counted. (b) The
+    edge-sharded pose graph (``parallel.dist_posegraph``, 4 shards) on the
+    essential graph ``LoopCloser.close`` handed ``optimize_pose_graph`` in
+    (a), against the unsharded result within 1e-3 (R) and 5e-3 (t)
+    (tests/test_dist_posegraph.py's), both timed. (c)
+    ``graft.dryrun_multichip(4)`` on the card, its global BA against the
+    unsharded one. (d) K3 and K3s with the KB8 camera (TUM-VI 512's
+    coefficients, 1000 points): one launch each through
+    ``solver.pose_opt``, within 1e-4 of the float64 plain version, timed
+    alone, by the wrapper and plain, with their bound. (e)
+    tests/test_kb8_ab.py's A/B study on the card (24 trials at 85 degrees,
+    16 at 50, its gates): one KB8 launch a trial, each held against the
+    float64 plain version in the oracle pool. (f) The viewer: (o)'s
+    snapshot run (``shared["viewer_run"]``, run in phase 19) and
+    ``scripts/view_atlas_torch.py``'s main on cell (m)'s checkpoint
+    (``checkpoint``), read back and not blank."""
+    from orbslam3_byzyh_tpu_torch import convert, graft
+    from orbslam3_byzyh_tpu_torch.io import png
+    from orbslam3_byzyh_tpu_torch.parallel import dist_ba, dist_posegraph
+    from orbslam3_byzyh_tpu_torch.pipeline import mapping
+    from orbslam3_byzyh_tpu_torch.solver import cuda_pose_opt, pose_graph
+    from orbslam3_byzyh_tpu_torch.solver import pose_opt
+    from orbslam3_byzyh_tpu_torch.utils import viewer
+
+    t20 = time.perf_counter()
+    out = {"kb8_launches_before": dict(cuda_pose_opt.KB8_LAUNCHES)}
+    mesh = dist_ba.make_mesh(4, devices=[dev] * 4)
+    require(all(d.type == "cuda" for d in mesh.devices),
+            f"mesh {mesh.devices}: every shard on a CUDA device")
+    loop = shared.pop("loop")
+    m, state0, cam, cfg = loop["m"], loop["state0"], loop["cam"], loop["cfg"]
+    q_fire = m.revisit[-1]
+
+    def host_ms(fn, n_warm, n_timed):
+        xs = []
+        for i in range(n_warm + n_timed):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            if i >= n_warm:
+                xs.append((time.perf_counter() - t0) * 1e3)
+        return spread(xs)
+
+    # (a) The closure, unsharded and over the mesh.
+    def closure(mesh_):
+        lc = loop["closer"](dev, state0)
+        infos = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for q in m.revisit:
+            st, info = graft.loop_closing_step(
+                state0, lc, q, m.n_kf, cam, kf_parent=m.kf_parent, cfg=cfg,
+                gba="inline", mesh=mesh_)
+            infos.append(info)
+        torch.cuda.synchronize()
+        return st, lc, infos, time.perf_counter() - t0
+
+    pg_calls = []
+    with spied(pose_graph, "optimize_pose_graph",
+               lambda a, kw, r: pg_calls.append((a, kw))):
+        st1, lc1, inf1, s1 = closure(None)
+    st4, lc4, inf4, s4 = closure(mesh)
+    edges = [[e[:2] for e in lc.loop_edges[0]] for lc in (lc1, lc4)]
+    require(inf1[-1]["fired"] and inf4[-1]["fired"] and edges[0] == edges[1]
+            and len(edges[0]) == 1 and len(pg_calls) == 1,
+            f"(a) loop edges {edges}, fired {inf1[-1]['fired']} / "
+            f"{inf4[-1]['fired']}, {len(pg_calls)} pose graphs")
+    n = m.n_kf
+
+    def gaps(a_, b_):
+        return (float((a_.kfs.R[:n].double() - b_.kfs.R[:n].double())
+                      .abs().max()),
+                float((a_.kfs.t[:n].double() - b_.kfs.t[:n].double())
+                      .abs().max()))
+
+    gap_R, gap_t = gaps(st4, st1)
+    c1, c4 = loop_cost(st1, cam), loop_cost(st4, cam)
+    require(abs(c4 - c1) < 0.05 * c1 + 1.0 and gap_R <= F32_CLOSURE_R,
+            f"(a) sharded closure: cost {c4} against {c1}, rotations "
+            f"{gap_R:.2e} apart (at most {F32_CLOSURE_R})")
+    cand, corr = inf1[-1]["cand"], inf1[-1]["sim3"]
+    lc1.loop_edges[0] = []
+    st_fu = mapping.fuse_duplicates(
+        lc1.close(state0, q_fire, cand, corr, n, span_parent=m.kf_parent),
+        q_fire, cam, float(cfg.width), float(cfg.height))
+    # The GBA alone on the closed map in float64, where its result is
+    # determined: there the sharded and unsharded GBA must agree within
+    # tests/test_dist_ba.py's tolerances. In float32 this GBA's poses are
+    # determined only to about 1e-2 (scripts/gba_spread_torch.py; on a
+    # 40-keyframe cut on the CPU, where every run is deterministic, float32
+    # results lie 1e-2 rad and 0.06 m from the float64 one, a 4-shard run
+    # 0.015 m from the unsharded one, not along the scale gauge): the
+    # float32 closures are held to F32_CLOSURE_R in rotation, and their
+    # translations are reported.
+    f64 = lambda st: type(st)(*(type(g)(*(  # noqa: E731
+        x.double() if x.is_floating_point() else x for x in g)) for g in st))
+    st_64, cam_64 = f64(st_fu), cam.double()
+    g64_1 = mapping.global_ba(st_64, cam_64)
+    g64_4 = mapping.global_ba(st_64, cam_64, mesh=mesh)
+    gap64 = gaps(g64_4, g64_1)
+    require(gap64[0] <= 5e-4 and gap64[1] <= 5e-3,
+            f"(a) sharded GBA in float64: poses off by {gap64[0]:.2e} (R), "
+            f"{gap64[1]:.2e} m (t)")
+    del st_64, g64_4
+    # Timed warm (the closures ran each form); the timed runs are kept:
+    # the second unsharded run's distance from the first is what the
+    # card's atomic adds alone move this float32 GBA.
+    reps1, reps4 = [], []
+    gba1 = host_ms(lambda: reps1.append(mapping.global_ba(st_fu, cam)), 0, 2)
+    gba4 = host_ms(lambda: reps4.append(
+        mapping.global_ba(st_fu, cam, mesh=mesh)), 0, 2)
+    repeat32 = gaps(reps1[1], reps1[0])
+    float32_off = dict(unsharded=gaps(reps1[0], g64_1),
+                       sharded=gaps(reps4[0], g64_1))
+    del reps1, reps4, g64_1
+    callers = []
+    with counted_syncs(callers=callers) as where:
+        mapping.global_ba(st_fu, cam, mesh=mesh)
+    sites = {}
+    for w in where:
+        sites[w] = sites.get(w, 0) + 1
+    out["a_closure"] = dict(
+        loop_edge=edges[0], pose_gap_R=gap_R, pose_gap_t_m=gap_t,
+        gba_float64_gap=gap64, gba_float32_from_float64=float32_off,
+        gba_float32_repeat_gap=repeat32,
+        cost_1=c1, cost_4=c4, closure_s_1=s1, closure_s_4=s4,
+        gba_ms_1=gba1, gba_ms_4=gba4, gba_4_syncs=len(where),
+        gba_4_sync_sites=sites, gba_4_sync_callers=sorted(set(callers)),
+        mesh=[str(d) for d in mesh.devices])
+    phase("20 mesh", f"(a) the closure on graft.euroc_loop_map ({n} "
+          f"keyframes, {cfg.max_kf} / {cfg.max_lm} / {cfg.max_obs} slots) "
+          f"with the inline GBA over {mesh.size} shards on "
+          f"{mesh.devices[0]}: loop edge {edges[0]} as unsharded; cost "
+          f"{c4:.3f} against {c1:.3f}; poses {gap_R:.2e} (R, at most "
+          f"{F32_CLOSURE_R}) and {gap_t:.2e} m (t) from the unsharded "
+          f"closure's in float32; the "
+          f"GBA alone in float64 within {gap64[0]:.2e} (R) and "
+          f"{gap64[1]:.2e} m (t) of the unsharded one, the float32 GBA's "
+          f"distance from it (R, t) {float32_off}, two unsharded float32 "
+          f"GBAs {repeat32[0]:.2e} (R) and {repeat32[1]:.2e} m (t) "
+          f"apart; closure {s4:.3f} s "
+          f"against {s1:.3f} s; the "
+          f"GBA median {gba4['median']:.1f} ms with 4 shards, "
+          f"{gba1['median']:.1f} ms with 1; the sharded GBA's "
+          f"synchronisations {len(where)} {sites} ({card})")
+    del st1, st4, st_fu
+
+    # (b) The essential graph of (a)'s closure, edge-sharded.
+    a, kw = pg_calls[0]
+    res_1 = pose_graph.optimize_pose_graph(*a, **kw)
+    padded = dist_posegraph.pad_edges(*a[3:9], mesh.size)
+
+    def sharded():
+        return dist_posegraph.dist_optimize_pose_graph(
+            *a[:3], *padded, a[9], a[10], mesh=mesh, **kw)
+
+    results = []
+    pg4 = host_ms(lambda: results.append(sharded()), 0, 1)
+    res_4 = results[0]
+    pg_R = float((res_4.R - res_1.R).abs().max())
+    pg_t = float((res_4.t - res_1.t).abs().max())
+    require(pg_R <= 1e-3 and pg_t <= 5e-3,
+            f"(b) sharded pose graph off by {pg_R:.2e} (R), {pg_t:.2e} (t)")
+    pg1 = host_ms(lambda: pose_graph.optimize_pose_graph(*a, **kw), 0, 3)
+    out["b_pose_graph"] = dict(
+        edges=int(a[3].shape[0]), padded_edges=int(padded[0].shape[0]),
+        vertices=int(a[0].shape[0]), n_live=kw.get("n_live"),
+        n_iters=kw.get("n_iters"), gap_R=pg_R, gap_t=pg_t, ms_1=pg1,
+        ms_4=pg4)
+    phase("20 mesh", f"(b) the essential graph ({a[3].shape[0]} edges, "
+          f"{padded[0].shape[0]} padded over {mesh.size} shards; "
+          f"{a[0].shape[0]} vertex slots, n_live {kw.get('n_live')}) "
+          f"within {pg_R:.2e} (R) and {pg_t:.2e} (t) of the unsharded "
+          f"result; median {pg4['median']:.1f} ms sharded (op by op) "
+          f"against {pg1['median']:.1f} ms unsharded (its CUDA graph) "
+          f"({card})")
+
+    # (c) The dry run.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state2, pgr = graft.dryrun_multichip(4)
+    torch.cuda.synchronize()
+    dry_s = time.perf_counter() - t0
+    tiny, camt, bft = graft.make_tiny_map_state(n_kf=6, n_lm=64, device=dev)
+    ref = mapping.global_ba(tiny, camt, use_stereo=True, bf=bft)
+    dry_R = float((state2.kfs.R - ref.kfs.R).abs().max())
+    dry_t = float((state2.kfs.t - ref.kfs.t).abs().max())
+    require(state2.kfs.R.is_cuda and dry_R <= 5e-4 and dry_t <= 5e-3
+            and float(pgr.cost) >= 0.0,
+            f"(c) dry run: {dry_R:.2e} (R), {dry_t:.2e} (t), pose-graph "
+            f"cost {float(pgr.cost)}")
+    out["c_dryrun"] = dict(seconds=dry_s, gap_R=dry_R, gap_t=dry_t,
+                           pose_graph_cost=float(pgr.cost))
+    phase("20 mesh", f"(c) graft.dryrun_multichip(4): {dry_s:.2f} s; its "
+          f"sharded global BA within {dry_R:.2e} (R) and {dry_t:.2e} (t) "
+          f"of the unsharded one; pose-graph cost {float(pgr.cost):.3e} "
+          f"({card})")
+
+    # (d) K3 and K3s with the KB8 camera.
+    kb8 = {}
+    for nm, stereo in (("K3", False), ("K3s", True)):
+        p = graft.kb8_pose_problem(1000, stereo=stereo)
+        args = tuple(x if isinstance(x, float) else convert.to_torch(x, dev)
+                     for x in p)
+        kw = {"model_id": KB8}
+        for k in sk.values():
+            k.launches = 0
+        n0 = cuda_pose_opt.KB8_LAUNCHES[sk[nm].fn]
+        if stereo:
+            res = pose_opt.pose_optimization_stereo(*args, **kw)
+        else:
+            res = pose_opt.pose_optimization(*args, **kw)
+        launches = {k_: k.launches for k_, k in sk.items()}
+        n_kb8 = cuda_pose_opt.KB8_LAUNCHES[sk[nm].fn] - n0
+        require(launches[nm] == 1 and sum(launches.values()) == 1
+                and n_kb8 == 1,
+                f"(d) {nm} KB8: launches {launches}, {n_kb8} of the KB8 "
+                f"variant")
+        err, (b_ms, b_by, b_txt) = check_call(nm, args, kw)
+        entry = {"call": f"{nm} KB8 (TUM-VI 512)",
+                 "shape": shape_of(nm, args, kw), "launches": 1,
+                 "n_inliers": int(res.n_inliers), "max_abs_err": err,
+                 "bound_ms": b_ms, "bound_by": b_by, "bound": b_txt}
+        entry.update(timed(nm, args, kw, plain_reps=K3_PLAIN_REPS))
+        kb8[nm] = entry
+        phase("20 KB8", f"(d) {nm} with the KB8 camera, N=1000"
+              + (f" ({entry['shape']['stereo_rows']} stereo rows)"
+                 if stereo else "") + f": within {err:.2e} of the float64 "
+              f"plain version, {entry['n_inliers']} inliers; launch alone "
+              f"{entry['ms']:.4f} ms, wrapper {entry['wrapper_ms']:.4f} ms, "
+              f"plain {entry['plain_ms']:.4f} ms, bound {b_ms:.5f} ms by "
+              f"{b_by} ({card})")
+
+    # (e) The A/B study on the card.
+    for k in sk.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n0 = cuda_pose_opt.KB8_LAUNCHES[cuda_pose_opt.MONO_FN]
+    with recorded(cuda_pose_opt, "pose_optimization_kernel") as k3c:
+        wide = graft.kb8_ab_study(np.random.default_rng(42), n_trials=24,
+                                  max_angle_deg=85.0, device=dev)
+        moderate = graft.kb8_ab_study(np.random.default_rng(42), n_trials=16,
+                                      max_angle_deg=50.0, device=dev)
+    torch.cuda.synchronize()
+    ab_s = time.perf_counter() - t0
+    launches = {k_: k.launches for k_, k in sk.items()}
+    n_kb8 = sum(1 for _, kw_ in k3c if kw_.get("model_id") == KB8)
+    counted = cuda_pose_opt.KB8_LAUNCHES[cuda_pose_opt.MONO_FN] - n0
+    gates = graft.kb8_ab_gates(wide, moderate)
+    require(gates["ok"] and n_kb8 == 40 and counted == 40
+            and launches["K3"] == 80 and launches["K3"] == len(k3c),
+            f"(e) A/B: gates {gates}, medians {wide['med_rect']:.5f} / "
+            f"{wide['med_native']:.5f} (85 deg), {moderate['med_rect']:.5f}"
+            f" / {moderate['med_native']:.5f} (50 deg); {n_kb8} KB8 "
+            f"launches, K3 {launches['K3']}")
+    # Each launch held against the float64 plain version in the oracle
+    # pool, settled by a later phase (``study_held`` reads the errors).
+    held = {"max_abs_err": 0.0}
+    held_kb8 = {"max_abs_err": 0.0}
+    for args, kw_ in k3c:
+        check_call("K3", args, kw_,
+                   held_kb8 if kw_.get("model_id") == KB8 else held)
+    kb8["K3"].update(launches_study=n_kb8)
+    out["e_ab"] = dict(
+        gates=gates, seconds=ab_s, launches=launches, kb8_launches=n_kb8,
+        wide={k: v for k, v in wide.items() if k.startswith(("med", "err"))},
+        moderate={k: v for k, v in moderate.items()
+                  if k.startswith(("med", "err"))})
+
+    def study_held():
+        out["e_ab"].update(kb8_max_abs_err=held_kb8["max_abs_err"],
+                           pinhole_max_abs_err=held["max_abs_err"])
+        kb8["K3"].update(study_max_abs_err=held_kb8["max_abs_err"])
+        phase("20 KB8", f"(e) the study's {launches['K3']} K3 launches "
+              f"({n_kb8} KB8), each within {held_kb8['max_abs_err']:.2e} "
+              f"(KB8) and {held['max_abs_err']:.2e} (pinhole) of the float64 "
+              f"plain version")
+
+    out["study_held"] = study_held
+    phase("20 KB8", f"(e) tests/test_kb8_ab.py's study on the card: 85 deg "
+          f"(24 trials) median error rectified {wide['med_rect']:.5f} m, "
+          f"native {wide['med_native']:.5f} m; 50 deg (16) "
+          f"{moderate['med_rect']:.5f} / {moderate['med_native']:.5f} m; "
+          f"gates {gates}; {launches['K3']} K3 launches ({n_kb8} KB8), held "
+          f"against the float64 plain version in the oracle pool; "
+          f"{ab_s:.2f} s ({card})")
+    out["kb8"] = kb8
+
+    # (f) The viewer: the snapshot run (phase 19) and the atlas render.
+    run = shared.pop("viewer_run")
+    work = tempfile.mkdtemp()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = viewer.main_view_atlas([checkpoint, "--out",
+                                       os.path.join(work, "atlas_m.png")])
+        atlas_s = time.perf_counter() - t0
+        img = png.read_rgb(path)
+        drawn = int((img != 255).any(-1).sum())
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    require(img.shape == (720, 900, 3) and drawn > 100,
+            f"(f) view_atlas: {img.shape}, {drawn} pixels drawn")
+    out["f_viewer"] = dict(run, view_atlas_s=atlas_s,
+                           view_atlas_drawn_pixels=drawn)
+    phase("20 viewer", f"(f) view_atlas_torch.py on cell (m)'s checkpoint: "
+          f"{atlas_s:.2f} s, {drawn} pixels drawn; the snapshots cost "
+          f"{run['snapshot_ms_total']:.1f} ms of host time in all (the "
+          f"snapshot run {run['fps_user']:.2f} frames/s, (o)'s timed run "
+          f"before it {run['fps_user_without']:.2f}) ({card})")
+    out["kb8_launches_after"] = dict(cuda_pose_opt.KB8_LAUNCHES)
+    out["seconds"] = time.perf_counter() - t20
+    phase("20", f"phase took {out['seconds']:.1f} s (the snapshot run's "
+          f"{run['seconds']:.1f} s in phase 19)")
+    return out
+
+
 # Phase 19's Paeth files for the prefetcher's thread scaling.
 N_PAETH_FILES = 16
 
@@ -3654,7 +4085,109 @@ def rect_error(inputs, outputs, mx, my) -> float:
                for x, y in zip(inputs, outputs))
 
 
-def phase_runners(dev, card, sk, p1, vi_sys, datasets, oracle) -> dict:
+def snapshot_run(d, fps_without: float, card: str) -> dict:
+    """Phase 20 (f)'s runner: the flagship runner (cell (o)) again with
+    ``--snapshot-every 10``, timed as phase 19 times it. Its four PNGs are
+    read back with ``io/png`` (RGB, 480 x 640, the map drawn: more than 100
+    pixels off the background). The viewer's cost is the snapshots' own
+    time, the sum of ``viewer.snapshot``'s host clock: the run goes right
+    after phase 19's timed run of (o), on warmer caches, so its frames/s
+    beside (o)'s is no measure of that cost."""
+    from orbslam3_byzyh_tpu_torch import runners
+    from orbslam3_byzyh_tpu_torch.io import png
+    from orbslam3_byzyh_tpu_torch.utils import viewer
+
+    snap_ms = []
+    snapshot = viewer.snapshot
+
+    def timed_snapshot(*a, **kw):
+        t0 = time.perf_counter()
+        out = snapshot(*a, **kw)
+        snap_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    work = tempfile.mkdtemp()
+    viewer.snapshot = timed_snapshot
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = runners.main_euroc_stereo_inertial(
+            d.argv + ["--snapshot-every", "10"], out_dir=work)
+        seconds = time.perf_counter() - t0
+        snaps = [p for p in res.outputs if p.endswith(".png")]
+        names = [os.path.basename(p) for p in snaps]
+        drawn = []
+        for p in snaps:
+            img = png.read_rgb(p)
+            require(img.shape == (480, 640, 3), f"(f) {p}: {img.shape}")
+            drawn.append(int((img != 255).any(-1).sum()))
+        sizes = [os.path.getsize(p) for p in snaps]
+    finally:
+        viewer.snapshot = snapshot
+        shutil.rmtree(work, ignore_errors=True)
+    want = [f"map_{i:05d}.png" for i in range(10, res.n_total + 1, 10)]
+    require(names == want and all(n_ > 100 for n_ in drawn),
+            f"(f) snapshots {names} (want {want}), drawn pixels {drawn}")
+    out = dict(files=names, drawn_pixels=drawn, bytes=sizes,
+               seconds=seconds, fps_user=res.n_total / seconds,
+               fps_user_without=fps_without, snapshot_ms=spread(snap_ms),
+               snapshot_ms_total=sum(snap_ms))
+    phase("20 viewer", f"(f) main_euroc_stereo_inertial --snapshot-every 10,"
+          f" {res.n_total} frames: {out['fps_user']:.2f} frames/s as the "
+          f"user sees it ({seconds:.2f} s; (o)'s timed run before it, "
+          f"without snapshots, {fps_without:.2f}); {len(names)} PNGs "
+          f"{names} read back, {drawn} pixels drawn, {sizes} B; the cost, "
+          f"the snapshots' own host time: {out['snapshot_ms_total']:.1f} ms "
+          f"in all (median {out['snapshot_ms']['median']:.1f} ms a "
+          f"snapshot) ({card})")
+    return out
+
+
+def p1_device_us(d, dev, card: str) -> dict:
+    """P1's device time by the profiler (CUDA activity, the kernel by
+    name), per launch and per flagship frame (2 launches), on the first 8
+    left images of dataset ``d`` (752x480, Sub rows), after a warm-up;
+    these launches are measurements, not a path's."""
+    from orbslam3_byzyh_tpu_torch.io import euroc, png
+    from orbslam3_byzyh_tpu_torch.ops import cuda_png
+
+    seq = euroc.load_euroc(d.sequence, cam="cam0")
+    infs = [png.inflate(p) for p in seq.image_paths[:8]]
+    raws = [torch.from_numpy(i.raw).to(dev) for i in infs]
+
+    def decode_all():
+        for r, i in zip(raws, infs):
+            cuda_png.unfilter_kernel(r, i.width, i.bpp, i.mode)
+
+    decode_all()
+    torch.cuda.synchronize()
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        decode_all()
+        torch.cuda.synchronize()
+    dev_evs = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith(("Memcpy", "Memset"))]
+    # By name; where the profiler names no kernel so (a session after
+    # earlier ones in this process has shown P1's launches unnamed or not
+    # at all), every kernel of the session, which launches P1 alone.
+    evs = [e for e in dev_evs if "unfilter" in e.key] or dev_evs
+    total = sum(e.self_device_time_total for e in evs)
+    count = sum(e.count for e in evs)
+    out = dict(launches=count, device_us_per_launch=(
+        total / count if count else None), kernels=[e.key for e in evs])
+    out["device_us_per_frame"] = (None if not count
+                                  else 2 * out["device_us_per_launch"])
+    phase("20 viewer", f"P1 by the profiler: {count} launches at "
+          f"{infs[0].height}x{infs[0].width}, "
+          f"{out['device_us_per_launch']} us of device time each, "
+          f"{out['device_us_per_frame']} us a flagship frame; the "
+          f"profiler's kernels {out['kernels']} ({card})")
+    return out
+
+
+def phase_runners(dev, card, sk, p1, vi_sys, datasets, oracle,
+                  shared) -> dict:
     """Phase "19 runners": the port's dataset runners (``runners.py``) as a
     user calls them, on the datasets ``fabricate_dataset`` wrote in the
     oracle pool. (a) P1 on synthetic scanlines of every row filter at
@@ -3681,7 +4214,9 @@ def phase_runners(dev, card, sk, p1, vi_sys, datasets, oracle) -> dict:
     every P1 launch bit-identical, every CLAHE equal to its plain
     version. It runs right after phase 13, whose cell (f) leaves the
     flagship's CUDA graphs cached; the rectified pairs are held in the
-    ``oracle`` pool while the card goes on."""
+    ``oracle`` pool while the card goes on. Phase 20 (f)'s runner
+    (:func:`snapshot_run`) runs right after (o)'s timed run, its result
+    in ``shared["viewer_run"]``."""
     from orbslam3_byzyh_tpu_torch import graft, runners
     from orbslam3_byzyh_tpu_torch.io import png, rectify, trajectory
     from orbslam3_byzyh_tpu_torch.io.prefetch import ImagePrefetcher
@@ -3913,6 +4448,8 @@ def phase_runners(dev, card, sk, p1, vi_sys, datasets, oracle) -> dict:
         for k_, st in o["frame_kinds"].items():
             phase(name, f"(o) {k_} frames ({st['n']}): track() median "
                   f"{st['median']:.3f} ms, p80 {st['p80']:.3f} ms ({card})")
+        shared["viewer_run"] = snapshot_run(d, o["fps_user"], card)
+        o["p1_profiler"] = p1_device_us(d, dev, card)
 
         # The same run without the T_bc repair, counting synchronisations.
         probe2 = RunnerProbe(bundles)
@@ -4077,6 +4614,8 @@ def smoke(oracle, root) -> int:
     # P1, the PNG unfilter of phase 19's runners: a port kernel for a host
     # OpenCV function, built with the others.
     p1 = cuda_png.KERNEL
+    cuda_pose_opt.KB8_LAUNCHES.update(dict.fromkeys(cuda_pose_opt.KB8_LAUNCHES,
+                                                    0))
     t0 = time.perf_counter()
     builds = dict(kernels, P1=p1)
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
@@ -4206,6 +4745,9 @@ def smoke(oracle, root) -> int:
     plain32_err = {"K3": 0.0, "K3s": 0.0, "on": False}
     # The deferred comparisons: (finish, the record it updates).
     pending = []
+    # Checks whose CPU side runs in the pool throughout the script, held
+    # just before the last settle.
+    late = []
 
     def to_cpu(x):
         return x.cpu() if isinstance(x, torch.Tensor) else x
@@ -4238,12 +4780,14 @@ def smoke(oracle, root) -> int:
             finish, rec = pending.pop(0)
             rec["max_abs_err"] = max(rec["max_abs_err"], float(finish()))
 
-    def k3_check(args, rec=None):
+    def k3_check(args, rec=None, kwargs=None):
         """Kernel against plain at float64 (per problem of a batch) within
         1e-4 and inliers within 2; a batch's rows bit-equal to their single
-        runs. With ``rec`` the comparison with the oracle is deferred (see
-        ``settle``) and the error returned is 0.0 until then."""
-        Rk, tk, ck = cuda_pose_opt.pose_optimization_kernel(*args)
+        runs. ``kwargs``: the call's (``model_id`` KB8 for the fisheye
+        camera). With ``rec`` the comparison with the oracle is deferred
+        (see ``settle``) and the error returned is 0.0 until then."""
+        kwargs = dict(kwargs or {})
+        Rk, tk, ck = cuda_pose_opt.pose_optimization_kernel(*args, **kwargs)
         batched = args[0].dim() == 3
         probs = ([tuple(a[i] for a in args[:6]) + (args[6],)
                   for i in range(args[0].shape[0])] if batched else [args])
@@ -4252,12 +4796,12 @@ def smoke(oracle, root) -> int:
             Rs, ts, cs = ((Rk[i], tk[i], ck[i]) if batched else (Rk, tk, ck))
             if batched:
                 R1, t1, c1 = cuda_pose_opt.pose_optimization_kernel(
-                    *(a.contiguous() for a in p))
+                    *(a.contiguous() for a in p), **kwargs)
                 torch.cuda.synchronize()
                 require(torch.equal(R1, Rs) and torch.equal(t1, ts)
                         and torch.equal(c1, cs),
                         f"K3 batch row {i} differs from its single run")
-            solved.append((plain_pair("K3", p, {}), Rs, ts, cs, p[5]))
+            solved.append((plain_pair("K3", p, kwargs), Rs, ts, cs, p[5]))
             inl.append(int(((cs <= cuda_pose_opt.CHI2_MONO) & p[5]).sum()))
 
         def finish():
@@ -4278,7 +4822,7 @@ def smoke(oracle, root) -> int:
             return 0.0, inl
         return finish(), inl
 
-    def k3_bound(args, inliers):
+    def k3_bound(args, inliers, kb8=False):
         # Per problem: 25 B per point in (xyz, uv, 1/sigma^2, valid) and 4 B
         # out, the poses and camera. Operations: 45 passes (the first of
         # round 0, one per LM iteration, the three re-markings fused with
@@ -4287,18 +4831,22 @@ def smoke(oracle, root) -> int:
         # final inliers, the mask the later rounds converge to. A pass costs
         # 31 flops per point for the residual and chi2, plus 159 for the
         # Jacobian, the 21 H and 6 g terms and the cost where the point is
-        # in the mask.
+        # in the mask. The KB8 camera adds KB8_RESIDUAL_FLOPS to each
+        # residual and KB8_JACOBIAN_FLOPS to each Jacobian.
         valid = args[5].reshape(-1, args[5].shape[-1])
         npt = valid.shape[1]
+        res = 31 + (KB8_RESIDUAL_FLOPS if kb8 else 0)
+        full = 190 + (KB8_RESIDUAL_FLOPS + KB8_JACOBIAN_FLOPS if kb8 else 0)
         flops, nbytes = 0, 0
         for v, n_in in zip(valid, inliers):
             n_valid = int(v.sum())
-            flops += (11 * n_valid + 34 * n_in) * 190 + 4 * n_valid * 31
-            nbytes += npt * (25 + 4) + 2 * 48 + 16
+            flops += (11 * n_valid + 34 * n_in) * full + 4 * n_valid * res
+            nbytes += npt * (25 + 4) + 2 * 48 + 16 + (16 if kb8 else 0)
         ms, by = bound(nbytes, {F32_FLOPS: flops})
         return ms, by, (f"B={valid.shape[0]} x N={npt} x 29 B over "
                         f"{HBM_BPS / 1e12} TB/s; {flops} f32 flops (45 passes "
-                        f"over the valid points and final inliers) over "
+                        f"over the valid points and final inliers, {full} a "
+                        f"point in the mask{', KB8' if kb8 else ''}) over "
                         f"{F32_FLOPS / 1e12} TFLOP/s")
 
     def k3s_check(args, kwargs, rec=None):
@@ -4340,24 +4888,29 @@ def smoke(oracle, root) -> int:
             return 0.0, in_k.sum(-1).tolist(), stereo
         return finish(), in_k.sum(-1).tolist(), stereo
 
-    def k3s_bound(args, inliers, stereo_inliers):
+    def k3s_bound(args, inliers, stereo_inliers, kb8=False):
         # Per problem: 29 B per point in (xyz, uv, u_r, 1/sigma^2, valid)
         # and 4 B out. Operations as K3's, 45 passes (11 over the valid
         # points, 34 over the final inliers), per point and pass: a mono row
         # 31 flops of residual and chi2 and 159 more in the mask (190); a
         # stereo row 36 and 219 (255): the third residual, its Jacobian row
-        # (e = bf / z^2), and its terms in the 21 H and 6 g sums.
+        # (e = bf / z^2), and its terms in the 21 H and 6 g sums. KB8 adds
+        # its projection's and Jacobian's flops to every row as in K3.
         ur = args[4].reshape(-1, args[4].shape[-1])
         valid = args[7].reshape(ur.shape)
         npt = ur.shape[1]
+        xr = KB8_RESIDUAL_FLOPS if kb8 else 0
+        xf = KB8_RESIDUAL_FLOPS + KB8_JACOBIAN_FLOPS if kb8 else 0
         flops, nbytes = 0, 0
         for u, v, n_in, n_in_s in zip(ur, valid, inliers, stereo_inliers):
             vs = int((v & (u >= 0)).sum())
             vm = int(v.sum()) - vs
             n_in_m = n_in - n_in_s
-            flops += ((11 * vm + 34 * n_in_m) * 190 + 4 * vm * 31
-                      + (11 * vs + 34 * n_in_s) * 255 + 4 * vs * 36)
-            nbytes += npt * (29 + 4) + 2 * 48 + 16
+            flops += ((11 * vm + 34 * n_in_m) * (190 + xf)
+                      + 4 * vm * (31 + xr)
+                      + (11 * vs + 34 * n_in_s) * (255 + xf)
+                      + 4 * vs * (36 + xr))
+            nbytes += npt * (29 + 4) + 2 * 48 + 16 + (16 if kb8 else 0)
         ms, by = bound(nbytes, {F32_FLOPS: flops})
         return ms, by, (f"B={ur.shape[0]} x N={npt} x 33 B over "
                         f"{HBM_BPS / 1e12} TB/s; {flops} f32 flops (45 passes "
@@ -4386,8 +4939,8 @@ def smoke(oracle, root) -> int:
             probs = [tuple(a[i] for a in args[:6]) + (args[6],)
                      for i in range(args[0].shape[0])]
             t["plain_ms"] = event_ms(
-                lambda: [plains[name](*p) for p in probs], reps=plain_reps,
-                warmup=warm)
+                lambda: [plains[name](*p, **kwargs) for p in probs],
+                reps=plain_reps, warmup=warm)
         else:
             t["plain_ms"] = event_ms(lambda: plains[name](*args, **kwargs),
                                      reps=plain_reps, warmup=warm)
@@ -4408,6 +4961,8 @@ def smoke(oracle, root) -> int:
                "N": args[2].shape[-2]}
         if name == "K3s":
             out["stereo_rows"] = int(((args[4] >= 0) & args[7]).sum())
+        if kwargs.get("model_id") == KB8:
+            out["camera"] = "KB8"
         return out
 
     def check_call(name, args, kwargs, rec=None):
@@ -4423,10 +4978,10 @@ def smoke(oracle, root) -> int:
             b = k2_bound(args, kwargs)
         elif name == "K3s":
             err, inl, inl_s = k3s_check(args, kwargs, rec)
-            b = k3s_bound(args, inl, inl_s)
+            b = k3s_bound(args, inl, inl_s, kwargs.get("model_id") == KB8)
         else:
-            err, inl = k3_check(args, rec)
-            b = k3_bound(args, inl)
+            err, inl = k3_check(args, rec, kwargs)
+            b = k3_bound(args, inl, kwargs.get("model_id") == KB8)
         return err, b
 
     # The phases outside this function settle their warm-ups' deferred
@@ -5173,28 +5728,17 @@ def smoke(oracle, root) -> int:
                        median_depth_after_ba=float(np.median(z_post)),
                        ba_cost_before=cost0, ba_cost_after=cost1,
                        live_landmarks=int(st.lms.valid.sum()))
-        # The CPU plain path with the indices the card drew.
+        # The CPU plain path with the indices the card drew, in the oracle
+        # pool; held at the end of the script (``late``).
         if "idx" in info:
-            res_c = graft.mono_initialize(*init_args(scene, cpu),
-                                          idx=info["idx"].cpu())
-            require((res_c.success, res_c.info["used_h"])
-                    == (res.success, info["used_h"]),
-                    f"init ({case}): CPU success {res_c.success} used_h "
-                    f"{res_c.info['used_h']}")
-            if res.success:
-                n_g = int(res.state.lms.valid.sum())
-                n_c = int(res_c.state.lms.valid.sum())
-                d_bind = int((res.bindings.cpu() != res_c.bindings).sum())
-                r_gap = float((res.R.cpu() - res_c.R).abs().max())
-                require(r_gap <= 1e-3, f"init ({case}): R differs from the "
-                        f"CPU by {r_gap}")
-                require(abs(n_g - n_c) <= 0.01 * n_c
-                        and (d_bind == 0 or (n_g != n_c and d_bind
-                                             <= 0.01 * n_c)),
-                        f"init ({case}): landmarks {n_g} vs CPU {n_c}, "
-                        f"bindings differ at {d_bind}")
-                out.update(live_landmarks_cpu=n_c, bindings_differ_cpu=d_bind,
-                           R_gap_cpu=r_gap)
+            fut = oracle.submit(init_cpu, scene, eu, cam_eu.cpu(),
+                                info["idx"].cpu())
+            card_res = (res.success, bool(info["used_h"]),
+                        int(res.state.lms.valid.sum()) if res.success else 0,
+                        res.bindings.cpu() if res.success else None,
+                        res.R.cpu() if res.success else None)
+            late.append(functools.partial(init_cpu_held, case, fut, card_res,
+                                          out))
         # The synchronisations with the host inside the entry point.
         with counted_syncs() as where:
             graft.mono_initialize(
@@ -5928,7 +6472,8 @@ def smoke(oracle, root) -> int:
 
     # -- 19: the dataset runners, run here while cell (f)'s CUDA graphs (the
     # flagship runner's shapes) are still cached ------------------------------
-    runs = phase_runners(dev, card, sk, p1, vi_sys, datasets, oracle)
+    shared = {}
+    runs = phase_runners(dev, card, sk, p1, vi_sys, datasets, oracle, shared)
 
     # -- 14: non-rectified (fisheye) stereo and the KB8 camera --------------
     t14 = time.perf_counter()
@@ -5960,14 +6505,30 @@ def smoke(oracle, root) -> int:
     reloc_cells = ("i_reloc", "j_cross_map")
 
     # -- 16: loop closing and the global BA ---------------------------------
-    loop, loop_calls = phase_loop(dev, card, sk, check_call, timed, shape_of)
+    loop, loop_calls = phase_loop(dev, card, sk, check_call, timed, shape_of,
+                                  shared)
 
     # -- 17: the atlas merge and the atlas checkpoints -----------------------
     merge, merge_calls = phase_merge(dev, card, sk, check_call, timed,
-                                     shape_of)
+                                     shape_of, os.path.join(root, "atlas_m"))
+
+    # -- 20: the device mesh, native KB8 and the viewer ---------------------
+    last = phase_last_modules(dev, card, sk, check_call, timed, shape_of,
+                              shared, os.path.join(root, "atlas_m"))
 
     # -- 18: the chessboard world frame --------------------------------------
     chess = phase_chessboard(dev, card, sk, check_call, system)
+
+    # The KB8 launches of the whole run outside phase 20 (every system path
+    # among them): no system path passes a KB8 camera to K3 or K3s.
+    for k3_name, fn in (("K3", cuda_pose_opt.MONO_FN),
+                        ("K3s", cuda_pose_opt.STEREO_FN)):
+        outside = (last["kb8_launches_before"][fn]
+                   + cuda_pose_opt.KB8_LAUNCHES[fn]
+                   - last["kb8_launches_after"][fn])
+        require(outside == 0, f"{k3_name}: {outside} KB8 launches outside "
+                f"phase 20 (a system path)")
+        last["kb8"][k3_name]["launches_system"] = outside
 
     sources = {"K1": ("steered-BRIEF sampler", "csrc/brief.cu",
                       "orbslam3_byzyh_tpu/ops/pallas_brief.py:161",
@@ -6073,7 +6634,8 @@ def smoke(oracle, root) -> int:
         "system_checked": {
             k: {"calls": v["K3s"]["calls"],
                 "max_abs_err": v["K3s"]["max_abs_err"]}
-            for k, v in st_checked.items()}, **stereo_keys("K3s")}
+            for k, v in st_checked.items()}, **stereo_keys("K3s"),
+        "kb8": last["kb8"]["K3s"]}
     # P1: a port kernel for a host OpenCV function (cv2.imread's libpng
     # unfilter), not for a TPU kernel; its main path is phase 19's runners.
     t1 = runs["p1"]
@@ -6092,10 +6654,14 @@ def smoke(oracle, root) -> int:
                    "png) is not installed on the card's machine",
         "wrapper_ms": t1["wrapper_ms"], "ms_paeth": t1["ms_paeth"],
         "bound": t1["bound"], "shape": t1["shape"], "ptxas": ptxas["P1"],
+        "device_us": runs["o_flagship"]["p1_profiler"],
         "launches_runners": {k: v["launches"]["P1"]
                              for k, v in runs["p_runners"].items()}}
+    for held in late:
+        held()
     settle()
     require(not pending, "oracle comparisons left unsettled")
+    last.pop("study_held")()
     print(json.dumps({"kernels": [
         {"name": f"{n} {sources[n][0]}", "route": "cuda",
          "source": f"orbslam3_byzyh_tpu_torch/{sources[n][1]}",
@@ -6122,7 +6688,8 @@ def smoke(oracle, root) -> int:
          "system_checked": {
              k: {"calls": v[n]["calls"], "max_abs_err": v[n]["max_abs_err"]}
              for k, v in sys_checked.items()},
-         "system_calls": sys_calls[n], **stereo_keys(n)}
+         "system_calls": sys_calls[n], **stereo_keys(n),
+         **({"kb8": last["kb8"][n]} if n in last["kb8"] else {})}
         for n in kernels] + [k3s_entry, p1_entry],
         "k2_sass_tensor_instructions":
         tensor_ops,
@@ -6140,6 +6707,7 @@ def smoke(oracle, root) -> int:
         "inertial": {k: v for k, v in vi_out.items() if k != "held"},
         "inertial_system": vi_sys, "fisheye": fish, "reloc": reloc,
         "loop": loop, "merge": merge, "chessboard": chess, "runners": runs,
+        "last_modules": {k: v for k, v in last.items() if k != "kb8"},
         "card": card}, default=str))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -19,6 +19,18 @@
 // 0), e = bf / z^2, its chi2 sums three rows, and its Huber delta^2 and
 // inlier gate are 7.815 instead of 5.991.
 //
+// KB8 (template flag KB8, with or without STEREO): the Kannala-Brandt
+// fisheye camera (TUM-VI's) instead of the pinhole, for the JAX package's
+// XLA path of the same two functions with model_id = KB8 (its
+// solver/pose_opt.py:100-160 and :163; the Pallas kernel takes the pinhole
+// only). The projection is ops/camera.py's kb8_project (theta = atan2(R, z),
+// r(theta) = theta (1 + k0 th^2 + k1 th^4 + k2 th^6 + k3 th^8), the point on
+// the axis at R < 1e-9 mapped to the principal point) and its 2x3 Jacobian
+// kb8_project_jac (the squared radius guarded at 1e-12), in double, through
+// [I | -skew(pc)] as the pinhole's; a stereo row keeps u_r = u - bf / z with
+// u the KB8 projection. The camera then carries 8 parameters (fx, fy, cx,
+// cy, k0..k3); the points take the same shared memory.
+//
 // What bounds it on this card: the chain of dependent steps, not bytes or
 // flops. One problem is ~1k points (~30 KB, ~10 MFLOP for the schedule);
 // every LM iteration needs the previous one's pose, so the time is the
@@ -77,6 +89,7 @@ constexpr unsigned kFull = 0xffffffffu;
 
 struct Cam {
   real fx, fy, cx, cy;
+  real k0, k1, k2, k3;  // KB8 only
 };
 
 // The point arrays in dynamic shared memory (ur: the stereo variant's).
@@ -106,7 +119,7 @@ struct Terms {
   bool depth_ok, has_ur;
 };
 
-template <bool STEREO>
+template <bool STEREO, bool KB8>
 __device__ __forceinline__ Terms point_terms(const real (&pose)[12],
                                              const Cam& c, const Points& s,
                                              int i, real bf) {
@@ -117,9 +130,25 @@ __device__ __forceinline__ Terms point_terms(const real (&pose)[12],
   t.pcz = pose[6] * X + pose[7] * Y + pose[8] * Z + pose[11];
   t.depth_ok = t.pcz > 0.05;
   t.iz = 1.0 / (t.depth_ok ? t.pcz : 1.0);
-  const real uhat = c.fx * t.pcx * t.iz + c.cx;
+  real uhat, vhat;
+  if constexpr (KB8) {
+    const real rad = sqrt(t.pcx * t.pcx + t.pcy * t.pcy);
+    const real th = atan2(rad, t.pcz);
+    const real th2 = th * th;
+    const real r =
+        th * (1.0 + th2 * (c.k0 + th2 * (c.k1 + th2 * (c.k2 + th2 * c.k3))));
+    const bool on_axis = rad < 1e-9;
+    const real inv_r = 1.0 / (on_axis ? 1e-9 : rad);
+    const real psi_cos = on_axis ? 1.0 : t.pcx * inv_r;
+    const real psi_sin = on_axis ? 0.0 : t.pcy * inv_r;
+    uhat = c.fx * r * psi_cos + c.cx;
+    vhat = c.fy * r * psi_sin + c.cy;
+  } else {
+    uhat = c.fx * t.pcx * t.iz + c.cx;
+    vhat = c.fy * t.pcy * t.iz + c.cy;
+  }
   t.ru = s.u[i] - uhat;
-  t.rv = s.v[i] - (c.fy * t.pcy * t.iz + c.cy);
+  t.rv = s.v[i] - vhat;
   real sq = t.ru * t.ru + t.rv * t.rv;
   t.has_ur = false;
   t.rr = 0.0;
@@ -133,11 +162,39 @@ __device__ __forceinline__ Terms point_terms(const real (&pose)[12],
   return t;
 }
 
+// The KB8 projection's 2x3 Jacobian d(u, v) / d(pc) (kb8_project_jac).
+__device__ __forceinline__ void kb8_jacobian(const Cam& c, real x, real y,
+                                             real z, real (&du)[3],
+                                             real (&dv)[3]) {
+  const real r2 = x * x + y * y;
+  const real r = sqrt(r2 < 1e-12 ? 1e-12 : r2);
+  const real r3 = r2 * r;
+  const real th = atan2(r, z);
+  const real th2 = th * th;
+  const real th4 = th2 * th2;
+  const real th6 = th4 * th2;
+  const real th8 = th4 * th4;
+  const real f = th * (1.0 + c.k0 * th2 + c.k1 * th4 + c.k2 * th6 +
+                       c.k3 * th8);
+  const real fp = 1.0 + 3 * c.k0 * th2 + 5 * c.k1 * th4 + 7 * c.k2 * th6 +
+                  9 * c.k3 * th8;
+  const real norm2 = r2 + z * z;
+  const real dth_dx = x * z / (norm2 * r);
+  const real dth_dy = y * z / (norm2 * r);
+  const real dth_dz = -r / norm2;
+  du[0] = c.fx * (fp * dth_dx * x / r + f * y * y / r3);
+  du[1] = c.fx * (fp * dth_dy * x / r - f * x * y / r3);
+  du[2] = c.fx * fp * dth_dz * x / r;
+  dv[0] = c.fy * (fp * dth_dx * y / r - f * x * y / r3);
+  dv[1] = c.fy * (fp * dth_dy * y / r + f * x * x / r3);
+  dv[2] = c.fy * fp * dth_dz * y / r;
+}
+
 // One pass of warps 1.. over the points at `pose_s` (shared): the masked
 // points' 21 H and 6 g terms and Huber cost, summed into v[0..27] per
 // thread (warp 0 adds nothing). REMARK first re-marks each point's inlier
 // flag from its chi2 at this pose.
-template <bool REMARK, bool STEREO>
+template <bool REMARK, bool STEREO, bool KB8>
 __device__ __forceinline__ void normal_pass(const real* pose_s, const Cam& cam,
                                             const Points& s, int n, real bf,
                                             bool robust, real (&v)[32]) {
@@ -149,7 +206,7 @@ __device__ __forceinline__ void normal_pass(const real* pose_s, const Cam& cam,
   if (threadIdx.x < 32) return;
 #pragma unroll 2
   for (int i = threadIdx.x - 32; i < n; i += kWorkers) {
-    const Terms t = point_terms<STEREO>(pose, cam, s, i, bf);
+    const Terms t = point_terms<STEREO, KB8>(pose, cam, s, i, bf);
     unsigned char f = s.flag[i];
     if (REMARK) {
       const real chi2 = t.depth_ok ? t.chi2 : kFar;
@@ -173,12 +230,35 @@ __device__ __forceinline__ void normal_pass(const real* pose_s, const Cam& cam,
     const real px = use ? t.pcx : 0.0, py = use ? t.pcy : 0.0;
     const real pz = use ? t.pcz : 0.0;
     const real ru = use ? t.ru : 0.0, rv = use ? t.rv : 0.0;
-    const real a = cam.fx * iz;
-    const real b = -cam.fx * px * iz * iz;
-    const real c = cam.fy * iz;
-    const real d = -cam.fy * py * iz * iz;
-    const real ju[6] = {-a, 0.0, -b, -(b * py), -(a * pz - b * px), a * py};
-    const real jv[6] = {0.0, -c, -d, -(-c * pz + d * py), d * px, -c * px};
+    real ju[6], jv[6];
+    if constexpr (KB8) {
+      // J = -d(u, v)/d(pc) [I | -skew(pc)] at the point itself; zeros
+      // (selected, not multiplied) outside the mask.
+      real du[3], dv[3];
+      kb8_jacobian(cam, t.pcx, t.pcy, t.pcz, du, dv);
+      const real x = t.pcx, y = t.pcy, z = t.pcz;
+      const real u6[6] = {-du[0], -du[1], -du[2], -(-du[1] * z + du[2] * y),
+                          -(du[0] * z - du[2] * x), -(-du[0] * y + du[1] * x)};
+      const real v6[6] = {-dv[0], -dv[1], -dv[2], -(-dv[1] * z + dv[2] * y),
+                          -(dv[0] * z - dv[2] * x), -(-dv[0] * y + dv[1] * x)};
+#pragma unroll
+      for (int r = 0; r < 6; ++r) {
+        ju[r] = use ? u6[r] : 0.0;
+        jv[r] = use ? v6[r] : 0.0;
+      }
+    } else {
+      const real a = cam.fx * iz;
+      const real b = -cam.fx * px * iz * iz;
+      const real c = cam.fy * iz;
+      const real d = -cam.fy * py * iz * iz;
+      const real u6[6] = {-a, 0.0, -b, -(b * py), -(a * pz - b * px), a * py};
+      const real v6[6] = {0.0, -c, -d, -(-c * pz + d * py), d * px, -c * px};
+#pragma unroll
+      for (int r = 0; r < 6; ++r) {
+        ju[r] = u6[r];
+        jv[r] = v6[r];
+      }
+    }
     int k = 0;
     if (STEREO) {
       // The third row, J_u - (0, 0, e, e y, -e x, 0) with e = bf / z^2;
@@ -385,7 +465,7 @@ __device__ __forceinline__ void propose(const State& st, float lam,
   }
 }
 
-template <bool STEREO>
+template <bool STEREO, bool KB8>
 __global__ void __launch_bounds__(kThreads)
 pose_opt_kernel(const float* __restrict__ R0, const float* __restrict__ t0,
                 const float* __restrict__ cam_params,
@@ -408,7 +488,9 @@ pose_opt_kernel(const float* __restrict__ R0, const float* __restrict__ t0,
                     s_dyn + 4 * n, s_dyn + 5 * n, s_dyn + 6 * n,
                     reinterpret_cast<unsigned char*>(s_dyn + n_arrays * n)};
   const Cam cam = {cam_params[0], cam_params[1], cam_params[2],
-                   cam_params[3]};
+                   cam_params[3], KB8 ? cam_params[4] : 0.0f,
+                   KB8 ? cam_params[5] : 0.0f, KB8 ? cam_params[6] : 0.0f,
+                   KB8 ? cam_params[7] : 0.0f};
   pts += b * n * 3;
   obs += b * n * 2;
   inv_s2 += b * n;
@@ -434,9 +516,9 @@ pose_opt_kernel(const float* __restrict__ R0, const float* __restrict__ t0,
     // The round's first pass, at the accepted pose: cost0, H and g. From
     // round 1 on it first re-marks the inliers at that pose.
     if (rnd == 0)
-      normal_pass<false, STEREO>(st.P, cam, s, n, bf, robust, v);
+      normal_pass<false, STEREO, KB8>(st.P, cam, s, n, bf, robust, v);
     else
-      normal_pass<true, STEREO>(st.P, cam, s, n, bf, robust, v);
+      normal_pass<true, STEREO, KB8>(st.P, cam, s, n, bf, robust, v);
     block_partials(v, s_warp);
     if (warp0) {
       const real x = block_total(s_warp);
@@ -453,7 +535,7 @@ pose_opt_kernel(const float* __restrict__ R0, const float* __restrict__ t0,
       // The candidate's pass; meanwhile warp 0 solves for the step that
       // follows a rejection.
       if (warp0 && more) propose(st, st.lam * 10.0f, st.R);
-      normal_pass<false, STEREO>(st.C, cam, s, n, bf, robust, v);
+      normal_pass<false, STEREO, KB8>(st.C, cam, s, n, bf, robust, v);
       block_partials(v, s_warp);
       if (warp0) {
         const real x = block_total(s_warp);
@@ -481,7 +563,7 @@ pose_opt_kernel(const float* __restrict__ R0, const float* __restrict__ t0,
 #pragma unroll
   for (int q = 0; q < 12; ++q) pose[q] = st.P[q];
   for (int i = tid; i < n; i += kThreads) {
-    const Terms t = point_terms<STEREO>(pose, cam, s, i, bf);
+    const Terms t = point_terms<STEREO, KB8>(pose, cam, s, i, bf);
     chi2_out[i] = t.depth_ok ? t.chi2 : kFar;
   }
   if (tid < 9) R_out[b * 9 + tid] = st.P[tid];
@@ -496,25 +578,47 @@ int max_points() {
   return (232448 - kStaticSmem) / point_bytes<STEREO>();
 }
 
-template <bool STEREO>
-int launch(const float* R0, const float* t0, const float* cam_params,
-           const float* pts, const float* obs, const float* obs_ur, float bf,
-           const float* inv_s2, const bool* valid, int b, int n,
-           int n_rounds, int n_iters, float* R_out, float* t_out,
-           float* chi2_out, cudaStream_t stream) {
+template <bool STEREO, bool KB8>
+int launch_model(const float* R0, const float* t0, const float* cam_params,
+                 const float* pts, const float* obs, const float* obs_ur,
+                 float bf, const float* inv_s2, const bool* valid, int b,
+                 int n, int n_rounds, int n_iters, float* R_out, float* t_out,
+                 float* chi2_out, cudaStream_t stream) {
   if (b <= 0) return (int)cudaSuccess;
   if (n < 0 || n > max_points<STEREO>()) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)n * point_bytes<STEREO>();
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        pose_opt_kernel<STEREO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        pose_opt_kernel<STEREO, KB8>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  pose_opt_kernel<STEREO><<<b, kThreads, smem, stream>>>(
+  pose_opt_kernel<STEREO, KB8><<<b, kThreads, smem, stream>>>(
       R0, t0, cam_params, pts, obs, obs_ur, bf, inv_s2, valid, n, n_rounds,
       n_iters, R_out, t_out, chi2_out);
   return (int)cudaGetLastError();
+}
+
+// The camera models of ops/camera.py.
+constexpr int kPinhole = 0, kKb8 = 1;
+
+template <bool STEREO>
+int launch(const float* R0, const float* t0, const float* cam_params,
+           const float* pts, const float* obs, const float* obs_ur, float bf,
+           const float* inv_s2, const bool* valid, int b, int n,
+           int n_rounds, int n_iters, float* R_out, float* t_out,
+           float* chi2_out, int model_id, cudaStream_t stream) {
+  if (model_id == kPinhole)
+    return launch_model<STEREO, false>(R0, t0, cam_params, pts, obs, obs_ur,
+                                       bf, inv_s2, valid, b, n, n_rounds,
+                                       n_iters, R_out, t_out, chi2_out,
+                                       stream);
+  if (model_id == kKb8)
+    return launch_model<STEREO, true>(R0, t0, cam_params, pts, obs, obs_ur,
+                                      bf, inv_s2, valid, b, n, n_rounds,
+                                      n_iters, R_out, t_out, chi2_out,
+                                      stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -525,26 +629,29 @@ extern "C" int pose_max_points() { return max_points<false>(); }
 
 extern "C" int pose_max_points_stereo() { return max_points<true>(); }
 
+// model_id: 0 the pinhole (cam_params fx, fy, cx, cy), 1 KB8 (fx, fy, cx,
+// cy, k0, k1, k2, k3).
 extern "C" int pose_optimization(const float* R0, const float* t0,
                                  const float* cam_params, const float* pts,
                                  const float* obs, const float* inv_s2,
                                  const bool* valid, int b, int n, int n_rounds,
                                  int n_iters, float* R_out, float* t_out,
-                                 float* chi2_out, cudaStream_t stream) {
+                                 float* chi2_out, int model_id,
+                                 cudaStream_t stream) {
   return launch<false>(R0, t0, cam_params, pts, obs, nullptr, 0.0f, inv_s2,
                        valid, b, n, n_rounds, n_iters, R_out, t_out, chi2_out,
-                       stream);
+                       model_id, stream);
 }
 
 extern "C" int pose_optimization_stereo(
     const float* R0, const float* t0, const float* cam_params,
     const float* pts, const float* obs, const float* obs_ur, float bf,
     const float* inv_s2, const bool* valid, int b, int n, int n_rounds,
-    int n_iters, float* R_out, float* t_out, float* chi2_out,
+    int n_iters, float* R_out, float* t_out, float* chi2_out, int model_id,
     cudaStream_t stream) {
   return launch<true>(R0, t0, cam_params, pts, obs, obs_ur, bf, inv_s2,
                       valid, b, n, n_rounds, n_iters, R_out, t_out, chi2_out,
-                      stream);
+                      model_id, stream);
 }
 
 extern "C" const char* kernel_error_string(int err) {

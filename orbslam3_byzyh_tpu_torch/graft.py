@@ -2726,7 +2726,7 @@ def reloc_run_gates(cell: str, statuses, maps, n_maps: int, n_kf_before: int,
 def loop_closing_step(state, lc, kf_id: int, n_kf: int, cam_params, *,
                       kf_parent=None, cfg: MonoConfig = EUROC_MONO,
                       gba: str = "inline", bg=None, ba_kwargs=None,
-                      stage=_no_stage):
+                      mesh=None, stage=_no_stage):
     """The device half of ``MonoSlam._run_loop_closing`` for keyframe
     ``kf_id`` (LoopClosing): ``lc.detect`` (the database's candidates,
     each candidate's verification ladder: K2 twice in window mode over
@@ -2740,6 +2740,7 @@ def loop_closing_step(state, lc, kf_id: int, n_kf: int, cam_params, *,
     ``lc``: a ``LoopCloser`` holding the map's database; ``kf_parent``:
     the spanning tree (host numpy, -1 = root; the temporal chain without
     one); ``ba_kwargs``: the stereo rows' ``use_stereo`` and ``bf``;
+    ``mesh``: the inline GBA's device mesh (``parallel.dist_ba``);
     ``stage(name)``: the caller's stage timer ("loop_detect",
     "loop_correct", "global_ba"). Returns (state, info): ``info`` holds the query, the candidates, each
     tried candidate's stage counts (``tried``), the streak's count,
@@ -2766,7 +2767,7 @@ def loop_closing_step(state, lc, kf_id: int, n_kf: int, cam_params, *,
                                         float(cfg.width), float(cfg.height))
     if gba == "inline":
         with stage("global_ba"):
-            state = mapping.global_ba(state, cam_params, **kw)
+            state = mapping.global_ba(state, cam_params, mesh=mesh, **kw)
     elif gba == "background":
         bg.start(state, n_kf, cam_params,
                  use_stereo=bool(kw.get("use_stereo")),
@@ -3015,7 +3016,8 @@ MERGE_CPU_SLOTS = dict(max_kf=64, max_lm=8192)
 
 
 def merge_maps(atlas, lc, kf_id: int, other_idx: int, corr, cam_params, *,
-               cfg: MonoConfig = EUROC_MONO, ba_kwargs=None) -> dict:
+               cfg: MonoConfig = EUROC_MONO, ba_kwargs=None,
+               mesh=None) -> dict:
     """The device half of ``MonoSlam._merge_maps`` (MergeLocal): weld atlas
     map ``other_idx`` into the current one at its keyframe ``kf_id``.
 
@@ -3025,7 +3027,8 @@ def merge_maps(atlas, lc, kf_id: int, other_idx: int, corr, cam_params, *,
     spanning-tree root attached to ``kf_id``; ``lc.on_maps_merged`` (the
     databases, the loop edges, the transplanted keyframes' BoW in one
     ``add_range``); ``fuse_duplicates`` at ``kf_id`` (K2's window mode over
-    every landmark slot); then the global BA when the merged map holds 64
+    every landmark slot); then the global BA (sharded over ``mesh``, a
+    ``parallel.dist_ba`` mesh, when given) when the merged map holds 64
     keyframes or fewer, else the covisibility-windowed BA around ``kf_id``
     with ``max(cfg.local_window + 1, 12)`` free keyframes. No host read.
     Returns ``info``: the inverse Sim3 (``R_i``, ``t_i``, ``s_i``, numpy
@@ -3053,7 +3056,7 @@ def merge_maps(atlas, lc, kf_id: int, other_idx: int, corr, cam_params, *,
     # window's local BA (Optimizer.cc:5195); the weld already moved the
     # whole other map rigidly, so no pose graph follows.
     if kf_hi <= 64:
-        state = mapping.global_ba(state, cam_params, **kw)
+        state = mapping.global_ba(state, cam_params, mesh=mesh, **kw)
         ba = "global"
     else:
         state = mapping.windowed_local_ba(
@@ -4140,3 +4143,217 @@ RUNNER_JAX_ATE_GATE_M = 1.5 * RUNNER_JAX["ate_m"] + 0.002
 RUNNER_INIT_FRAMES = {"euroc_mono": 4, "euroc_mono_inertial": None,
                       "kitti": 0, "tum_rgbd": 0, "tumvi": None}
 RUNNER_TWO_VIEW = ("euroc_mono", "euroc_mono_inertial")
+
+
+# --- Multi-device ------------------------------------------------------------
+
+def make_tiny_map_state(n_kf: int = 6, n_lm: int = 64, max_obs: int = 4,
+                        stereo_bf: float = 80.0, device=None):
+    """The JAX package's ``graft.make_tiny_map_state`` (the same numpy
+    draws, so the same map): a small consistent map, ``n_kf`` keyframes
+    along x each observing every landmark with its stereo row (keypoint
+    ``l`` of each keyframe is landmark ``l``'s), for driving the production
+    global BA through a device mesh. Returns (state, cam_params,
+    stereo_bf) on ``device``."""
+    dev = device_mod.resolve(device)
+    rng = np.random.default_rng(0)
+    fx = fy = 400.0
+    cx, cy = 320.0, 240.0
+    cam_params = np.array([fx, fy, cx, cy], np.float32)
+    X = np.stack([rng.uniform(-2, 2, n_lm), rng.uniform(-2, 2, n_lm),
+                  rng.uniform(4, 8, n_lm)], -1).astype(np.float32)
+    Rs = np.tile(np.eye(3, dtype=np.float32), (n_kf, 1, 1))
+    ts = np.stack([np.array([-0.3 * k, 0.02 * k, 0], np.float32)
+                   for k in range(n_kf)])
+    kp_xy = np.zeros((n_kf, n_lm, 2), np.float32)
+    kp_ur = np.full((n_kf, n_lm), -1.0, np.float32)
+    for k in range(n_kf):
+        pc = X @ Rs[k].T + ts[k]
+        u = fx * pc[:, 0] / pc[:, 2] + cx + rng.normal(0, 0.5, n_lm)
+        v = fy * pc[:, 1] / pc[:, 2] + cy + rng.normal(0, 0.5, n_lm)
+        kp_xy[k] = np.stack([u, v], -1)
+        kp_ur[k] = u - stereo_bf / pc[:, 2]
+    n_seen = min(n_kf, max_obs)
+    obs_kf = np.full((n_lm, max_obs), -1, np.int32)
+    obs_kf[:, :n_seen] = np.arange(n_seen, dtype=np.int32)
+    obs_kp = np.full((n_lm, max_obs), -1, np.int32)
+    obs_kp[:, :n_seen] = np.arange(n_lm, dtype=np.int32)[:, None]
+    pos = X + rng.normal(0, 0.01, X.shape).astype(np.float32)
+    state = ms.empty_map(n_kf, n_lm, max_obs, n_lm, device=dev)
+    up = lambda a: device_mod.upload(a, dev)  # noqa: E731
+    kfs = state.kfs._replace(
+        R=up(Rs), t=up(ts), kp_xy=up(kp_xy), kp_ur=up(kp_ur),
+        kp_valid=torch.ones((n_kf, n_lm), dtype=torch.bool, device=dev),
+        valid=torch.ones((n_kf,), dtype=torch.bool, device=dev))
+    lms = state.lms._replace(
+        pos=up(pos),
+        n_obs=torch.full((n_lm,), n_seen, dtype=torch.int32, device=dev),
+        valid=torch.ones((n_lm,), dtype=torch.bool, device=dev))
+    obs = state.obs._replace(kf=up(obs_kf), kp=up(obs_kp),
+                             valid=up(obs_kf >= 0))
+    return (ms.MapState(kfs=kfs, lms=lms, obs=obs), up(cam_params),
+            stereo_bf)
+
+
+def dryrun_multichip(n_shards: int, devices=None):
+    """The port's ``__graft_entry__.dryrun_multichip``: the map refinement
+    through the production entry points over an ``n_shards`` mesh, once on
+    a tiny map. ``mapping.global_ba(..., mesh=)`` (the call the systems
+    make after a loop closure or a merge) runs the landmark-sharded BA with
+    stereo rows, then the edge-sharded pose graph (``dist_posegraph``)
+    runs 2 iterations over the refined keyframes' chain. ``devices``:
+    the mesh's devices (default: the cards in turn, repeated up to
+    ``n_shards``). Raises on a non-finite result; returns (the refined
+    state, the pose graph's result)."""
+    from .parallel import dist_ba, dist_posegraph
+    from .solver import pose_graph
+
+    if devices is None:
+        n = torch.cuda.device_count()
+        device_mod.resolve(None)
+        devices = [f"cuda:{i % n}" for i in range(n_shards)]
+    mesh = dist_ba.make_mesh(n_shards, devices)
+    n_lm = max(64, n_shards * 16)
+    state, cam_params, bf = make_tiny_map_state(n_kf=6, n_lm=n_lm,
+                                                device=mesh.devices[0])
+    state2 = mapping.global_ba(state, cam_params, use_stereo=True, bf=bf,
+                               mesh=mesh)
+    finite = torch.stack([torch.isfinite(state2.kfs.R).all(),
+                          torch.isfinite(state2.lms.pos).all()])
+    if not bool(finite.all()):
+        raise RuntimeError("dryrun_multichip: the sharded global BA is not "
+                           "finite")
+    kfs = state2.kfs
+    n_kf = kfs.R.shape[0]
+    dev = kfs.R.device
+    ei = torch.arange(1, n_kf, dtype=torch.int32, device=dev)
+    ej = ei - 1
+    mR = torch.einsum("kij,klj->kil", kfs.R[1:], kfs.R[:-1])
+    mt = kfs.t[1:] - torch.einsum("kij,kj->ki", mR, kfs.t[:-1])
+    ones = torch.ones(n_kf - 1, device=dev)
+    padded = dist_posegraph.pad_edges(ei, ej, mR, mt, ones, ones, n_shards)
+    fixed = torch.arange(n_kf, device=dev) == 0
+    res = dist_posegraph.dist_optimize_pose_graph(
+        kfs.R, kfs.t, torch.ones(n_kf, device=dev), *padded, fixed,
+        pose_graph.DOF_SE3, mesh=mesh, n_iters=2)
+    if not float(res.cost) >= 0.0:
+        raise RuntimeError(f"dryrun_multichip: pose-graph cost {res.cost}")
+    return state2, res
+
+
+# --- Native KB8 pose optimization (K3 and K3s with model_id KB8) -------------
+
+# TUM-VI 512's left camera (configs/TUM-VI_512_stereo_inertial.yaml; the
+# KB8 study's, tests/test_kb8_ab.py, to 8 digits): fx, fy, cx, cy, k0..k3
+# in float32.
+TUMVI_KB8_PARAMS = np.array(TUMVI_CAM1 + TUMVI_KB8_1, np.float32)
+
+
+def kb8_scene(rng, n_pts: int = 256, max_angle_deg: float = 85.0):
+    """``tests/test_kb8_ab.make_scene`` (the same draws): points spread out
+    to ``max_angle_deg`` of field angle at 2-8 m, and the true pose.
+    Returns (pw, pc, R, t), float32."""
+    ang = np.deg2rad(rng.uniform(0, max_angle_deg, n_pts))
+    psi = rng.uniform(0, 2 * np.pi, n_pts)
+    depth = rng.uniform(2.0, 8.0, n_pts)
+    d = np.stack([np.sin(ang) * np.cos(psi), np.sin(ang) * np.sin(psi),
+                  np.cos(ang)], -1)
+    pc = d * depth[:, None]
+    R = _rodrigues(rng.normal(0, 0.03, 3))
+    t = rng.normal(0, 0.05, 3)
+    pw = (pc - t) @ R
+    return (pw.astype(np.float32), pc.astype(np.float32),
+            R.astype(np.float32), t.astype(np.float32))
+
+
+def kb8_ab_study(rng, noise_px: float = 0.5, n_trials: int = 24,
+                 max_angle_deg: float = 85.0, device=None) -> dict:
+    """``tests/test_kb8_ab.run_ab`` on the port: per trial a
+    :func:`kb8_scene`, isotropic noise in the raw fisheye pixels, and the
+    motion-only pose from a perturbed start (A) on the observations
+    rectified onto the virtual pinhole (the camera's fx, fy, cx, cy) and
+    (B) natively on the raw ones with the KB8 camera
+    (:data:`TUMVI_KB8_PARAMS`; K3 with model_id KB8 on the card: one launch
+    a trial). Returns each trial's translations and errors against the
+    truth, and the medians the study gates."""
+    from .solver import pose_opt
+
+    dev = device_mod.resolve(device)
+    up = lambda a: device_mod.upload(np.asarray(a), dev)  # noqa: E731
+    kb8 = up(TUMVI_KB8_PARAMS)
+    pin = up(TUMVI_KB8_PARAMS[:4])
+    t_rect, t_nat, e_rect, e_nat = [], [], [], []
+    for _ in range(n_trials):
+        pw, pc, R, t = kb8_scene(rng, max_angle_deg=max_angle_deg)
+        uv = convert.to_numpy(cam.kb8_project(kb8, up(pc)))
+        uv = (uv + rng.normal(0, noise_px, uv.shape)).astype(np.float32)
+        ray = cam.kb8_unproject(kb8, up(uv))
+        uv_rect = cam.pinhole_project(pin, ray)
+        R0 = (_rodrigues(rng.normal(0, 0.02, 3)) @ R).astype(np.float32)
+        t0 = (t + rng.normal(0, 0.05, 3)).astype(np.float32)
+        valid = torch.ones(pw.shape[0], dtype=torch.bool, device=dev)
+        w = torch.ones(pw.shape[0], device=dev)
+        res_a = pose_opt.pose_optimization(
+            up(R0), up(t0), up(pw), uv_rect, w, valid, pin,
+            model_id=cam.PINHOLE)
+        res_b = pose_opt.pose_optimization(
+            up(R0), up(t0), up(pw), up(uv), w, valid, kb8,
+            model_id=cam.KB8)
+        ta, tb = (convert.to_numpy(x) for x in (res_a.t, res_b.t))
+        t_rect.append(ta)
+        t_nat.append(tb)
+        e_rect.append(float(np.linalg.norm(ta - t)))
+        e_nat.append(float(np.linalg.norm(tb - t)))
+    return dict(t_rect=t_rect, t_native=t_nat, err_rect=e_rect,
+                err_native=e_nat, med_rect=float(np.median(e_rect)),
+                med_native=float(np.median(e_nat)))
+
+
+def kb8_ab_gates(wide: dict, moderate: dict) -> dict:
+    """``tests/test_kb8_ab.py``'s gates (:87-101): at 85 degrees both
+    solve the pose (native < 0.02 m, rectified < 0.03 m) and the native
+    residuals are no worse than 2 x the rectified + 1 mm; at 50 degrees the
+    two agree within half the native error (1 mm at least)."""
+    a, b = wide["med_rect"], wide["med_native"]
+    c, d = moderate["med_rect"], moderate["med_native"]
+    out = dict(wide_native_ok=b < 0.02, wide_rect_ok=a < 0.03,
+               wide_ratio_ok=a < 2.0 * b + 1e-3,
+               moderate_ok=abs(c - d) < 0.5 * max(d, 1e-3))
+    out["ok"] = all(out.values())
+    return out
+
+
+def kb8_pose_problem(n_pts: int = 1000, stereo: bool = False,
+                     seed: int = 0) -> tuple:
+    """A motion-only pose problem for K3 (or K3s with ``stereo``) with
+    TUM-VI 512's KB8 camera: :func:`kb8_scene`'s points out to 85 degrees,
+    pyramid levels 0-7 with their noise (0.7 px x 1.2^level), 10 %
+    outliers (20-60 px off), 5 % invalid rows, a start 0.02 rad / 5 cm
+    off; with ``stereo``, 40 % of the rows carry the right-image u =
+    u - bf / z (TUM-VI's bf) with 0.7 px of noise. Returns the kernel's
+    arguments as numpy arrays: (R0, t0, pts, uv, inv_s2, valid, cam) or
+    (R0, t0, pts, uv, ur, bf, inv_s2, valid, cam)."""
+    rng = np.random.default_rng(seed)
+    pw, pc, R, t = kb8_scene(rng, n_pts, 85.0)
+    params = torch.from_numpy(TUMVI_KB8_PARAMS)
+    uv = cam.kb8_project(params, torch.from_numpy(pc)).numpy().astype(
+        np.float64)
+    level = rng.integers(0, 8, n_pts)
+    sigma = 0.7 * 1.2 ** level
+    uv += rng.normal(0, 1.0, uv.shape) * sigma[:, None]
+    out = rng.random(n_pts) < 0.1
+    uv[out] += rng.uniform(20, 60, (int(out.sum()), 2)) * rng.choice(
+        [-1, 1], (int(out.sum()), 2))
+    valid = rng.random(n_pts) >= 0.05
+    inv_s2 = (1.0 / 1.2 ** (2 * level)).astype(np.float32)
+    R0 = (_rodrigues(rng.normal(0, 0.02, 3)) @ R).astype(np.float32)
+    t0 = (t + rng.normal(0, 0.05, 3)).astype(np.float32)
+    uv = uv.astype(np.float32)
+    if not stereo:
+        return R0, t0, pw, uv, inv_s2, valid, TUMVI_KB8_PARAMS.copy()
+    bf = TUMVI_512_STEREO_INERTIAL.rig.bf
+    ur = np.where(rng.random(n_pts) < 0.4,
+                  uv[:, 0] - bf / pc[:, 2] + rng.normal(0, 0.7, n_pts),
+                  -1.0).astype(np.float32)
+    return (R0, t0, pw, uv, ur, float(bf), inv_s2, valid,
+            TUMVI_KB8_PARAMS.copy())

@@ -27,8 +27,10 @@ The two ``cv2.imread`` modes the JAX loaders use:
 * :func:`read_unchanged` (``IMREAD_UNCHANGED``) for grey files: uint8 or
   uint16 as stored.
 
-:func:`write_png` writes grey 8 or 16 with the Sub filter on every row, as
-``cv2.imwrite`` does by default (or any of the five filters on each row).
+:func:`write_png` writes grey 8 or 16, or 8-bit RGB (the viewer's
+renders), with the Sub filter on every row, as ``cv2.imwrite`` does by
+default (or any of the five filters on each row); :func:`read_rgb` reads
+an RGB file back as it is.
 """
 
 from __future__ import annotations
@@ -216,6 +218,14 @@ def read_unchanged(path: str) -> np.ndarray:
     return samples_plain(inf, unfilter_plain(inf))
 
 
+def read_rgb(path: str) -> np.ndarray:
+    """An 8-bit RGB file's (h, w, 3) uint8 samples as stored."""
+    inf = inflate(path)
+    if inf.mode != RGB8:
+        _fail(path, "read_rgb takes 8-bit RGB files only")
+    return unfilter_plain(inf).reshape(inf.height, inf.width, 3)
+
+
 def read_grey(path: str) -> np.ndarray:
     """``cv2.imread(path, IMREAD_GRAYSCALE).astype(np.float32)``."""
     inf = inflate(path)
@@ -253,17 +263,22 @@ def filter_rows(by: np.ndarray, bpp: int, filters) -> np.ndarray:
 def write_png(path: str, image: np.ndarray, level: int = 6,
               filters=(1,)) -> None:
     """Write a (h, w) uint8 or uint16 array as a grey PNG of bit depth 8 or
-    16, every row with the Sub filter (``cv2.imwrite``'s default), or row r
+    16, or a (h, w, 3) uint8 array as an 8-bit RGB PNG (colour type 2),
+    every row with the Sub filter (``cv2.imwrite``'s default), or row r
     with ``filters[r % len(filters)]``."""
     a = np.asarray(image)
-    if a.ndim != 2 or a.dtype not in (np.uint8, np.uint16) or 0 in a.shape:
+    rgb = a.ndim == 3 and a.shape[2] == 3 and a.dtype == np.uint8
+    if (not rgb and (a.ndim != 2 or a.dtype not in (np.uint8, np.uint16))
+            or 0 in a.shape):
         raise ValueError(f"{path}: write_png takes a non-empty (h, w) uint8 "
-                         f"or uint16 array, got {a.dtype} {a.shape}")
-    h, w = a.shape
+                         f"or uint16 array or an (h, w, 3) uint8 one, got "
+                         f"{a.dtype} {a.shape}")
+    h, w = a.shape[:2]
     depth = 8 if a.dtype == np.uint8 else 16
     by = (a if depth == 8 else a.astype(">u2")).view(np.uint8).reshape(h, -1)
-    rows = filter_rows(by, depth // 8, filters)
-    ihdr = struct.pack(">IIBBBBB", w, h, depth, 0, 0, 0, 0)
+    bpp = 3 if rgb else depth // 8
+    rows = filter_rows(by, bpp, filters)
+    ihdr = struct.pack(">IIBBBBB", w, h, depth, 2 if rgb else 0, 0, 0, 0)
     with open(path, "wb") as f:
         f.write(SIGNATURE + _chunk(b"IHDR", ihdr)
                 + _chunk(b"IDAT", zlib.compress(rows.tobytes(), level))

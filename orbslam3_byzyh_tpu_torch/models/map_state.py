@@ -245,7 +245,7 @@ def covisibility_counts(state: MapState, kf_id, max_kf: int) -> torch.Tensor:
     return counts[:max_kf]
 
 
-def covisibility_matrix(state: MapState) -> torch.Tensor:
+def covisibility_matrix(state: MapState, lm_valid=None) -> torch.Tensor:
     """(K, K) int32 pairwise shared-landmark counts, zero on the diagonal
     (the JAX package's ``covisibility_matrix``, which builds an (L, K)
     one-hot indicator and multiplies it by itself: 137 GFLOP at 65536 x
@@ -253,11 +253,14 @@ def covisibility_matrix(state: MapState) -> torch.Tensor:
     pair of distinct keyframes among its observations: one ``index_add_``
     of L x O x O cells (9.4 M at 65536 x 12 x 12). A keyframe that
     observes a landmark twice counts once, as the indicator's min(., 1)
-    makes it."""
+    makes it. ``lm_valid`` (L,): the landmarks that count (by default the
+    live ones)."""
     K = state.kfs.valid.shape[0]
     kf, L, O = state.obs.kf, *state.obs.kf.shape
     dev = kf.device
-    ov = state.obs.valid & (kf >= 0) & state.lms.valid[:, None]
+    if lm_valid is None:
+        lm_valid = state.lms.valid
+    ov = state.obs.valid & (kf >= 0) & lm_valid[:, None]
     same = (kf[:, :, None] == kf[:, None, :]) & ov[:, None, :]
     earlier = torch.ones(O, O, dtype=torch.bool, device=dev).tril(-1)
     first = ov & ~(same & earlier).any(-1)         # first slot of each kf

@@ -9,7 +9,7 @@ full-map BA the monocular initialisation runs (``local_ba``, with the
 scatter Schur assembly), and the redundancy-cull candidate the system's
 forced culling ranks by (``cull_candidate``). With ``use_stereo`` the BAs
 add the keypoints' stereo rows (``kp_ur``, baseline x fx ``bf``). The
-global BA waits for loop closing.
+global BA (``global_ba``) may shard its landmarks over a device mesh.
 
 Every function returns a new state and writes into none of its inputs. The
 JAX package's drop-mode scatters write a padded spare row that is sliced
@@ -34,6 +34,7 @@ from ..models import map_state as ms
 from ..ops import camera as cam
 from ..ops import geometry, lie, matching
 from ..solver import ba
+from ..utils import verbose
 from .tracking import SCALE, SIGMA2, _inv_sigma2_on
 
 _INT32_MAX = 2 ** 31 - 1
@@ -92,12 +93,12 @@ def triangulate_pair(Ra, ta, xy_a, level_a, desc_a, free_a,
     keyframes. Only free keypoints (not bound to a landmark) take part. A
     match is good with positive depth in both views, reprojection chi2 <
     5.991 sigma2(level) in both, a view-distance ratio consistent with the
-    levels (within 1.5 x 1.2), parallax cos < 0.9998 and a finite point."""
-    if model_id != cam.PINHOLE:
-        raise NotImplementedError(
-            f"triangulate_pair: camera model {model_id}: only PINHOLE (the "
-            "systems rectify at extraction); native KB8 waits for ROADMAP "
-            "item 10c")
+    levels (within 1.5 x 1.2), parallax cos < 0.9998 and a finite point.
+
+    ``model_id`` is not read, as in the JAX function (a fault of the
+    reference kept for parity, ROADMAP section 3): a KB8 keyframe's pixels
+    go through the pinhole fundamental matrix and DLT of its first four
+    parameters, on straight epipolar lines."""
     dev = xy_a.device
     inv_s2 = _inv_sigma2_on(dev)
     F12 = fundamental_from_poses(Ra, ta, Rb, tb, cam_params)
@@ -204,17 +205,35 @@ def global_ba(state: ms.MapState, cam_params, model_id: int = cam.PINHOLE,
               mesh=None) -> ms.MapState:
     """Full bundle adjustment (RunGlobalBundleAdjustment ->
     GlobalBundleAdjustemnt): every live keyframe free but the gauge anchor,
-    keyframe 0, on :func:`local_ba` (the scatter Schur assembly). The
-    landmark-sharded form over several devices (``mesh``) waits for
-    ROADMAP item 14."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "global_ba over a device mesh waits for ROADMAP item 14")
+    keyframe 0, on :func:`local_ba` (the scatter Schur assembly).
+
+    ``mesh``: a ``parallel.dist_ba.DeviceMesh`` of the state's device type.
+    The landmark axis is then sharded over its devices and the Schur
+    pieces summed on its first (``dist_ba.dist_bundle_adjust``), with the
+    unsharded semantics; the result comes back to the state's device. When
+    the landmark slots do not split into equal shards the JAX package
+    prints why and runs unsharded, and so does this."""
     kfs = state.kfs
     free = kfs.valid & (torch.arange(kfs.valid.shape[0],
                                      device=kfs.valid.device) != 0)
-    return local_ba(state, free, cam_params, model_id, use_stereo=use_stereo,
-                    bf=bf)
+    if mesh is not None and state.lms.pos.shape[0] % mesh.size != 0:
+        verbose.print_mess(
+            f"global_ba: max_lm={state.lms.pos.shape[0]} not divisible by "
+            f"mesh size {mesh.size}; falling back to single-device BA")
+        mesh = None
+    if mesh is None:
+        return local_ba(state, free, cam_params, model_id,
+                        use_stereo=use_stereo, bf=bf)
+    from ..parallel import dist_ba
+    home = kfs.R.device
+    if any(d.type != home.type for d in mesh.devices):
+        raise ValueError(f"global_ba: a mesh on "
+                         f"{[str(d) for d in mesh.devices]} for a map on "
+                         f"{home}")
+    prob = _full_ba_problem(state, free, cam_params, use_stereo, bf)
+    res = dist_ba.dist_bundle_adjust(dist_ba.shard_problem(prob, mesh), mesh,
+                                     model_id=model_id)
+    return _apply_ba_result(state, ba.BAResult(*(x.to(home) for x in res)))
 
 
 def windowed_local_ba(state: ms.MapState, kf_id, cam_params,

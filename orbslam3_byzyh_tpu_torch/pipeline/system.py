@@ -21,7 +21,9 @@ it also closes loops: each keyframe, once its bundle is read, runs
 ``graft.loop_closing_step``'s pieces (``_run_loop_closing``: detection,
 the essential-graph correction, the duplicate fusion) and a global BA,
 time-sliced in the background (``background_gba``, one LM iteration a
-tracked frame) or inline. While the atlas holds another map, a keyframe
+tracked frame) or inline; an inline or merge GBA shards its landmarks over
+the system's device mesh (``self.mesh``, ``parallel.dist_ba``) when it has
+one. While the atlas holds another map, a keyframe
 that closes no loop mines the other maps (``LoopCloser.detect_merge``) and
 a confirmed common region welds the other map into the active one
 (``_merge_maps``: ``graft.merge_maps``, the device half of
@@ -129,9 +131,9 @@ class SlamConfig:
     min_init_matches: int = 100            # two-view init gate (Tracking.cc:3620)
     triangulation_neighbors: int = 3
     # A vocabulary (``ops.bow.Vocabulary``) enables relocalization and,
-    # with use_loop_closing, loop closing; a device mesh raises until its
-    # ROADMAP item; the rest are kept so that a configuration reads the
-    # same in both packages.
+    # with use_loop_closing, loop closing. Device mesh for the global BA
+    # (parallel/dist_ba): None = every card when the system is on CUDA and
+    # the host has more than one; False = none.
     background_gba: bool = True
     vocabulary: Optional[object] = None    # ops.bow.Vocabulary for reloc/loops
     use_loop_closing: bool = True
@@ -159,12 +161,19 @@ class MonoSlam:
     (``None``: the card; raises without one)."""
 
     def __init__(self, config: SlamConfig, device=None):
-        if config.device_mesh not in (None, False):
-            raise NotImplementedError(
-                "a device mesh (the sharded global BA) waits for ROADMAP "
-                "item 14")
         self.cfg = config
         self.device = device_mod.resolve(device)
+        # The global BA's device mesh (parallel/dist_ba): None = every card
+        # when the system runs on CUDA and the host has more than one;
+        # False = none. The closure's inline GBA and the merge's GBA shard
+        # their landmarks over it; the background GBA does not.
+        self.mesh = config.device_mesh
+        if (self.mesh is None and self.device.type == "cuda"
+                and torch.cuda.device_count() > 1):
+            from ..parallel import dist_ba
+            self.mesh = dist_ba.make_mesh()
+        elif self.mesh is False:
+            self.mesh = None
         self.mcfg = graft.mono_slam_config(config)
         dev = self.device
         self.cam_params = torch.tensor(config.cam_params(), device=dev)
@@ -987,7 +996,8 @@ class MonoSlam:
             self.state, lc, kf_id, self.n_kf, self.cam_params,
             kf_parent=self.kf_parent, cfg=self.mcfg,
             gba="background" if bg is not None else "inline", bg=bg,
-            ba_kwargs=self._ba_kwargs(), **self._stage_kwargs())
+            ba_kwargs=self._ba_kwargs(), mesh=self.mesh,
+            **self._stage_kwargs())
         if info["fired"]:
             # The tracking context follows the corrected map (the close
             # and, inline, the GBA: one re-coordination of both).
@@ -1010,7 +1020,7 @@ class MonoSlam:
         self._gba_abort()
         w = graft.merge_maps(self.atlas, self.loop_closer, kf_id, other_idx,
                              corr, self.cam_params, cfg=self.mcfg,
-                             ba_kwargs=self._ba_kwargs())
+                             ba_kwargs=self._ba_kwargs(), mesh=self.mesh)
         self._traj.transform_frozen(other_idx, w["R_i"], w["t_i"],
                                     w["s_i"], self.atlas.current)
         if self._last is not None:

@@ -25,7 +25,9 @@ rectified_body_extrinsic``); the JAX runner passes the yaml's ``T_b_c1``
 unchanged (``run_euroc_stereo_inertial.py:95-102``), off by R1 (0.62
 degrees on EuRoC).
 
-``--snapshot-every`` raises: the viewer is ROADMAP item 15d.
+``--snapshot-every N`` (the EuRoC runners) writes the map as
+``map_<frame:05d>.png`` every N frames (``utils.viewer.snapshot``, numpy
+and the port's PNG writer: no matplotlib).
 
 Besides ``argv`` each ``main_*`` takes, for a program that calls it:
 ``out_dir`` (where the files go; the working directory by default) and
@@ -76,11 +78,16 @@ def default_vocabulary():
     return str(DEFAULT_VOCABULARY) if DEFAULT_VOCABULARY.exists() else None
 
 
-def _snapshot_guard(args):
-    if getattr(args, "snapshot_every", 0):
-        raise NotImplementedError(
-            "--snapshot-every: the map viewer is not ported yet (ROADMAP "
-            "item 15d)")
+def _after_frame(slam, args, fcount: int, out_dir, snapshots: list):
+    """The JAX runners' per-frame session hooks: localization mode after
+    ``--localization-after`` frames, a map snapshot every
+    ``--snapshot-every`` frames (``map_<fcount:05d>.png`` in ``out_dir``)."""
+    if args.localization_after and fcount == args.localization_after:
+        slam.activate_localization_mode()
+    if args.snapshot_every and fcount % args.snapshot_every == 0:
+        from .utils import viewer
+        snapshots.append(viewer.snapshot(
+            slam, os.path.join(out_dir, f"map_{fcount:05d}.png")))
 
 
 def _vocabulary(args, device):
@@ -198,8 +205,8 @@ def _euroc_args(ap):
 def _session_args(ap):
     ap.add_argument("--no-loop-closing", action="store_true")
     ap.add_argument("--snapshot-every", type=int, default=0,
-                    help="write map_NNNN.png every N frames (offline viewer; "
-                         "not ported: ROADMAP item 15d)")
+                    help="write map_NNNNN.png every N frames (offline "
+                         "viewer)")
     ap.add_argument("--localization-after", type=int, default=0,
                     help="freeze the map after N frames (localization mode)")
 
@@ -232,7 +239,6 @@ def _run_euroc_mono(argv, inertial: bool, out_dir, on_system) -> RunResult:
         ap.add_argument("--clahe", action="store_true")
     _device_arg(ap)
     args = ap.parse_args(argv)
-    _snapshot_guard(args)
 
     from . import device as device_mod
     from .io import euroc, settings
@@ -285,6 +291,7 @@ def _run_euroc_mono(argv, inertial: bool, out_dir, on_system) -> RunResult:
 
     frames = _Frames(dev)
     n_total = fcount = 0
+    snapshots = []
     t_start = time.perf_counter()
     for si, seq_dir in enumerate(args.sequence):
         if si > 0:
@@ -313,9 +320,7 @@ def _run_euroc_mono(argv, inertial: bool, out_dir, on_system) -> RunResult:
                 frames.tracked(t, dt)
                 t_prev = t
                 fcount += 1
-                if (args.localization_after
-                        and fcount == args.localization_after):
-                    slam.activate_localization_mode()
+                _after_frame(slam, args, fcount, out_dir, snapshots)
         finally:
             pf.close()
     wall = time.perf_counter() - t_start
@@ -326,6 +331,7 @@ def _run_euroc_mono(argv, inertial: bool, out_dir, on_system) -> RunResult:
                                  stamp_scale=1e9)
     outputs.append(os.path.join(out_dir, "ExecTimeMean.txt"))
     timers.save(outputs[-1])
+    outputs += snapshots
     if not inertial and cfg_yaml.save_atlas:
         slam.save_atlas_checkpoint(cfg_yaml.save_atlas)
         print(f"saved atlas to {cfg_yaml.save_atlas}")
@@ -364,7 +370,6 @@ def main_euroc_stereo_inertial(argv=None, *, out_dir=None, on_system=None,
     _session_args(ap)
     _device_arg(ap)
     args = ap.parse_args(argv)
-    _snapshot_guard(args)
 
     from . import device as device_mod
     from .io import euroc, rectify, settings
@@ -405,6 +410,7 @@ def main_euroc_stereo_inertial(argv=None, *, out_dir=None, on_system=None,
 
     frames = _Frames(dev)
     n_total = fcount = 0
+    snapshots = []
     t_start = time.perf_counter()
     for si, seq_dir in enumerate(args.sequence):
         if si > 0:
@@ -435,9 +441,7 @@ def main_euroc_stereo_inertial(argv=None, *, out_dir=None, on_system=None,
                 frames.tracked(t, dt)
                 t_prev = t
                 fcount += 1
-                if (args.localization_after
-                        and fcount == args.localization_after):
-                    slam.activate_localization_mode()
+                _after_frame(slam, args, fcount, out_dir, snapshots)
         finally:
             pf.close()
     wall = time.perf_counter() - t_start
@@ -448,6 +452,7 @@ def main_euroc_stereo_inertial(argv=None, *, out_dir=None, on_system=None,
                                  stamp_scale=1e9)
     outputs.append(os.path.join(out_dir, "ExecTimeMean.txt"))
     timers.save(outputs[-1])
+    outputs += snapshots
     return RunResult(slam, timers, n_total, wall, frames.records,
                      frames.device_ms(), rig, T_bc, outputs)
 

@@ -294,46 +294,88 @@ def _retract(R, t, points, dp, dl, fixed):
 _CARRIED = ("Hll", "bl", "W", "Hpp_o", "bp_o")
 
 
-def bundle_adjust(p: BAProblem, model_id: int = cam.PINHOLE,
-                  stages: tuple = (5, 10),
+def sum_on(xs, dev):
+    """The sum of the shards' tensors, on ``dev`` (in shard order)."""
+    out = xs[0].to(dev)
+    for x in xs[1:]:
+        out = out + x.to(dev)
+    return out
+
+
+def bundle_adjust(p, model_id: int = cam.PINHOLE, stages: tuple = (5, 10),
                   assembly=schur_pieces) -> BAResult:
     """Schur-complement LM bundle adjustment. ``stages``: LM iterations per
     stage; between stages the observations are re-classified (chi2 <= 5.991,
     7.815 on a stereo row, and depth > 0.05), and the last stage drops the
     robust kernel. ``assembly``: ``schur_pieces`` or
-    ``schur_pieces_scatter``. Every decision stays on the device."""
-    if p.obs_ur is None:
-        delta2 = lm.CHI2_MONO
-    else:
-        delta2 = torch.where(p.obs_ur >= 0.0, lm.CHI2_STEREO, lm.CHI2_MONO)
-    n_kf = p.R.shape[0]
-    inlier = torch.ones_like(p.obs_valid)
-    R, t, points = p.R, p.t, p.points
+    ``schur_pieces_scatter``. Every decision stays on the device.
+
+    ``p``: one ``BAProblem``, or a sequence of them that split the landmark
+    axis (``parallel.dist_ba.shard_problem``: each on its shard's device,
+    the poses, fixed mask and camera on every one). Each shard then builds
+    its landmarks' blocks and Schur pieces; the pieces and costs are summed
+    on the first shard's device, where the one solve and the accept
+    decision run, and ``dp`` and the decision go back to every shard. The
+    result lies on the first shard's device, the points and inlier masks
+    in the original landmark order."""
+    shards = (p,) if isinstance(p, BAProblem) else tuple(p)
+    dev0 = shards[0].R.device
+    n_kf = shards[0].R.shape[0]
+    fixed0 = shards[0].fixed.to(dev0)
+    delta2 = [lm.CHI2_MONO if s.obs_ur is None
+              else torch.where(s.obs_ur >= 0.0, lm.CHI2_STEREO, lm.CHI2_MONO)
+              for s in shards]
+    inlier = [torch.ones_like(s.obs_valid) for s in shards]
+    state = [(s.R, s.t, s.points) for s in shards]
+
+    def build(i, st, robust):
+        return _build_system(shards[i], *st, inlier[i], model_id, robust,
+                             delta2[i])
 
     for si, n_iters in enumerate(stages):
         robust = si < len(stages) - 1
-        state = (R, t, points)
-        sys_cur = _build_system(p, R, t, points, inlier, model_id, robust,
-                                delta2)
-        cost = sys_cur["cost"]
-        lam = torch.full((), 1e-4, dtype=torch.float32, device=R.device)
+        sys_cur = [build(i, st, robust) for i, st in enumerate(state)]
+        cost = sum_on([s_["cost"] for s_ in sys_cur], dev0)
+        lam = torch.full((), 1e-4, dtype=torch.float32, device=dev0)
         for _ in range(n_iters):
-            dp, dl = _schur_reduce(p, sys_cur, lam, n_kf, assembly)
-            cand = _retract(*state, dp, dl, p.fixed)
-            sys_cand = _build_system(p, *cand, inlier, model_id, robust,
-                                     delta2)
-            accept = sys_cand["cost"] < cost
-            state = tuple(torch.where(accept, b, a)
-                          for a, b in zip(state, cand))
-            sys_cur = {k: torch.where(accept, sys_cand[k], sys_cur[k])
-                       for k in _CARRIED}
+            pieces = [assembly(s.obs_kf, sys_cur[i], lam.to(s.R.device),
+                               n_kf) for i, s in enumerate(shards)]
+            dp = schur_solve(*(sum_on([pc[k] for pc in pieces], dev0)
+                               for k in ("Hpp", "bp", "cross", "corr")),
+                             lam, fixed0, n_kf)
+            cand, sys_cand = [], []
+            for i, s in enumerate(shards):
+                dp_i = dp.to(s.R.device)
+                dl = back_substitute(s.obs_kf, sys_cur[i],
+                                     pieces[i]["Hll_inv"],
+                                     pieces[i]["has_obs"], dp_i)
+                cand.append(_retract(*state[i], dp_i, dl, s.fixed))
+                sys_cand.append(build(i, cand[i], robust))
+            cost_cand = sum_on([s_["cost"] for s_ in sys_cand], dev0)
+            accept = cost_cand < cost
+            for i, s in enumerate(shards):
+                acc = accept.to(s.R.device)
+                state[i] = tuple(torch.where(acc, b, a)
+                                 for a, b in zip(state[i], cand[i]))
+                sys_cur[i] = {k: torch.where(acc, sys_cand[i][k],
+                                             sys_cur[i][k])
+                              for k in _CARRIED}
             lam = torch.where(accept, lam * 0.5, lam * 10.0)
-            cost = torch.where(accept, sys_cand["cost"], cost)
-        R, t, points = state
-        r, _, _, depth_ok = _residuals(p, R, t, points, model_id)
-        chi2 = (r * r).sum(-1) * p.obs_w
-        inlier = (chi2 <= delta2) & depth_ok
+            cost = torch.where(accept, cost_cand, cost)
+        for i, s in enumerate(shards):
+            r, _, _, depth_ok = _residuals(s, *state[i], model_id)
+            chi2 = (r * r).sum(-1) * s.obs_w
+            inlier[i] = (chi2 <= delta2[i]) & depth_ok
 
-    final = _build_system(p, R, t, points, inlier, model_id, False, delta2)
-    return BAResult(R=R, t=t, points=points,
-                    obs_inlier=inlier & final["mask"], cost=final["cost"])
+    final = [build(i, st, False) for i, st in enumerate(state)]
+    if len(shards) == 1:
+        (R, t, points), = state
+        return BAResult(R=R, t=t, points=points,
+                        obs_inlier=inlier[0] & final[0]["mask"],
+                        cost=final[0]["cost"])
+    return BAResult(
+        R=state[0][0].to(dev0), t=state[0][1].to(dev0),
+        points=torch.cat([st[2].to(dev0) for st in state]),
+        obs_inlier=torch.cat([(inlier[i] & f["mask"]).to(dev0)
+                              for i, f in enumerate(final)]),
+        cost=sum_on([f["cost"] for f in final], dev0))

@@ -8,6 +8,8 @@ dropped in the final round. The whole schedule is kernel K3
 XLA path. ``pose_optimization_stereo`` mixes mono rows with stereo rows
 (EdgeStereoSE3ProjectXYZOnlyPose: a third residual u_r - (u - bf / z), chi2
 gate and Huber delta^2 7.815); it is kernel K3s, K3 with its stereo flag.
+Both take the pinhole or the KB8 camera (``model_id``; the kernels carry
+both projections).
 
 State: camera pose Tcw as (R (3, 3), t (3,)). Left-multiplicative update
 T <- exp([rho, phi]) * T, so d(pc)/d(delta) = [I | -skew(pc)].
@@ -66,15 +68,6 @@ def _residuals_stereo(R, t, pts_w, obs_uv, obs_ur, bf, cam_params,
     return r, J, depth_ok, has_ur
 
 
-def _require_pinhole(what: str, model_id: int) -> None:
-    """K3 and K3s project through the pinhole: the systems rectify every
-    keypoint onto it at extraction, so no system passes another model."""
-    if model_id != cam.PINHOLE:
-        raise NotImplementedError(
-            f"{what}: camera model {model_id}: only PINHOLE; a native KB8 "
-            "projection inside K3 waits for ROADMAP item 10c")
-
-
 def pose_optimization(R0, t0, pts_w, obs_uv, inv_sigma2, valid, cam_params,
                       model_id: int = cam.PINHOLE, n_rounds: int = 4,
                       n_iters: int = 10) -> PoseOptResult:
@@ -87,10 +80,9 @@ def pose_optimization(R0, t0, pts_w, obs_uv, inv_sigma2, valid, cam_params,
     """
     from . import cuda_pose_opt
 
-    _require_pinhole("pose_optimization", model_id)
     R, t, chi2 = cuda_pose_opt.pose_optimization(
         R0, t0, pts_w, obs_uv, inv_sigma2, valid, cam_params,
-        n_rounds=n_rounds, n_iters=n_iters)
+        n_rounds=n_rounds, n_iters=n_iters, model_id=model_id)
     inlier = (chi2 <= cuda_pose_opt.CHI2_MONO) & valid
     return PoseOptResult(R=R, t=t, inlier=inlier,
                          n_inliers=inlier.sum(-1).to(torch.int32), chi2=chi2)
@@ -108,10 +100,9 @@ def pose_optimization_stereo(R0, t0, pts_w, obs_uv, obs_ur, bf, inv_sigma2,
     :func:`pose_optimization` (one K3s launch on the card)."""
     from . import cuda_pose_opt
 
-    _require_pinhole("pose_optimization_stereo", model_id)
     R, t, chi2 = cuda_pose_opt.pose_optimization_stereo(
         R0, t0, pts_w, obs_uv, obs_ur, bf, inv_sigma2, valid, cam_params,
-        n_rounds=n_rounds, n_iters=n_iters)
+        n_rounds=n_rounds, n_iters=n_iters, model_id=model_id)
     delta2 = torch.where(obs_ur >= 0.0, cuda_pose_opt.CHI2_STEREO,
                          cuda_pose_opt.CHI2_MONO)
     inlier = (chi2 <= delta2) & valid

@@ -65,7 +65,9 @@ def _leaf_key(x):
 
 
 @contextlib.contextmanager
-def _cusolver():
+def cusolver():
+    """Pin the dense solves to cuSOLVER inside the block (the library a
+    capture and :func:`disabled` use)."""
     lib = torch.backends.cuda.preferred_linalg_library()
     torch.backends.cuda.preferred_linalg_library("cusolver")
     try:
@@ -77,7 +79,7 @@ def _cusolver():
 def _capture(fn, leaves, spec):
     static = [x.clone() if isinstance(x, torch.Tensor) else x for x in leaves]
     args = pytree.tree_unflatten(static, spec)
-    with _cusolver():
+    with cusolver():
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
@@ -103,7 +105,7 @@ def call(name: str, fn, *args):
     if dev is None or dev.type != "cuda":
         return fn(*args)
     if not _ENABLED[-1]:
-        with _cusolver():
+        with cusolver():
             return fn(*args)
     key = (name, str(spec), tuple(_leaf_key(x) for x in leaves))
     entry = _GRAPHS.get(key)

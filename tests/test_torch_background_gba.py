@@ -19,6 +19,7 @@ from torch_port_util import n, t
 from orbslam3_byzyh_tpu.pipeline import mapping as jmapping
 from orbslam3_byzyh_tpu.pipeline.background_gba import BackgroundGBA as JGBA
 from orbslam3_byzyh_tpu_torch import convert
+from orbslam3_byzyh_tpu_torch.parallel import dist_ba
 from orbslam3_byzyh_tpu_torch.pipeline import mapping as tmapping
 from orbslam3_byzyh_tpu_torch.pipeline.background_gba import (
     BackgroundGBA as TGBA)
@@ -63,8 +64,11 @@ def test_global_ba(noisy_map):
     np.testing.assert_array_equal(n(got.obs.valid), np.asarray(ref.obs.valid))
     np.testing.assert_array_equal(n(got.lms.valid), np.asarray(ref.lms.valid))
     np.testing.assert_array_equal(n(got.kfs.t)[0], np.asarray(state.kfs.t)[0])
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tmapping.global_ba(_port(state), t(K_PARAMS), mesh=object())
+    # Over a device mesh (4 CPU shards of the 512 landmark slots): the
+    # same result within the same tolerances.
+    mesh = dist_ba.make_mesh(devices=["cpu"] * 4)
+    _close_states(tmapping.global_ba(_port(state), t(K_PARAMS), mesh=mesh),
+                  ref, n_kf)
 
 
 class TestBackgroundGBA:

@@ -755,3 +755,58 @@ def test_p1_prefetcher_on_the_card(dev, gen, tmp_path):
     for (i, im), p in zip(got, paths):
         assert im.is_cuda
         np.testing.assert_array_equal(im.cpu().numpy(), png.read_grey(p))
+
+
+def _f64(x):
+    return (x.double() if isinstance(x, torch.Tensor) and x.is_floating_point()
+            else x)
+
+
+@pytest.mark.parametrize("stereo", [False, True])
+def test_k3_kb8_kernel_matches_float64_plain(dev, stereo):
+    """K3 and K3s with the KB8 camera (TUM-VI 512's coefficients, 1000
+    points out to 85 degrees, ``graft.kb8_pose_problem``): one launch of
+    the kernel's own launcher, within 1e-4 of the float64 plain version,
+    inliers within 2."""
+    from orbslam3_byzyh_tpu_torch.ops import camera as cam
+    p = graft.kb8_pose_problem(1000, stereo=stereo)
+    args = tuple(a if isinstance(a, float) else _t(a, dev) for a in p)
+    fn = cuda_pose_opt.STEREO_FN if stereo else cuda_pose_opt.MONO_FN
+    kernel = (cuda_pose_opt.pose_optimization_stereo_kernel if stereo
+              else cuda_pose_opt.pose_optimization_kernel)
+    plain = (cuda_pose_opt.pose_optimization_stereo_plain if stereo
+             else cuda_pose_opt.pose_optimization_plain)
+    before = cuda_pose_opt.KERNEL.fn_launches[fn]
+    Rk, tk, ck = kernel(*args, model_id=cam.KB8)
+    assert cuda_pose_opt.KERNEL.fn_launches[fn] == before + 1
+    Rp, tp, cp = plain(*(_f64(a) for a in args), model_id=cam.KB8)
+    torch.cuda.synchronize()
+    assert float((Rk.double() - Rp).abs().max()) <= 1e-4
+    assert float((tk.double() - tp).abs().max()) <= 1e-4
+    valid = args[7] if stereo else args[5]
+    gate = (torch.where(args[4] >= 0, cuda_pose_opt.CHI2_STEREO,
+                        cuda_pose_opt.CHI2_MONO) if stereo
+            else cuda_pose_opt.CHI2_MONO)
+    nk = int(((ck <= gate) & valid).sum())
+    npl = int(((cp <= gate) & valid).sum())
+    assert abs(nk - npl) <= 2
+    with pytest.raises(ValueError, match="8 parameters"):
+        kernel(*(a[:4] if i == len(args) - 1 else a
+                 for i, a in enumerate(args)), model_id=cam.KB8)
+
+
+def test_sharded_global_ba_on_one_card(dev):
+    """``mapping.global_ba`` over a 4-shard mesh on cuda:0 against the
+    unsharded call (tests/test_dist_ba.py's tolerances: R 5e-4, t 5e-3),
+    on ``graft.make_tiny_map_state`` with stereo rows; the dry run."""
+    from orbslam3_byzyh_tpu_torch.parallel import dist_ba
+    from orbslam3_byzyh_tpu_torch.pipeline import mapping
+    st, camp, bf = graft.make_tiny_map_state(n_kf=6, n_lm=64, device=dev)
+    mesh = dist_ba.make_mesh(4, devices=[dev] * 4)
+    assert all(d == torch.device("cuda", 0) for d in mesh.devices)
+    a = mapping.global_ba(st, camp, use_stereo=True, bf=bf, mesh=mesh)
+    b = mapping.global_ba(st, camp, use_stereo=True, bf=bf)
+    assert float((a.kfs.R - b.kfs.R).abs().max()) <= 5e-4
+    assert float((a.kfs.t - b.kfs.t).abs().max()) <= 5e-3
+    state, res = graft.dryrun_multichip(4)
+    assert state.kfs.R.is_cuda and float(res.cost) >= 0.0

@@ -11,12 +11,14 @@ equal); its poses equal the same port system driven directly with those
 frames. ``test_torch_runners_more.py`` holds the other four runners.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
 from orbslam3_byzyh_tpu_torch import graft, runners
-from orbslam3_byzyh_tpu_torch.io import rectify
+from orbslam3_byzyh_tpu_torch.io import png, rectify
 from torch_runner_util import (Run, assert_calls_equal,
                                assert_direct_drive_equal, assert_outputs,
                                jax_calls)
@@ -86,9 +88,21 @@ def test_kitti_direct_drive(kitti):
                                   "main_euroc_mono_inertial",
                                   "main_euroc_stereo_inertial"])
 def test_snapshot_every_raises_naming_the_viewer_item(main, tmp_path):
-    with pytest.raises(NotImplementedError, match="15d"):
-        getattr(runners, main)([str(tmp_path / "s.yaml"), str(tmp_path),
-                                "--snapshot-every", "5", "--device", "cpu"])
+    # The viewer (ROADMAP item 15d) is ported: ``--snapshot-every`` no
+    # longer raises but writes the map every N frames beside the runner's
+    # other files (test_torch_viewer.py holds the images).
+    kind = {"main_euroc_mono": "euroc_mono",
+            "main_euroc_mono_inertial": "euroc_mono_inertial",
+            "main_euroc_stereo_inertial": "euroc_stereo_inertial"}[main]
+    d = graft.write_runner_dataset(kind, str(tmp_path / "data"), n_frames=2,
+                                   small=True)
+    res = getattr(runners, main)(d.argv + ["--device", "cpu", "--max-kf",
+                                           "48", "--max-lm", "8192",
+                                           "--snapshot-every", "1"],
+                                 out_dir=str(tmp_path))
+    snaps = [os.path.basename(p) for p in res.outputs if p.endswith(".png")]
+    assert snaps == ["map_00001.png", "map_00002.png"]
+    assert png.read_rgb(str(tmp_path / snaps[-1])).shape == (480, 640, 3)
 
 
 def test_runners_default_to_the_card(monkeypatch, tmp_path):

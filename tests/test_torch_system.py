@@ -339,8 +339,9 @@ def test_unported_options_raise(option, item):
     ported (items 12a-12c): one that is not the port's is refused, and
     with a port vocabulary the system closes loops and its merge branch
     mines the other maps (none here). A KB8 camera is ported (item 10b):
-    the system builds, and only the native KB8 pose optimizer, which no
-    system calls, raises, naming item 10c."""
+    the system builds; the native KB8 pose optimizer, which no system
+    calls, is ported too (item 10c): with the camera's 8 parameters it
+    solves, with the pinhole's 4 it refuses the call."""
     if option == "chessboard":
         slam = tsys.MonoSlam(tsys.SlamConfig(
             **CFG, chessboard=graft.MYCAMERA_BOARD), device="cpu")
@@ -375,9 +376,17 @@ def test_unported_options_raise(option, item):
         return
     slam = tsys.MonoSlam(cfg, device="cpu")
     assert slam.kb8 is not None
+    from orbslam3_byzyh_tpu_torch.ops import camera as tcam
     from orbslam3_byzyh_tpu_torch.solver import pose_opt
-    with pytest.raises(NotImplementedError, match=f"item {item}c"):
-        pose_opt.pose_optimization(
-            torch.eye(3), torch.zeros(3), torch.ones(4, 3),
-            torch.zeros(4, 2), torch.ones(4), torch.ones(4, dtype=bool),
-            slam.cam_params, model_id=1)
+    cam8 = torch.cat([slam.cam_params, slam.kb8])
+    pts = torch.tensor([[0.3, 0.1, 2.0], [-0.4, 0.2, 3.0], [0.1, -0.3, 2.5],
+                        [0.5, 0.4, 4.0], [-0.2, -0.1, 1.5],
+                        [0.0, 0.3, 3.5]])
+    args = (torch.eye(3), torch.tensor([0.02, 0.0, 0.0]), pts,
+            tcam.kb8_project(cam8, pts), torch.ones(6),
+            torch.ones(6, dtype=bool))
+    res = pose_opt.pose_optimization(*args, cam8, model_id=tcam.KB8)
+    assert float(res.t.abs().max()) < 1e-3 and int(res.n_inliers) == 6
+    with pytest.raises(ValueError, match="8 parameters"):
+        pose_opt.pose_optimization(*args, slam.cam_params,
+                                   model_id=tcam.KB8)
